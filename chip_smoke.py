@@ -3,22 +3,36 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phases, one line each (any failure exits non-zero, with no result line):
+Phases, one line or more each (any failure exits non-zero, with no result
+line):
   1. a CUDA device is present; the card's name and power limit;
-  2. the CUDA kernel builds from the checkout's sources (nvcc, sm_90a);
-  3. the kernel against its plain torch version on the card, on the main
-     path's inputs (Morton-ordered pixels, quota 4): cornell and
-     three-spheres at 256x192, and cornell at the main path's 1024x768, with
-     both uniform sources; a build without FMA contraction must equal the
-     plain version bit for bit; times of both at 1024x768;
-  4. the main path: render(cornell, 512 spp, 1024x768, device="cuda"), which
-     must launch the kernel; the image is finite and sane; a small render
-     on the card agrees with the same render on the CPU far inside Monte
-     Carlo noise (same counter-based random numbers on both);
-  5. the CLI in a subprocess writes a PPM that parses.
-Then a JSON line per kernel, and last {"ok": true, "device": {...}}.
+  2. the four CUDA kernels build from the checkout's sources (nvcc, sm_90a),
+     each with and without FMA contraction, all builds started together:
+     K1 trace_regen, K2 trace_cheap_regen, K3 trace_resolve_pool,
+     K4 trace_regen_prim;
+  3. each kernel against its plain torch version on the card, at the main
+     path's inputs: a build without FMA contraction must equal the plain
+     version bit for bit, the default build agree on a stated share of
+     lanes. K1: cornell and three-spheres at 256x192 and cornell at
+     1024x768, quota 4, both uniform sources. K4: mesh at 256x192, quota 4,
+     both sources. K2 and K3: a mesh pool at 256x192 with park depth 3 and
+     step cap 64 over several cycles, K3 with both sources; then three
+     cycles of a fresh 1024x768 pool. Times of every kernel and its plain
+     version at the main path's shapes (CUDA events; K2 and K3 on the
+     third cycle of the 1024x768 pool, the bulk phase of a drive);
+  4. the main paths through render(), each with the launch counts set to
+     0 just before and read just after: cornell 1024x768 at 512 spp (K1);
+     mesh 1024x768 at 1024 spp through the portal (K2 and K3; per-pixel
+     counts exact); mesh 1024x768 at 64 spp under PT_TPU_NO_PORTAL (K4);
+     small cornell and mesh renders on the card agree with the same
+     renders on the CPU far inside Monte Carlo noise; a portal render
+     cancelled at its first poll keeps exactly the samples it traced;
+  5. the CLI in a subprocess writes a PPM that parses (cornell and mesh).
+Then a JSON line per kernel, the card's line, and last
+{"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import glob
 import json
 import os
@@ -28,17 +42,27 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SRC = "path_tracer_tpu_torch/csrc/trace_regen.cu"
-KERNEL_REPLACES = "path_tracer_tpu/ops/pallas/trace_v2.py:615"
-LANE_TOL = 1e-3  # |Δ|₁ per pixel counted as agreeing
-# Share of pixels that must agree: the lane share the CPU tests hold the
-# plain version to against JAX. nvcc contracts a*b+c into FMAs where torch
+LANE_TOL = 1e-3  # |Δ|₁ per pixel (or per pool column) counted as agreeing
+# Share of lanes that must agree: the lane share the CPU tests hold the
+# plain versions to against JAX. nvcc contracts a*b+c into FMAs where torch
 # rounds twice; along long closed-box paths (cornell, depth 12) such ulps
-# part a few trajectories (H100: 0.9975 counter, 0.9961 table). A build
-# with --fmad=false is held to bit equality instead.
+# part a few trajectories (H100: 0.9975 counter, 0.9961 table for K1). A
+# build with --fmad=false is held to bit equality instead.
 LANE_FRAC = 0.995
 SEG_TOL = 0.005  # segment totals, kernel against plain, as in the CPU tests
 
+# Bounds (published peaks of an H100 SXM at 700 W)
+PEAK_FP32 = 67e12  # flop/s, FP32 outside the tensor cores
+MEM_BW = 3.35e12  # bytes/s of HBM
+# Essential flops (adds, muls, divides, square roots, as
+# scripts/count_flops.py counts them) of the kernels' pieces:
+FLOPS_K1_SEGMENT = 608  # a cornell segment of K1, count_flops.py
+FLOPS_TRI = 41  # one triangle/quad row, affine feature form
+FLOPS_SPHERE = 41  # one expanded sphere test
+FLOPS_SLAB = 24  # one AABB slab test
+FLOPS_SHADE = 152  # shade_phase, count_flops.py
+FLOPS_HIT = 29  # m = o x d, the hit point and its normal
+FLOPS_RAYGEN = 40  # a tent-filtered camera ray
 
 FAILURES: list[str] = []
 
@@ -72,6 +96,281 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time for the work: bytes over HBM rate or flops over the
+    FP32 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / MEM_BW * 1e3, flops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def isect_flops(work: dict, segments: int) -> float:
+    return (segments * (FLOPS_SHADE + FLOPS_HIT)
+            + work.get("sph", 0) * FLOPS_SPHERE
+            + work.get("tri", 0) * FLOPS_TRI + work.get("slab", 0) * FLOPS_SLAB)
+
+
+def lane_share(a, b, dim=1) -> float:
+    """Share of lanes whose values agree within LANE_TOL (|Δ|₁)."""
+    return float(((a - b).abs().sum(dim=dim) < LANE_TOL).float().mean())
+
+
+KERNELS = (  # name, source, the TPU kernel it replaces
+    ("trace_regen", "trace_regen.cu",
+     "path_tracer_tpu/ops/pallas/trace_v2.py:615"),
+    ("trace_cheap_regen", "portal_cheap.cu",
+     "path_tracer_tpu/ops/pallas/portal.py:557"),
+    ("trace_resolve_pool", "portal_resolve.cu",
+     "path_tracer_tpu/ops/pallas/portal.py:802"),
+    ("trace_regen_prim", "trace_regen_prim.cu",
+     "path_tracer_tpu/ops/pallas/trace_kernel.py:1296"),
+)
+CSRC = "path_tracer_tpu_torch/csrc/"
+
+
+def build_all():
+    """Build every kernel both ways, one nvcc per build, started together."""
+    from path_tracer_tpu_torch.ops.kernels.build import load_kernel
+
+    jobs = {f"{name} fmad={fmad}": (os.path.join(ROOT, CSRC, src), fmad)
+            for fmad in (True, False) for name, src, _ in KERNELS}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(load_kernel, *args) for name, args in jobs.items()}
+        lines = []
+        for name, fut in futs.items():
+            built = fut.result()
+            regs = [ln.split(":", 1)[-1].strip() for ln in built.log.splitlines()
+                    if "registers" in ln]
+            lines.append(f"{name}: {os.path.relpath(built.path, ROOT)} in "
+                         f"{built.seconds:.1f} s, ptxas: {' | '.join(regs)}")
+    return lines
+
+
+def check_k1(scenes, dev, card):
+    """K1 against its plain version; returns its kernels-line numbers."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.ops.kernels import trace_v2
+    from path_tracer_tpu_torch.render.pipeline import (
+        morton_pixel_order, prepare_scene,
+    )
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    quota, seed, base = 4, 7, 4
+    main_res = Resolution(768, 1024)
+    cases = [(sid, Resolution(192, 256)) for sid in ("cornell", "three-spheres")]
+    cases.append(("cornell", main_res))
+    out = {"max_abs_err": 0.0}
+    for sid, res in cases:
+        scene_c, cam_c = prepare_scene(scenes[sid], res, dev)
+        pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(dev)
+        table = torch.from_numpy(np.random.default_rng(3).random(
+            (6, pix.shape[0]), dtype=np.float32)).to(dev)
+        for source, uni in (("counter", None), ("table", table)):
+            tag = f"K1 {sid} {res.width}x{res.height}/{source}"
+            kw = dict(seed=seed, sample_base=base, quota=quota, uniforms=uni)
+            rad_k, seg_k, done_k = trace_v2.trace_regen(scene_c, cam_c, pix, **kw)
+            rad_p, seg_p, done_p = trace_v2.trace_regen_plain(
+                scene_c, cam_c, pix, **kw)
+            torch.cuda.synchronize()
+            if not (bool((done_k == quota).all()) and bool((done_p == quota).all())):
+                fail(f"{tag}: per-pixel sample counts != quota")
+            if not bool(torch.isfinite(rad_k).all()):
+                fail(f"{tag}: non-finite kernel radiance")
+            frac = lane_share(rad_k, rad_p)
+            err = float((rad_k - rad_p).abs().max())
+            seg_ratio = int(seg_k.sum(dtype=torch.int64)) / max(
+                int(seg_p.sum(dtype=torch.int64)), 1)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            print(f"phase 3 {tag}: {frac:.5f} of pixels within {LANE_TOL} "
+                  f"(need {LANE_FRAC}); max |err| {err:.3g}; "
+                  f"segments kernel/plain {seg_ratio:.5f}", flush=True)
+            if frac < LANE_FRAC or abs(seg_ratio - 1.0) > SEG_TOL:
+                fail(f"{tag}: kernel disagrees with its plain version")
+            exact = trace_v2.trace_regen(scene_c, cam_c, pix, fmad=False, **kw)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(exact, (rad_p, seg_p, done_p))):
+                fail(f"{tag}: the --fmad=false kernel is not bit-exact with "
+                     "its plain version")
+            if res == main_res and source == "counter":
+                out["ms"] = cuda_ms(
+                    lambda: trace_v2.trace_regen(scene_c, cam_c, pix, **kw), 10)
+                out["plain_ms"] = cuda_ms(
+                    lambda: trace_v2.trace_regen_plain(scene_c, cam_c, pix, **kw), 1)
+                segs = int(seg_p.sum(dtype=torch.int64))
+                n = pix.shape[0]
+                out["bound_ms"], out["bound_by"] = bound_ms(
+                    n * (4 + 20), segs * FLOPS_K1_SEGMENT)
+    print(f"phase 3 K1 cornell 1024x768 quota {quota}: kernel {out['ms']:.3f} ms, "
+          f"plain {out['plain_ms']:.1f} ms, bound {out['bound_ms']:.3f} ms "
+          f"({out['bound_by']}) ({card})", flush=True)
+    return out
+
+
+def check_k4(mesh, dev, card, small, main):
+    """K4 against its plain version; returns its kernels-line numbers."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel
+    from path_tracer_tpu_torch.render.pipeline import (
+        morton_pixel_order, prepare_render,
+    )
+
+    quota, seed, base = 4, 7, 4
+    out = {"max_abs_err": 0.0}
+    for res in (small, main):
+        prep = prepare_render(mesh, res, dev)
+        ks = prep.kscene
+        pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(dev)
+        table = torch.from_numpy(np.random.default_rng(3).random(
+            (6, pix.shape[0]), dtype=np.float32)).to(dev)
+        sources = (("counter", None), ("table", table)) if res == small else (
+            ("counter", None),)
+        for source, uni in sources:
+            tag = f"K4 mesh {res.width}x{res.height}/{source}"
+            kw = dict(seed=seed, sample_base=base, quota=quota, uniforms=uni)
+            work: dict = {}
+            rad_k, seg_k, done_k = trace_kernel.trace_regen_prim(
+                ks, prep.cam, pix, **kw)
+            t0 = time.perf_counter()
+            rad_p, seg_p, done_p = trace_kernel.trace_regen_prim_plain(
+                ks, prep.cam, pix, work=work, **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if not (bool((done_k == quota).all()) and bool((done_p == quota).all())):
+                fail(f"{tag}: per-pixel sample counts != quota")
+            if not bool(torch.isfinite(rad_k).all()):
+                fail(f"{tag}: non-finite kernel radiance")
+            frac = lane_share(rad_k, rad_p)
+            err = float((rad_k - rad_p).abs().max())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            seg_ratio = int(seg_k.sum(dtype=torch.int64)) / max(
+                int(seg_p.sum(dtype=torch.int64)), 1)
+            print(f"phase 3 {tag}: {frac:.5f} of pixels within {LANE_TOL} "
+                  f"(need {LANE_FRAC}); max |err| {err:.3g}; segments "
+                  f"kernel/plain {seg_ratio:.5f}; plain {plain_s:.1f} s", flush=True)
+            if frac < LANE_FRAC or abs(seg_ratio - 1.0) > SEG_TOL:
+                fail(f"{tag}: kernel disagrees with its plain version")
+            exact = trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False, **kw)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(exact, (rad_p, seg_p, done_p))):
+                fail(f"{tag}: the --fmad=false kernel is not bit-exact with "
+                     "its plain version")
+            if res == main:
+                out["ms"] = cuda_ms(
+                    lambda: trace_kernel.trace_regen_prim(ks, prep.cam, pix, **kw), 3)
+                out["plain_ms"] = plain_s * 1e3
+                n = pix.shape[0]
+                segs = int(seg_p.sum(dtype=torch.int64))
+                out["bound_ms"], out["bound_by"] = bound_ms(
+                    n * (4 + 20), isect_flops(work, segs)
+                    + n * quota * FLOPS_RAYGEN)
+    print(f"phase 3 K4 mesh {main.width}x{main.height} quota {quota}: kernel "
+          f"{out['ms']:.3f} ms, plain {out['plain_ms']:.1f} ms, bound "
+          f"{out['bound_ms']:.3f} ms ({out['bound_by']}) ({card})", flush=True)
+    return out
+
+
+def check_portal(mesh, dev, card, small, main):
+    """K2 and K3 against their plain versions over cycles of a drive, and
+    timed on the third cycle of a fresh 1024x768 pool (the bulk phase);
+    returns the two kernels-line dicts."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.ops.kernels import portal as pk
+    from path_tracer_tpu_torch.render import portal as rp
+    from path_tracer_tpu_torch.render.pipeline import prepare_render
+
+    park_k, step_cap, seed, max_depth = 3, 64, 7, 12
+    k2 = {"max_abs_err": 0.0}
+    k3 = {"max_abs_err": 0.0}
+
+    def compare(tag, kern, exact, plain, rec):
+        (pk_, ck), (pe, ce), (pp, cp) = kern, exact, plain
+        torch.cuda.synchronize()
+        if not (torch.equal(pe, pp) and torch.equal(ce, cp)):
+            fail(f"{tag}: the --fmad=false kernel is not bit-exact with its "
+                 "plain version")
+        if not bool(torch.isfinite(pk_).all()):
+            fail(f"{tag}: non-finite pool")
+        frac = lane_share(pk_, pp, dim=0)
+        err = float((pk_ - pp).abs().max())
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"phase 3 {tag}: {frac:.5f} of slots within {LANE_TOL} "
+              f"(need {LANE_FRAC}); max |err| {err:.3g}; segments "
+              f"{int(ck.sum())}/{int(cp.sum())}", flush=True)
+        if frac < LANE_FRAC:
+            fail(f"{tag}: kernel disagrees with its plain version")
+
+    for res, cycles in ((small, 6), (main, 3)):
+        prep = prepare_render(mesh, res, dev)
+        pc, cam, ks = prep.portal, prep.cam, prep.kscene
+        npix = res.num_pixels
+        n = rp._round_block(npix)
+        pool = rp.make_pool_v2(npix, n, 256, park_k=park_k, device=dev)
+        cheap = dict(seed=seed, quota=256, sample_base=0, step_cap=step_cap,
+                     park_k=park_k, max_depth=max_depth)
+        resolve = dict(seed=seed, parts=park_k + 1, park_k=park_k,
+                       max_depth=max_depth)
+        table = torch.from_numpy(np.random.default_rng(4).random(
+            (4, (park_k + 1) * n), dtype=np.float32)).to(dev)
+        for cyc in range(cycles):
+            tag = f"{res.width}x{res.height} cycle {cyc}"
+            last = res == main and cyc == cycles - 1
+            if last:  # the main path's shape, bulk phase: time both kernels
+                w2: dict = {}
+                w3: dict = {}
+                k2["ms"] = cuda_ms(lambda: pk.trace_cheap_regen(
+                    pc, cam, pool, **cheap), 5)
+                t0 = time.perf_counter()
+                p2 = pk.trace_cheap_regen_plain(pc, cam, pool, work=w2, **cheap)
+                torch.cuda.synchronize()
+                k2["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                nbytes = 2 * pool.numel() * 4 + n * 4
+                flops = (w2.get("scan", 0) * (
+                    FLOPS_SLAB + pc.scene.prims.shape[0] * FLOPS_TRI)
+                    + w2.get("shade", 0) * (FLOPS_SHADE + FLOPS_HIT)
+                    + w2.get("regen", 0) * FLOPS_RAYGEN)
+                k2["bound_ms"], k2["bound_by"] = bound_ms(nbytes, flops)
+            else:
+                p2 = pk.trace_cheap_regen_plain(pc, cam, pool, **cheap)
+            compare(f"K2 {tag}", pk.trace_cheap_regen(pc, cam, pool, **cheap),
+                    pk.trace_cheap_regen(pc, cam, pool, fmad=False, **cheap),
+                    p2, k2)
+            pool = p2[0]
+            sources = (("counter", None), ("table", table)) if (
+                res == small) else (("counter", None),)
+            for source, uni in sources:
+                kw = dict(resolve, uniforms=uni)
+                if last and source == "counter":
+                    k3["ms"] = cuda_ms(lambda: pk.trace_resolve_pool(
+                        ks, pool, **kw), 5)
+                    t0 = time.perf_counter()
+                    p3 = pk.trace_resolve_pool_plain(ks, pool, work=w3, **kw)
+                    torch.cuda.synchronize()
+                    k3["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                    k3["bound_ms"], k3["bound_by"] = bound_ms(
+                        2 * pool.numel() * 4 + n * 4,
+                        isect_flops(w3, int(p3[1].sum())))
+                else:
+                    p3 = pk.trace_resolve_pool_plain(ks, pool, **kw)
+                compare(f"K3 {tag}/{source}",
+                        pk.trace_resolve_pool(ks, pool, **kw),
+                        pk.trace_resolve_pool(ks, pool, fmad=False, **kw),
+                        p3, k3)
+                if uni is None:
+                    next_pool = p3[0]
+            pool = next_pool
+    for name, rec in (("K2", k2), ("K3", k3)):
+        print(f"phase 3 {name} mesh {main.width}x{main.height} pool, cycle 2: "
+              f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, "
+              f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}) ({card})",
+              flush=True)
+    return k2, k3
+
+
 def main() -> int:
     import torch
 
@@ -82,11 +381,9 @@ def main() -> int:
     import numpy as np
 
     import path_tracer_tpu_torch as pt
-    from path_tracer_tpu_torch.ops.kernels import trace_v2
+    from path_tracer_tpu_torch.ops.kernels import portal as pk
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
     from path_tracer_tpu_torch.render.image import read_ppm
-    from path_tracer_tpu_torch.render.pipeline import (
-        morton_pixel_order, prepare_scene,
-    )
     from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 
     dev = torch.device("cuda")
@@ -94,135 +391,161 @@ def main() -> int:
     print(f"phase 1 ok: card {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    builds = []
-    for fmad in (True, False):
-        built = trace_v2.build_kernel(fmad)
-        regs = [ln.split(":", 1)[-1].strip() for ln in built.log.splitlines()
-                if "registers" in ln]
-        builds.append(f"{os.path.relpath(built.path, ROOT)} (fmad={fmad}) in "
-                      f"{built.seconds:.2f} s, ptxas: {' | '.join(regs)}")
-    print(f"phase 2 ok: built {'; '.join(builds)}", flush=True)
+    t0 = time.perf_counter()
+    for line in build_all():
+        print(f"phase 2 built {line}", flush=True)
+    print(f"phase 2 ok: 8 builds in {time.perf_counter() - t0:.1f} s", flush=True)
 
     scenes = {sid: pt.load_scene(sid, os.path.join(ROOT, "scenes"),
                                  os.path.join(ROOT, "meshes"))
-              for sid in ("cornell", "three-spheres")}
+              for sid in ("cornell", "three-spheres", "mesh")}
+    small, main_res = Resolution(192, 256), Resolution(768, 1024)
 
-    # ---- phase 3: kernel against its plain version ----
-    # 256x192 for both scenes, and cornell at the main path's own shape
-    # (all 1024x768 pixels in one launch, Morton order); quota 4 keeps the
-    # plain version to seconds. Times are taken at the main path's shape.
-    quota, seed, base = 4, 7, 4
-    main_res = Resolution(768, 1024)
-    cases = [(sid, Resolution(192, 256)) for sid in scenes]
-    cases.append(("cornell", main_res))
-    worst_err, kernel_ms, plain_ms = 0.0, None, None
-    for sid, res in cases:
-        scene_c, cam_c = prepare_scene(scenes[sid], res, dev)
-        pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(dev)
-        table = torch.from_numpy(np.random.default_rng(3).random(
-            (6, pix.shape[0]), dtype=np.float32)).to(dev)
-        for source, uni in (("counter", None), ("table", table)):
-            tag = f"{sid} {res.width}x{res.height}/{source}"
-            kw = dict(seed=seed, sample_base=base, quota=quota, uniforms=uni)
-            rad_k, seg_k, done_k = trace_v2.trace_regen(scene_c, cam_c, pix, **kw)
-            rad_p, seg_p, done_p = trace_v2.trace_regen_plain(
-                scene_c, cam_c, pix, **kw)
-            torch.cuda.synchronize()
-            if not (bool((done_k == quota).all()) and bool((done_p == quota).all())):
-                fail(f"{tag}: per-pixel sample counts != quota")
-            if not bool(torch.isfinite(rad_k).all()):
-                fail(f"{tag}: non-finite kernel radiance")
-            diff = (rad_k - rad_p).abs().sum(dim=1)
-            frac = float((diff < LANE_TOL).float().mean())
-            err = float((rad_k - rad_p).abs().max())
-            seg_ratio = int(seg_k.sum(dtype=torch.int64)) / max(
-                int(seg_p.sum(dtype=torch.int64)), 1)
-            worst_err = max(worst_err, err)
-            print(f"phase 3 {tag}: {frac:.5f} of pixels within {LANE_TOL} "
-                  f"(need {LANE_FRAC}); max |err| {err:.3g}; "
-                  f"segments kernel/plain {seg_ratio:.5f}", flush=True)
-            if frac < LANE_FRAC or abs(seg_ratio - 1.0) > SEG_TOL:
-                fail(f"{tag}: kernel disagrees with its plain version")
-            # without FMA contraction the kernel is the plain version, bit
-            # for bit: any difference here is a fault in the kernel's logic
-            exact = trace_v2.trace_regen(scene_c, cam_c, pix, fmad=False, **kw)
-            if not all(torch.equal(a, b) for a, b in
-                       zip(exact, (rad_p, seg_p, done_p))):
-                fail(f"{tag}: the --fmad=false kernel is not bit-exact with "
-                     "its plain version")
-            if res == main_res and source == "counter":
-                kernel_ms = cuda_ms(
-                    lambda: trace_v2.trace_regen(scene_c, cam_c, pix, **kw), 10)
-                plain_ms = cuda_ms(
-                    lambda: trace_v2.trace_regen_plain(scene_c, cam_c, pix, **kw), 1)
-    print(f"phase 3 done: cornell 1024x768 quota {quota}: kernel {kernel_ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms ({card})", flush=True)
+    # ---- phase 3: kernels against their plain versions ----
+    k1 = check_k1(scenes, dev, card)
+    k4 = check_k4(scenes["mesh"], dev, card, small, main_res)
+    k2, k3 = check_portal(scenes["mesh"], dev, card, small, main_res)
+    print("phase 3 done", flush=True)
 
-    # ---- phase 4: the main path through render() ----
-    cornell = scenes["cornell"]
-    cfg = RenderConfig(samples_per_pixel=512, resolution=Resolution(768, 1024))
-    with tempfile.TemporaryDirectory() as tmp:
-        trace_v2.trace_regen.launches = 0
-        done = pt.render(cornell, cfg, device="cuda", out_dir=tmp, verbose=False)
-        launches = trace_v2.trace_regen.launches
-        again = pt.render(cornell, cfg, device="cuda", out_dir=None, verbose=False)
-    img = done.image.pixels
-    if launches <= 0:
-        fail("render(device='cuda') did not launch the kernel")
-    if img.shape != (1024 * 768, 3) or not np.isfinite(img).all():
-        fail(f"bad image: shape {img.shape}")
-    mean = img.mean(axis=0)
-    if not ((mean > 0.2).all() and (mean < 0.8).all()):
-        fail(f"cornell mean radiance {mean} outside (0.2, 0.8)")
-    s, s2 = done.stats, again.stats
-    print(f"phase 4: cornell 1024x768 512 spp: {launches} launches; "
-          f"{s.wall_seconds:.3f} s, {s.mrays_per_sec:.1f} Mray/s, "
-          f"{s.msamples_per_sec:.1f} Msamples/s; repeat {s2.wall_seconds:.3f} s, "
-          f"{s2.mrays_per_sec:.1f} Mray/s; mean {mean.round(4).tolist()} "
-          f"({card})", flush=True)
+    # ---- phase 4: the main paths through render() ----
+    counters = (trace_v2.trace_regen, pk.trace_cheap_regen,
+                pk.trace_resolve_pool, trace_kernel.trace_regen_prim)
 
-    small = RenderConfig(samples_per_pixel=64, resolution=Resolution(24, 36))
-    img_gpu = pt.render(cornell, small, device="cuda", out_dir=None,
-                        verbose=False).image.pixels
-    img_cpu = pt.render(cornell, small, device="cpu", out_dir=None,
-                        verbose=False).image.pixels
-    img_cpu1 = pt.render(cornell, small.with_(seed=1), device="cpu",
-                         out_dir=None, verbose=False).image.pixels
-    same_seed = float(np.abs(img_gpu - img_cpu).mean())
-    noise = float(np.abs(img_cpu1 - img_cpu).mean())
-    print(f"phase 4: small cornell cuda vs cpu mean |Δ| {same_seed:.5f}, "
-          f"cpu seed 0 vs 1 {noise:.5f}", flush=True)
-    if not same_seed <= 0.25 * noise:
-        fail("the CUDA render disagrees with the CPU render beyond ulp flips")
+    def run(scene, cfg, env=None):
+        """render() on the card with the launch counts zeroed just before
+        and read just after; returns (RenderDone, launches per kernel)."""
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            for c in counters:
+                c.launches = 0
+            with tempfile.TemporaryDirectory() as tmp:
+                done = pt.render(scene, cfg, device="cuda", out_dir=tmp,
+                                 verbose=False)
+            return done, [c.launches for c in counters]
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def report(tag, done, launches, want_mean=None):
+        img = done.image.pixels
+        s = done.stats
+        if img.shape != (1024 * 768, 3) or not np.isfinite(img).all():
+            fail(f"{tag}: bad image, shape {img.shape}")
+        mean = img.mean(axis=0)
+        if want_mean and not ((mean > want_mean[0]).all()
+                              and (mean < want_mean[1]).all()):
+            fail(f"{tag}: mean radiance {mean} outside {want_mean}")
+        print(f"phase 4 {tag}: launches K1/K2/K3/K4 {launches}; "
+              f"{s.wall_seconds:.3f} s, {s.mrays_per_sec:.1f} Mray/s, "
+              f"{s.msamples_per_sec:.1f} Msamples/s, {s.num_samples} samples, "
+              f"{s.num_rays} segments, {s.extra}; mean {mean.round(4).tolist()} "
+              f"({card})", flush=True)
+
+    big = Resolution(768, 1024)
+    done, l1 = run(scenes["cornell"], RenderConfig(samples_per_pixel=512,
+                                                   resolution=big))
+    report("cornell 1024x768 512 spp (regen)", done, l1, (0.2, 0.8))
+    if l1[0] <= 0:
+        fail("the cornell render did not launch K1")
+
+    spp = 1024  # the JAX package's mesh headline
+    done, lp = run(scenes["mesh"], RenderConfig(samples_per_pixel=spp,
+                                                resolution=big))
+    report(f"mesh 1024x768 {spp} spp (portal)", done, lp, (0.05, 0.95))
+    if lp[1] <= 0 or lp[2] <= 0:
+        fail("the portal render did not launch K2 and K3")
+    if done.stats.num_samples != spp * big.num_pixels:
+        fail(f"portal render: {done.stats.num_samples} samples, want "
+             f"{spp * big.num_pixels}")
+    mesh_portal = done.image.pixels
+
+    done, lr = run(scenes["mesh"], RenderConfig(samples_per_pixel=64,
+                                                resolution=big),
+                   env={"PT_TPU_NO_PORTAL": "1"})
+    report("mesh 1024x768 64 spp (prim, PT_TPU_NO_PORTAL)", done, lr, (0.05, 0.95))
+    if lr[3] <= 0:
+        fail("the PT_TPU_NO_PORTAL render did not launch K4")
+    launches = {"trace_regen": l1[0], "trace_cheap_regen": lp[1],
+                "trace_resolve_pool": lp[2], "trace_regen_prim": lr[3]}
+    diff = float(np.abs(done.image.pixels - mesh_portal).mean())
+    print(f"phase 4 mesh portal {spp} spp vs prim 64 spp: mean |Δ| {diff:.4f}",
+          flush=True)
+
+    # the same counter-based random numbers on both devices: a small render
+    # on the card differs from the CPU's only where ulps part a path
+    for sid, spp_small in (("cornell", 64), ("mesh", 8)):
+        small_cfg = RenderConfig(samples_per_pixel=spp_small,
+                                 resolution=Resolution(24, 36))
+        img = {}
+        for key, devname, cfg in (("gpu", "cuda", small_cfg),
+                                  ("cpu", "cpu", small_cfg),
+                                  ("cpu1", "cpu", small_cfg.with_(seed=1))):
+            img[key] = pt.render(scenes[sid], cfg, device=devname,
+                                 out_dir=None, verbose=False).image.pixels
+        same_seed = float(np.abs(img["gpu"] - img["cpu"]).mean())
+        noise = float(np.abs(img["cpu1"] - img["cpu"]).mean())
+        print(f"phase 4 small {sid} cuda vs cpu mean |Δ| {same_seed:.6f}, "
+              f"cpu seed 0 vs 1 {noise:.5f}", flush=True)
+        if not same_seed <= 0.25 * noise:
+            fail(f"the CUDA {sid} render disagrees with the CPU render "
+                 "beyond ulp flips")
+
+    # cancel at the first poll: every retired sample is kept and counted; at
+    # depth 1 each sample is one segment, so the counts are checked exactly
+    polls = []
+    spp1 = 256
+    cfg1 = RenderConfig(samples_per_pixel=spp1, resolution=Resolution(192, 256),
+                        max_depth=1)
+    done = pt.render(scenes["mesh"], cfg1, device="cuda", out_dir=None,
+                     verbose=False, cancel=lambda: polls.append(1) or len(polls) > 1)
+    s = done.stats
+    print(f"phase 4 mesh cancel at the first poll: cancelled {done.cancelled}, "
+          f"{s.num_samples} samples retired, {s.num_rays} segments of "
+          f"{spp1 * 192 * 256}", flush=True)
+    if not (done.cancelled and 0 < s.num_samples < spp1 * 192 * 256
+            and s.num_rays == s.num_samples):
+        fail("a portal render cancelled at its first poll did not keep exact "
+             "counts")
     print("phase 4 done", flush=True)
 
     # ---- phase 5: the CLI ----
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "path_tracer_tpu_torch.cli", "100", "300",
-             "cornell", "--out-dir", tmp],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            fail(f"CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-        ppms = glob.glob(os.path.join(tmp, "*.ppm"))
-        if len(ppms) != 1:
-            fail(f"CLI wrote {len(ppms)} PPMs")
-        vals, w, h = read_ppm(ppms[0])
-        if (w, h) != (450, 300) or vals.shape != (450 * 300, 3):
-            fail(f"CLI PPM is {w}x{h}")
-    last = proc.stdout.strip().splitlines()[-2:]
-    print(f"phase 5 ok: CLI in {time.perf_counter() - t0:.1f} s: "
-          f"{' / '.join(last)}", flush=True)
+    for args, wh in ((["100", "300", "cornell"], (450, 300)),
+                     (["16", "300", "mesh"], (450, 300))):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "path_tracer_tpu_torch.cli", *args,
+                 "--out-dir", tmp],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"CLI {args} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            ppms = glob.glob(os.path.join(tmp, "*.ppm"))
+            if len(ppms) != 1:
+                fail(f"CLI {args} wrote {len(ppms)} PPMs")
+            else:
+                vals, w, h = read_ppm(ppms[0])
+                if (w, h) != wh or vals.shape != (wh[0] * wh[1], 3):
+                    fail(f"CLI {args} PPM is {w}x{h}")
+        last = proc.stdout.strip().splitlines()[-2:]
+        print(f"phase 5 CLI {' '.join(args)} in {time.perf_counter() - t0:.1f} s: "
+              f"{' / '.join(last)}", flush=True)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
+    recs = {"trace_regen": k1, "trace_cheap_regen": k2,
+            "trace_resolve_pool": k3, "trace_regen_prim": k4}
     print(json.dumps({"kernels": [{
-        "name": "trace_regen", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": worst_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+        "name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None,
+    } for name, src, replaces in KERNELS for rec in [recs[name]]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

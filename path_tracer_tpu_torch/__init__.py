@@ -7,11 +7,13 @@ The layout mirrors the JAX package's, so each module's counterpart has the
 same path; its Pallas kernels become CUDA C++ under ``csrc/``, each with a
 plain torch version beside it (``ops/kernels/``).
 
-Ported so far: the main path for scenes of at most 128 primitives (every
-built-in scene except ``mesh``): scene JSON → ``render(scene, config,
-device=...)`` → the regenerative trace kernel → PPM, with progress, cancel
-and pass-boundary checkpoints, and the ``spp res_y scene`` CLI. See
-ROADMAP.md for the slices still to come.
+Ported so far: every built-in scene, scene JSON → ``render(scene, config,
+device=...)`` → PPM, with progress, cancel and checkpoints, and the
+``spp res_y scene`` CLI. Scenes of at most 128 primitives take the
+regenerative trace kernel (K1); ``mesh`` takes the portal scheduler with
+its cheap and resolve kernels (K2, K3); other triangle-heavy scenes take the
+regenerative loop over the full scene (K4). See ROADMAP.md for the slices
+still to come.
 """
 
 from path_tracer_tpu_torch.models.material import Material, ReflectType

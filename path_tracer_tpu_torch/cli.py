@@ -10,6 +10,7 @@ Usage:
     python -m path_tracer_tpu_torch.cli [spp] [res_y] [scene] [options]
     python -m path_tracer_tpu_torch.cli 1000 768 cornell
     python -m path_tracer_tpu_torch.cli 8 24 cornell --device cpu
+    python -m path_tracer_tpu_torch.cli 1024 768 mesh
     python -m path_tracer_tpu_torch.cli --list-scenes
 """
 

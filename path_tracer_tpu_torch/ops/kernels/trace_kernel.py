@@ -1,30 +1,46 @@
-"""Pieces of the regenerative trace: host prep and plain torch versions.
+"""Pieces of the regenerative traces, the table-driven scene, and K4.
 
-Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``, for the pieces
-that the static-scene regen kernel is built from:
+Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
 
 - ``detect_quad_pairs``: the wall-quad collapse (host, numpy);
 - ``make_raygen``: in-kernel camera sampling on the 2x2 subpixel grid;
 - ``shade_phase``: Russian roulette, emission, BSDF sampling;
-- ``regen_loop``: lanes own pixels and restart samples until a quota is done.
+- ``regen_loop``: lanes own pixels and restart samples until a quota is
+  done (K1's and K4's loop);
+- ``kernel_scene_buffers`` (host, numpy, byte-equal to the JAX tables) and
+  ``KernelScene``, its device form: the table-driven scene of any size;
+- ``isect_full_plain``: the full-scene intersector (the JAX ``make_isect``)
+  that K3 and K4 share, ``csrc/isect_full.cuh`` on the card;
+- K4 ``trace_regen_prim`` (``csrc/trace_regen_prim.cu``) and its plain
+  version ``trace_regen_prim_plain``: the regenerative loop over the
+  full scene, the JAX package's ``pallasr:`` route.
 
-The torch functions here are the plain versions of what
-``csrc/trace_regen.cu`` computes per thread: vectorised over [N] lanes,
-every branch a ``torch.where``, operations in the JAX functions' order so
-they agree lane for lane under the same uniforms. Per-ray values are lists
-of three [N] tensors (x, y, z), as in the JAX functions.
+The torch functions are the plain versions of what the CUDA kernels compute
+per thread: vectorised over [N] lanes, every branch a ``torch.where``,
+operations in the JAX functions' order so they agree lane for lane under
+the same uniforms. Per-ray values are lists of three [N] tensors (x, y, z),
+as in the JAX functions.
 
 Not ported, being TPU loop tuning: the all-done sync cadence
-(``SYNC_EVERY``), ``WHILE_UNROLL`` and the loop-style probe. A CUDA thread
+(``SYNC_EVERY``), ``WHILE_UNROLL``, the loop-style probe, ``CULL_CHUNK``,
+``FORCE_TILES`` and the ablation switches; nor ``with_meta``'s
+``tile_uniform_mat`` (the MXU one-hot fetch, bitwise-neutral). A CUDA thread
 simply leaves its loop when its quota is done.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import os
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from path_tracer_tpu_torch.models.scene import ScenePacked
+from path_tracer_tpu_torch.ops import rng
+from path_tracer_tpu_torch.ops.kernels.build import check_launch, load_kernel
 from path_tracer_tpu_torch.render.raygen import tent_filter
 
 F32 = torch.float32
@@ -267,3 +283,619 @@ def regen_loop(sample_base, pix, isect, draw, cam, quota, max_depth,
         depth = new_depth
         alive = alive_new
     return acc, counts, done
+
+
+# ---------------------------------------------------------------------------
+# Table-driven scenes of any size (K3's and K4's full-scene intersector)
+# ---------------------------------------------------------------------------
+
+BIG = 3.0e38  # miss sentinel
+EPS_SPHERE = 1e-4
+EPS_TRI_DET = 1e-4
+EPS_TRI_T = 1e-4
+
+QUOTA_CAP_PRIM = 64  # most samples per pixel in one K4 launch
+
+TRI_TILE = 64  # triangles per culling tile
+TILE_THRESHOLD = 192  # tile + cull only above this many triangles
+
+# Row layout of KernelScene.sph ([S, SPH_F]), csrc/isect_full.cuh mirrors it
+S_CENTER, S_RAD2, S_COLOR, S_EMIS, S_RTYPE, S_ORDER = 0, 3, 4, 7, 10, 11
+SPH_F = 12
+# Row layout of KernelScene.tri ([T, TRI_F]): the affine feature form
+T_N, T_E1, T_E2, T_E2XA, T_AXE1, T_NA = 0, 3, 6, 9, 12, 15
+T_NORMAL, T_COLOR, T_EMIS, T_RTYPE, T_ORDER = 16, 19, 22, 25, 26
+T_QUAD, T_PID, T_GATE = 27, 28, 29
+TRI_F = 32
+# T_GATE: -1 ungated; m >= 0 needs bounding sphere m; -2 never valid (a
+# gate-matrix column of zeros: padding rows under the pre-test)
+GATE_NONE, GATE_NEVER = -1.0, -2.0
+
+_SPH_KEYS = "sph_center sph_rad2 sph_color sph_emis sph_rtype sph_order".split()
+_BND_KEYS = "bnd_center bnd_rad2 gate".split()
+_TILE_KEYS = "tile_lo tile_hi".split()
+_TRI_KEYS = (
+    "tri_n tri_e1 tri_e2 tri_e2xa tri_axe1 tri_na "
+    "tri_normal tri_color tri_emis tri_rtype tri_order tri_quad tri_pid"
+).split()
+
+
+def _scene_keys(bufs: dict) -> list[str]:
+    """The tables that reach the kernel, in the JAX kernel's order."""
+    keys = list(_SPH_KEYS)
+    if "gate" in bufs:
+        keys += _BND_KEYS
+    if "tile_lo" in bufs:
+        keys += _TILE_KEYS
+    return keys + _TRI_KEYS
+
+
+def _pad_to(x: np.ndarray, n: int, axis: int, fill: float) -> np.ndarray:
+    pad = n - x.shape[axis]
+    if pad <= 0:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return np.pad(x, widths, constant_values=fill)
+
+
+def triangle_coeffs_np(tri_v):
+    """Affine feature form of each triangle, in float32 numpy."""
+    tri_v = np.asarray(tri_v, np.float32)
+    a = tri_v[:, 0]
+    e1 = tri_v[:, 1] - tri_v[:, 0]
+    e2 = tri_v[:, 2] - tri_v[:, 0]
+    n = np.cross(e1, e2)
+    return {
+        "n": n,
+        "e1": e1,
+        "e2": e2,
+        "e2xa": np.cross(e2, a),
+        "axe1": np.cross(a, e1),
+        "na": (n * a).sum(axis=1),
+    }
+
+
+def _morton3d(norm: np.ndarray) -> np.ndarray:
+    """30-bit Morton codes of points in [0, 1)^3 (10 bits an axis)."""
+    q = (norm * 1024).astype(np.uint32)
+
+    def expand(v):
+        v = (v * 0x00010001) & 0xFF0000FF
+        v = (v * 0x00000101) & 0x0F00F00F
+        v = (v * 0x00000011) & 0xC30C30C3
+        v = (v * 0x00000005) & 0x49249249
+        return v
+
+    return (expand(q[:, 0]) << 2) | (expand(q[:, 1]) << 1) | expand(q[:, 2])
+
+
+def kernel_scene_buffers(packed: ScenePacked) -> dict[str, np.ndarray]:
+    """Scene tables for the full-scene intersector, as numpy arrays byte-equal
+    to ``path_tracer_tpu.ops.pallas.trace_kernel.kernel_scene_buffers``:
+    [3,P] / [1,P] columns, primitives padded with guaranteed misses.
+
+    - Wall-quad pairs collapse into quads (``detect_quad_pairs``); each row
+      keeps the canonical packed triangle id (``tri_pid``; padding -2).
+    - Above TILE_THRESHOLD triangles, and only when every bounding sphere
+      contains its mesh, triangles are sorted by centroid Morton code into
+      tiles of TRI_TILE rows with padded AABBs (``tile_lo``/``tile_hi``
+      [3, C]); triangles nearly as large as the scene (walls) form an
+      always-tested base set at the front, padded to a multiple of 8.
+    - A bounding sphere that does not contain its mesh gates its triangles:
+      ``bnd_center``/``bnd_rad2`` and the [M, T] 0/1 ``gate`` matrix.
+    - ``aabb_lo``/``aabb_inv_span`` (the scene box) ride along as in JAX.
+    """
+    S = packed.sph_radius.shape[0]
+    M = packed.bnd_radius.shape[0]
+
+    def prep(x, P, fill=0.0):
+        x = np.asarray(x, np.float32)
+        x = x[None, :] if x.ndim == 1 else x.T  # [P,k] -> [k,P]
+        return _pad_to(x, P, 1, fill)
+
+    sc = packed
+    contained = True
+    for m_idx in range(sc.num_meshes):
+        sel = np.asarray(sc.tri_mesh[: sc.num_triangles]) == m_idx
+        if not sel.any():
+            continue
+        verts = np.asarray(sc.tri_v[: sc.num_triangles])[sel].reshape(-1, 3)
+        c = sc.bnd_center[m_idx]
+        r = float(sc.bnd_radius[m_idx])
+        dmax = float(np.sqrt(((verts - c) ** 2).sum(axis=1)).max())
+        if dmax > r * (1.0 + 1e-5) + 1e-6:
+            contained = False
+            break
+
+    quads, covered = detect_quad_pairs(sc)
+    keep = [i for i in range(sc.num_triangles)
+            if i not in covered or i in quads]
+    nt = len(keep)
+    T = max(((nt + 7) // 8) * 8, 8)
+
+    def collapse(src, fill, verts=False):
+        a = np.asarray(src, np.float32)
+        out = np.full((T,) + a.shape[1:], fill, np.float32)
+        for row, i in enumerate(keep):
+            out[row] = quads[i] if (verts and i in quads) else a[i]
+        return out
+
+    tri_v = collapse(sc.tri_v, 1e30, verts=True)
+    tri_normal = collapse(sc.tri_normal, 0.0)
+    tri_color = collapse(sc.tri_color, 0.0)
+    tri_emis = collapse(sc.tri_emis, 0.0)
+    tri_rtype = collapse(sc.tri_rtype, 0.0)
+    tri_order = collapse(np.minimum(np.asarray(sc.tri_order), 2**24), 1.0e9)
+    tri_quad = np.zeros(T, np.float32)
+    tri_pid = np.full(T, -2.0, np.float32)
+    for row, i in enumerate(keep):
+        tri_quad[row] = 1.0 if i in quads else 0.0
+        tri_pid[row] = float(i)
+    tri_mesh_c = np.asarray(sc.tri_mesh)[keep] if nt else np.zeros(0, np.int64)
+
+    tiles = None
+    if contained and nt > TILE_THRESHOLD:
+        verts_all = tri_v[:nt]
+        cent = verts_all.mean(axis=1)
+        tri_rad = np.sqrt(((verts_all - cent[:, None, :]) ** 2).sum(-1)).max(1)
+        scene_diag = float(np.linalg.norm(
+            verts_all.reshape(-1, 3).max(0) - verts_all.reshape(-1, 3).min(0)))
+        big = tri_rad > 0.125 * scene_diag
+        small_idx = np.where(~big)[0]
+
+        lo = cent[small_idx].min(axis=0)
+        span = np.maximum(cent[small_idx].max(axis=0) - lo, 1e-9)
+        norm = np.clip((cent[small_idx] - lo) / span, 0.0, 0.999999).astype(
+            np.float32)
+        codes = _morton3d(norm)
+        small_sorted = small_idx[np.argsort(codes, kind="stable")]
+
+        n_base = int(big.sum())
+        base_pad = max(((n_base + 7) // 8) * 8, 8)
+        C = -(-len(small_sorted) // TRI_TILE)
+        T = base_pad + C * TRI_TILE
+        order = np.concatenate([np.where(big)[0], small_sorted])
+        dst = np.concatenate(
+            [np.arange(n_base), base_pad + np.arange(len(small_sorted))])
+
+        def reorder(a, fill=0.0):
+            out = np.full((T,) + a.shape[1:], fill, a.dtype)
+            out[dst] = a[:nt][order]
+            return out
+
+        tri_v = reorder(tri_v, 1e30)
+        tri_normal = reorder(tri_normal)
+        tri_color = reorder(tri_color)
+        tri_emis = reorder(tri_emis)
+        tri_rtype = reorder(tri_rtype)
+        tri_order = reorder(tri_order, 1.0e9)
+        tri_quad = reorder(tri_quad)
+        tri_pid = reorder(tri_pid, -2.0)
+
+        # slop keeps the cull conservative under float32 rounding
+        tile_lo = np.full((C, 3), 1e30, np.float32)
+        tile_hi = np.full((C, 3), -1e30, np.float32)
+        for c in range(C):
+            verts = tri_v[base_pad + c * TRI_TILE: base_pad + (c + 1) * TRI_TILE]
+            verts = verts[verts[:, 0, 0] < 1e29].reshape(-1, 3)
+            if len(verts) == 0:
+                continue
+            span = verts.max(0) - verts.min(0)
+            slop = np.maximum(span, np.abs(verts).max()) * 1e-5 + 1e-6
+            tile_lo[c] = verts.min(axis=0) - slop
+            tile_hi[c] = verts.max(axis=0) + slop
+        tiles = (tile_lo, tile_hi)
+
+    coeffs = triangle_coeffs_np(tri_v)
+    order_fill = 1.0e9
+    bufs = {
+        "sph_center": prep(sc.sph_center, S, 1e30),
+        "sph_rad2": prep(np.asarray(sc.sph_radius) ** 2, S),
+        "sph_color": prep(sc.sph_color, S),
+        "sph_emis": prep(sc.sph_emis, S),
+        "sph_rtype": prep(sc.sph_rtype.astype(np.float32), S),
+        "sph_order": prep(
+            np.minimum(sc.sph_order, 2**24).astype(np.float32), S, order_fill),
+        "tri_n": prep(coeffs["n"], T),
+        "tri_e1": prep(coeffs["e1"], T),
+        "tri_e2": prep(coeffs["e2"], T),
+        "tri_e2xa": prep(coeffs["e2xa"], T),
+        "tri_axe1": prep(coeffs["axe1"], T),
+        "tri_na": prep(coeffs["na"], T),
+        "tri_normal": prep(tri_normal, T),
+        "tri_color": prep(tri_color, T),
+        "tri_emis": prep(tri_emis, T),
+        "tri_rtype": prep(tri_rtype, T),
+        "tri_order": prep(tri_order, T, order_fill),
+        "tri_quad": prep(tri_quad, T),
+        "tri_pid": prep(tri_pid, T, -2.0),
+    }
+    if tiles is not None:
+        tile_lo, tile_hi = tiles
+        bufs["tile_lo"] = prep(tile_lo, tile_lo.shape[0])
+        bufs["tile_hi"] = prep(tile_hi, tile_hi.shape[0])
+    if not contained:
+        gate = np.zeros((M, T), np.float32)
+        for t in range(nt):
+            gate[tri_mesh_c[t], t] = 1.0
+        bufs["bnd_center"] = prep(sc.bnd_center, M, 1e30)
+        bufs["bnd_rad2"] = prep(np.asarray(sc.bnd_radius) ** 2, M)
+        bufs["gate"] = gate
+
+    pts = [tri_v[tri_v[:, 0, 0] < 1e29].reshape(-1, 3)]
+    srad = np.asarray(sc.sph_radius, np.float32)
+    scen = np.asarray(sc.sph_center, np.float32)
+    real = srad > 0.0
+    if real.any():
+        pts += [scen[real] - srad[real, None], scen[real] + srad[real, None]]
+    pts = np.concatenate(pts) if pts[0].size or len(pts) > 1 else np.zeros((1, 3))
+    lo = pts.min(axis=0).astype(np.float32)
+    span = np.maximum(pts.max(axis=0) - lo, 1e-6).astype(np.float32)
+    bufs["aabb_lo"] = lo.reshape(3, 1)
+    bufs["aabb_inv_span"] = (1.0 / span).reshape(3, 1)
+    return bufs
+
+
+@dataclass(frozen=True)
+class KernelScene:
+    """A table-driven scene on one device, one row per primitive:
+
+    - ``sph`` [S, SPH_F]: center, r² (0 marks padding), color, emission,
+      reflect type, packed order;
+    - ``bnd`` [M, 4]: bounding spheres (center, r²) that gate triangles;
+    - ``tri`` [T, TRI_F]: n, e1, e2, e2×a, a×e1, a·n, unit normal, color,
+      emission, reflect type, packed order, quad flag, packed id, gate;
+    - ``tiles`` [C, 6]: each culling tile's AABB (lo, hi); tile c holds
+      rows ``tile_base + c*TRI_TILE ..`` and rows below ``tile_base`` are
+      the always-tested base set (``tile_base`` is 0 without tiles).
+    """
+
+    sph: torch.Tensor
+    bnd: torch.Tensor
+    tri: torch.Tensor
+    tiles: torch.Tensor
+    tile_base: int
+
+    def to(self, device) -> "KernelScene":
+        return KernelScene(self.sph.to(device), self.bnd.to(device),
+                           self.tri.to(device), self.tiles.to(device),
+                           self.tile_base)
+
+
+def kernel_scene_from_jax(bufs: dict) -> KernelScene:
+    """``kernel_scene_buffers``' tables (the JAX package's or the port's,
+    as numpy arrays) → KernelScene on the CPU. The [M, T] gate matrix
+    becomes one gate index per triangle row; a column with more than one
+    bounding sphere has no such form and raises."""
+    b = {k: np.asarray(bufs[k], np.float32) for k in _scene_keys(bufs)}
+    S = b["sph_rad2"].shape[1]
+    sph = np.zeros((S, SPH_F), np.float32)
+    sph[:, S_CENTER:S_CENTER + 3] = b["sph_center"].T
+    sph[:, S_RAD2] = b["sph_rad2"][0]
+    sph[:, S_COLOR:S_COLOR + 3] = b["sph_color"].T
+    sph[:, S_EMIS:S_EMIS + 3] = b["sph_emis"].T
+    sph[:, S_RTYPE] = b["sph_rtype"][0]
+    sph[:, S_ORDER] = b["sph_order"][0]
+
+    T = b["tri_na"].shape[1]
+    tri = np.zeros((T, TRI_F), np.float32)
+    for key, col in (("tri_n", T_N), ("tri_e1", T_E1), ("tri_e2", T_E2),
+                     ("tri_e2xa", T_E2XA), ("tri_axe1", T_AXE1),
+                     ("tri_normal", T_NORMAL), ("tri_color", T_COLOR),
+                     ("tri_emis", T_EMIS)):
+        tri[:, col:col + 3] = b[key].T
+    for key, col in (("tri_na", T_NA), ("tri_rtype", T_RTYPE),
+                     ("tri_order", T_ORDER), ("tri_quad", T_QUAD),
+                     ("tri_pid", T_PID)):
+        tri[:, col] = b[key][0]
+    tri[:, T_GATE] = GATE_NONE
+    bnd = np.zeros((0, 4), np.float32)
+    if "gate" in b:
+        gate = b["gate"]
+        per_col = gate.sum(axis=0)
+        if (per_col > 1).any() or not np.isin(gate, (0.0, 1.0)).all():
+            raise ValueError("a triangle gated by more than one bounding sphere")
+        tri[:, T_GATE] = np.where(per_col > 0, gate.argmax(axis=0), GATE_NEVER)
+        bnd = np.concatenate([b["bnd_center"].T, b["bnd_rad2"].T], axis=1)
+
+    tiles = np.zeros((0, 6), np.float32)
+    tile_base = 0
+    if "tile_lo" in b:
+        tiles = np.concatenate([b["tile_lo"].T, b["tile_hi"].T], axis=1)
+        tile_base = T - tiles.shape[0] * TRI_TILE
+    return KernelScene(torch.from_numpy(sph), torch.from_numpy(bnd),
+                       torch.from_numpy(tri), torch.from_numpy(tiles),
+                       int(tile_base))
+
+
+def build_kernel_scene(packed: ScenePacked) -> KernelScene:
+    """ScenePacked → KernelScene on the CPU."""
+    return kernel_scene_from_jax(kernel_scene_buffers(packed))
+
+
+def _sphere_t(cen, rad2, o, d):
+    """The expanded sphere test of the JAX intersector: cen, rad2 [P] (or
+    per-lane [N]) against rays 3×[N, 1] → t [N, P] (BIG = miss)."""
+    cd = 0.0 + cen[0] * d[0] + cen[1] * d[1] + cen[2] * d[2]
+    co = 0.0 + cen[0] * o[0] + cen[1] * o[1] + cen[2] * o[2]
+    cc = 0.0 + cen[0] * cen[0] + cen[1] * cen[1] + cen[2] * cen[2]
+    od = 0.0 + o[0] * d[0] + o[1] * d[1] + o[2] * d[2]
+    oo = 0.0 + o[0] * o[0] + o[1] * o[1] + o[2] * o[2]
+    b = cd - od
+    det = b * b - (cc - 2.0 * co + oo) + rad2
+    sq = torch.sqrt(torch.clamp(det, min=0.0))
+    t_near = b - sq
+    t_far = b + sq
+    t = torch.where(t_near >= EPS_SPHERE, t_near,
+                    torch.where(t_far >= EPS_SPHERE, t_far, BIG))
+    # r² == 0 marks padding, whose far-away center makes b² - |op|² cancel
+    return torch.where((det < 0.0) | (rad2 <= 0.0), BIG, t)
+
+
+def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None):
+    """Closest hit against the whole table-driven scene: the plain torch
+    version of ``trace_kernel.make_isect`` (JAX) and of
+    ``csrc/isect_full.cuh``. o, d: 3 lists of [N] f32; prev [N] packed
+    triangle id of the departed surface (-1 none); alive [N] bool.
+    Returns (found, point3, nrm3, color3, emis3, rtype, new_prev [N] f32).
+
+    - Spheres: the expanded test, first minimum in table order.
+    - Triangles and quads: the affine feature form; u, v ≥ 0, u ≤ 1 and
+      u + v ≤ 1 (quads v ≤ 1); t > EPS; the departed triangle is excluded;
+      a gated triangle needs its bounding sphere hit. Strictly closer wins
+      in table order, so the first row wins ties.
+    - Culling: the base set is always tested; tile c only where the lane
+      is alive and its ray enters the tile's AABB (t_ex ≥ t_en, t_ex ≥ 0)
+      closer than the best hit so far (triangles or spheres). A tile the
+      ray cannot enter closer holds no strictly closer hit, so this per-lane
+      skip is the JAX kernel's per-block skip lane by lane.
+    - Spheres against triangles: the closer wins; an exact tie goes to the
+      lower packed order. new_prev is the hit triangle's packed id, -1 for
+      a sphere or a miss.
+
+    ``work`` (a dict, optional) counts the tests that live lanes need:
+    "sph" sphere tests, "tri" triangle rows, "slab" tile AABB tests.
+    """
+    n = o[0].shape[0]
+    dev = o[0].device
+    prevf = prev.to(F32)
+    oc = [x[:, None] for x in o]
+    dc = [x[:, None] for x in d]
+
+    sph = ks.sph
+    t_s = _sphere_t([sph[:, S_CENTER + k] for k in range(3)], sph[:, S_RAD2],
+                    oc, dc)
+    d_s, i_s = torch.min(t_s, dim=1)  # first index of the minimum
+
+    gate_ok = None
+    if ks.bnd.shape[0]:
+        bnd = ks.bnd
+        t_b = _sphere_t([bnd[:, k] for k in range(3)], bnd[:, 3], oc, dc)
+        gate_ok = t_b < BIG  # [N, M]
+
+    m = [
+        oc[1] * dc[2] - oc[2] * dc[1],
+        oc[2] * dc[0] - oc[0] * dc[2],
+        oc[0] * dc[1] - oc[1] * dc[0],
+    ]
+
+    def tri_block(lo, hi):
+        """(best t [N], best row [N]) over rows [lo, hi)."""
+        tab = ks.tri[lo:hi]
+
+        def col(c):
+            return tab[:, c]
+
+        def dot_t(c, vec):
+            return col(c) * vec[0] + col(c + 1) * vec[1] + col(c + 2) * vec[2]
+
+        det = -dot_t(T_N, dc)
+        udet = dot_t(T_E2, m) - dot_t(T_E2XA, dc)
+        vdet = -dot_t(T_E1, m) - dot_t(T_AXE1, dc)
+        tdet = dot_t(T_N, oc) - col(T_NA)
+        dvalid = torch.abs(det) >= EPS_TRI_DET
+        inv = 1.0 / torch.where(dvalid, det, 1.0)
+        u_ = udet * inv
+        v_ = vdet * inv
+        t_ = tdet * inv
+        uv_hi = torch.where(col(T_QUAD) > 0.5, v_, u_ + v_)
+        valid = (
+            dvalid
+            & (u_ >= 0.0) & (u_ <= 1.0)
+            & (v_ >= 0.0) & (uv_hi <= 1.0)
+            & (t_ > EPS_TRI_T)
+            & (col(T_PID) != prevf[:, None])
+        )
+        gate = col(T_GATE)
+        if gate_ok is not None:
+            g_idx = torch.clamp(gate, min=0.0).to(torch.int64)
+            ok = torch.gather(gate_ok, 1, g_idx[None, :].expand(n, -1))
+            valid = valid & ((gate == GATE_NONE) | ((gate >= 0.0) & ok))
+        t_tri = torch.where(valid, t_, BIG)
+        best, row = torch.min(t_tri, dim=1)
+        return best, row + lo
+
+    n_tiles = ks.tiles.shape[0]
+    T = ks.tri.shape[0]
+    d_t, r_t = tri_block(0, ks.tile_base if n_tiles else T)
+    if work is not None:
+        live = int(alive.sum())
+        work["sph"] = work.get("sph", 0) + live * (sph.shape[0] + ks.bnd.shape[0])
+        work["tri"] = work.get("tri", 0) + live * (ks.tile_base if n_tiles else T)
+        work["slab"] = work.get("slab", 0) + live * n_tiles
+    if n_tiles:
+        inv = [1.0 / torch.where(torch.abs(d[k]) < 1e-30, 1e-30, d[k])
+               for k in range(3)]
+        tiles = ks.tiles
+        for c in range(n_tiles):
+            t_en = torch.zeros(n, dtype=F32, device=dev)
+            t_ex = torch.full((n,), BIG, dtype=F32, device=dev)
+            for k in range(3):
+                ta = (tiles[c, k] - o[k]) * inv[k]
+                tb = (tiles[c, 3 + k] - o[k]) * inv[k]
+                t_en = torch.maximum(t_en, torch.minimum(ta, tb))
+                t_ex = torch.minimum(t_ex, torch.maximum(ta, tb))
+            bound = torch.minimum(d_t, d_s)
+            cand = (t_ex >= t_en) & (t_ex >= 0.0) & alive & (t_en < bound)
+            if work is not None:
+                work["tri"] += int(cand.sum()) * TRI_TILE
+            if not bool(cand.any()):
+                continue
+            lo = ks.tile_base + c * TRI_TILE
+            res_t, res_r = tri_block(lo, lo + TRI_TILE)
+            better = cand & (res_t < d_t)
+            d_t = torch.where(better, res_t, d_t)
+            r_t = torch.where(better, res_r, r_t)
+
+    srow = sph[i_s]  # [N, SPH_F]
+    trow = ks.tri[r_t]  # [N, TRI_F]
+    sph_wins = (d_s < d_t) | ((d_s == d_t) & (srow[:, S_ORDER] < trow[:, T_ORDER]))
+    t = torch.where(sph_wins, d_s, d_t)
+    found = (t < BIG) & alive
+    point = [o[k] + d[k] * t for k in range(3)]
+    sn = [point[k] - srow[:, S_CENTER + k] for k in range(3)]
+    sl = torch.rsqrt(torch.clamp(sn[0] * sn[0] + sn[1] * sn[1] + sn[2] * sn[2],
+                                 min=1e-30))
+    nrm = [torch.where(sph_wins, sn[k] * sl, trow[:, T_NORMAL + k])
+           for k in range(3)]
+    color = [torch.where(sph_wins, srow[:, S_COLOR + k], trow[:, T_COLOR + k])
+             for k in range(3)]
+    emis = [torch.where(sph_wins, srow[:, S_EMIS + k], trow[:, T_EMIS + k])
+            for k in range(3)]
+    rtype = torch.where(sph_wins, srow[:, S_RTYPE], trow[:, T_RTYPE])
+    new_prev = torch.where(found & ~sph_wins, trow[:, T_PID], -1.0)
+    return found, point, nrm, color, emis, rtype, new_prev
+
+
+def _check_regen_args(pixel_idx, quota, max_depth, uniforms, quota_cap):
+    n = pixel_idx.shape[0]
+    if pixel_idx.dim() != 1 or pixel_idx.dtype != torch.int32:
+        raise ValueError("pixel_idx must be a 1-D int32 tensor")
+    if not 0 <= quota <= quota_cap or max_depth < 1:
+        raise ValueError(f"need 0 <= quota <= {quota_cap} and max_depth >= 1 "
+                         f"(got {quota}, {max_depth})")
+    if uniforms is not None and (
+        uniforms.shape != (rng.N_SLOTS, n) or uniforms.dtype != torch.float32
+    ):
+        raise ValueError(f"uniforms must be [{rng.N_SLOTS}, {n}] float32")
+
+
+def regen_draw(seed, pix, uniforms):
+    """draw(sample_idx, depth) for regen_loop: the counter generator keyed
+    by (seed, pixel, sample, depth, slot), or the per-lane table
+    ``uniforms`` [6, N] at every step."""
+    if uniforms is not None:
+        table = [uniforms[k] for k in range(rng.N_SLOTS)]
+        return lambda sample_idx, depth: table
+
+    def draw(sample_idx, depth):
+        key = rng.path_key(seed, pix, sample_idx)
+        return [rng.uniform(key, depth, k) for k in range(rng.N_SLOTS)]
+
+    return draw
+
+
+def trace_regen_prim_plain(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
+                           seed: int, sample_base: int, quota: int,
+                           max_depth: int = 12, rr_start_depth: int = 5,
+                           uniforms: torch.Tensor | None = None, work=None):
+    """Plain torch version of K4, the regenerative loop over the full
+    table-driven scene (the JAX package's ``trace_pallas_regen_prim``): K1's
+    ``regen_loop`` with ``isect_full_plain`` as its intersector. Lane i owns
+    pixel ``pixel_idx[i]`` and traces ``quota`` (at most QUOTA_CAP_PRIM)
+    samples, global indices ``sample_base ..``; cam is a
+    ``trace_v2.CameraConsts``; ``work`` as in isect_full_plain. Returns (radiance sum [N,3] f32, segments
+    [N] i32, finished samples [N] i32)."""
+    _check_regen_args(pixel_idx, quota, max_depth, uniforms, QUOTA_CAP_PRIM)
+    pix = pixel_idx.to(torch.int64)
+
+    def isect(o, d, prev, alive):
+        return isect_full_plain(ks, o, d, prev, alive, work)
+
+    acc, counts, done = regen_loop(
+        sample_base, pix, isect, regen_draw(seed, pix, uniforms), cam, quota,
+        max_depth, rr_start_depth)
+    return (torch.stack(acc, dim=1), counts.to(torch.int32),
+            done.to(torch.int32))
+
+
+CSRC_REGEN_PRIM = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "csrc", "trace_regen_prim.cu")
+
+
+@functools.lru_cache(maxsize=2)
+def _prim_library(fmad: bool = True):
+    built = load_kernel(CSRC_REGEN_PRIM, fmad)
+    fn = built.lib.pt_trace_regen_prim
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,  # sph, S
+        ctypes.c_void_p, ctypes.c_int,  # bnd, M
+        ctypes.c_void_p, ctypes.c_int,  # tri, T
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # camera (host), W, H
+        ctypes.c_void_p, ctypes.c_int,  # pixel_idx, n
+        ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, base, quota
+        ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
+        ctypes.c_void_p,  # uniforms [6, n] or NULL
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rad, segs, done
+        ctypes.c_void_p,  # stream
+    ]
+    return built
+
+
+def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
+                     seed: int, sample_base: int, quota: int,
+                     max_depth: int = 12, rr_start_depth: int = 5,
+                     uniforms: torch.Tensor | None = None, fmad: bool = True):
+    """K4 (see trace_regen_prim_plain for the contract). CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/trace_regen_prim.cu`` or
+    raise. ``fmad=False`` builds the kernel without FMA contraction."""
+    dev = pixel_idx.device
+    if dev.type == "cpu":
+        return trace_regen_prim_plain(
+            ks, cam, pixel_idx, seed=seed, sample_base=sample_base,
+            quota=quota, max_depth=max_depth, rr_start_depth=rr_start_depth,
+            uniforms=uniforms)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_regen_prim runs on cpu or cuda, not {dev}")
+    _check_regen_args(pixel_idx, quota, max_depth, uniforms, QUOTA_CAP_PRIM)
+    tensors = [ks.sph, ks.bnd, ks.tri, ks.tiles] + (
+        [uniforms] if uniforms is not None else [])
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("scene and uniforms must be contiguous float32 "
+                             f"tensors on {dev}")
+    if not pixel_idx.is_contiguous():
+        raise ValueError("pixel_idx must be contiguous")
+    n = pixel_idx.shape[0]
+    rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    segs = torch.empty(n, dtype=torch.int32, device=dev)
+    done = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return rad, segs, done
+    built = _prim_library(fmad)
+    params = cam.params.to(torch.float32).contiguous()  # host memory
+
+    def ptr(t):
+        return t.data_ptr() if t.numel() else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = built.lib.pt_trace_regen_prim(
+            ks.sph.data_ptr(), ks.sph.shape[0], ptr(ks.bnd), ks.bnd.shape[0],
+            ks.tri.data_ptr(), ks.tri.shape[0], ptr(ks.tiles),
+            ks.tiles.shape[0], ks.tile_base,
+            params.data_ptr(), cam.width, cam.height,
+            pixel_idx.data_ptr(), n,
+            int(seed) & rng.MASK32, int(sample_base), int(quota),
+            int(max_depth), int(rr_start_depth),
+            uniforms.data_ptr() if uniforms is not None else None,
+            rad.data_ptr(), segs.data_ptr(), done.data_ptr(), stream)
+    check_launch(built, code, "trace_regen_prim")
+    trace_regen_prim.launches += 1
+    return rad, segs, done
+
+
+trace_regen_prim.launches = 0

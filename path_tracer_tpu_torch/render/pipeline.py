@@ -1,20 +1,33 @@
 """Host-side render orchestration.
 
-Counterpart of ``path_tracer_tpu.render.pipeline`` for the path the JAX
-package takes for every scene of at most 128 primitives (its ``pallas3:``
-mode): the scene is baked into a constants tensor, and each pass launches
-the regenerative trace once over all pixels, in Morton order. The
-accumulator stays on the device between passes; progress, cancellation and
-checkpoints happen at pass boundaries.
+Counterpart of ``path_tracer_tpu.render.pipeline`` for the routes the JAX
+package's ``prepare_scene_and_mode`` gives a render whose resolution is
+known:
 
-Cancellation parity (§3.3 of the survey): a cancelled render still produces
-a ``RenderDone`` with the partial image and still writes the PPM.
+- ``regen`` (the JAX ``pallas3:`` mode): scenes of at most 128 primitives.
+  The scene is baked into a constants tensor and each pass launches K1
+  (``trace_v2.trace_regen``) once over all pixels, in Morton order.
+- ``portal``: scenes with one mesh of at least 65 triangles and a cheap
+  remainder of at most 128 primitives (``mesh``), unless PT_TPU_NO_PORTAL
+  is set. Each pass runs the v2 portal scheduler (``render.portal``) over
+  K2 and K3; progress, cancel and mid-pass checkpoints ride its poll hook.
+- ``prim`` (the JAX ``pallasr:`` mode): every other scene; each pass
+  launches K4 (``trace_kernel.trace_regen_prim``) over all pixels.
 
-The device is an explicit argument: ``"cuda"`` launches the CUDA kernel,
-``"cpu"`` runs its plain torch version. Nothing falls back from one to the
-other. Off this slice, and raising ``NotImplementedError``: scenes of more
-than 128 primitives (``mesh``; ROADMAP.md Slice 2), ``estimator="literal"``
-and ``mock_random`` (Slice 1b).
+Passes: ``min(spp, 256)`` samples for ``regen`` (``samples_per_pass``
+overrides), at most 64 for ``prim`` (K4's quota cap) and at most
+PT_TPU_PORTAL_PASS_CAP (default 1024) for ``portal``. The global sample
+base of pass i is ``i * k`` with k the full pass size.
+
+Cancellation keeps completed work: a cancelled render still produces a
+``RenderDone`` with the partial image and still writes the PPM. A portal
+pass cancelled mid-pass keeps every started sample (freeze-and-drain) and
+normalizes each pixel by its exact retired count.
+
+The device is an explicit argument: ``"cuda"`` launches the CUDA kernels,
+``"cpu"`` runs their plain torch versions. Nothing falls back from one to
+the other. Off this slice, and raising ``NotImplementedError``:
+``estimator="literal"`` and ``mock_random`` (ROADMAP.md Slice 1b).
 """
 
 from __future__ import annotations
@@ -30,16 +43,20 @@ import numpy as np
 import torch
 
 from path_tracer_tpu_torch.models.scene import SceneDescriptor, pack_scene
-from path_tracer_tpu_torch.ops.kernels import trace_v2
+from path_tracer_tpu_torch.ops.kernels import portal as portal_ops
+from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
 from path_tracer_tpu_torch.render import integrator
 from path_tracer_tpu_torch.render.image import Image, write_ppm
+from path_tracer_tpu_torch.render.portal import make_portal_pass_runner_v2
 from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 from path_tracer_tpu_torch.utils.profiling import RenderStats
 
-# Samples per pixel in one pass: the JAX package's pass granularity (its
-# static quota cap). The kernel takes the quota at run time, so this sets
-# only how often progress, cancel and checkpoints are looked at.
+# Samples per pixel in one K1 pass: the JAX package's pass granularity. The
+# kernel takes the quota at run time, so this sets only how often progress,
+# cancel and checkpoints are looked at.
 PASS_SAMPLES = 256
+# Seconds between mid-pass checkpoints of a portal pass (PT_TPU_CKPT_SECS)
+CKPT_SECS = 15.0
 
 
 @dataclass
@@ -59,6 +76,19 @@ class RenderDone:
     cancelled: bool = False
 
 
+@dataclass(frozen=True)
+class Prepared:
+    """A scene ready to render on one device: its route and what it needs.
+    ``scene`` is set for ``regen``, ``portal`` and ``kscene`` for
+    ``portal``, ``kscene`` alone for ``prim``."""
+
+    route: str
+    cam: trace_v2.CameraConsts
+    scene: trace_v2.SceneConsts | None = None
+    portal: portal_ops.PortalConsts | None = None
+    kscene: trace_kernel.KernelScene | None = None
+
+
 def resolve_device(device) -> torch.device:
     """The device a render runs on; raises when CUDA is asked for and
     missing (no silent CPU fallback)."""
@@ -72,22 +102,35 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def prepare_scene(scene: SceneDescriptor, resolution: Resolution, device
-                  ) -> tuple[trace_v2.SceneConsts, trace_v2.CameraConsts]:
-    """Bake the scene (on ``device``) and the camera raygen constants.
-    Counterpart of the JAX package's prepare_scene_and_mode for scenes that
-    take its ``pallas3:`` mode."""
+def prepare_render(scene: SceneDescriptor, resolution: Resolution, device
+                   ) -> Prepared:
+    """Pick the route as the JAX package's prepare_scene_and_mode does and
+    build its tables on ``device``."""
     packed = pack_scene(scene)
-    consts = trace_v2.build_scene_consts(packed)
-    if consts is None:
-        n = packed.num_spheres + packed.num_triangles
-        raise NotImplementedError(
-            f"scene {scene.id!r} has {n} primitives; scenes of more than "
-            f"{trace_v2.V2_MAX_PRIMS} (the portal path of the mesh scene) are "
-            "ported in ROADMAP.md Slice 2")
     cam = trace_v2.build_camera_consts(
         scene.camera, resolution.width, resolution.height)
-    return consts.to(device), cam
+    consts = trace_v2.build_scene_consts(packed)
+    if consts is not None:
+        return Prepared("regen", cam, scene=consts.to(device))
+    kscene = trace_kernel.build_kernel_scene(packed).to(device)
+    portal = None if os.environ.get("PT_TPU_NO_PORTAL") else (
+        portal_ops.build_portal_consts(packed))
+    if portal is not None:
+        return Prepared("portal", cam, portal=portal[0].to(device),
+                        kscene=kscene)
+    return Prepared("prim", cam, kscene=kscene)
+
+
+def prepare_scene(scene: SceneDescriptor, resolution: Resolution, device
+                  ) -> tuple[trace_v2.SceneConsts, trace_v2.CameraConsts]:
+    """The baked scene (on ``device``) and camera of a scene of at most 128
+    primitives, for K1."""
+    prep = prepare_render(scene, resolution, device)
+    if prep.route != "regen":
+        raise ValueError(
+            f"scene {scene.id!r} has more than {trace_v2.V2_MAX_PRIMS} "
+            f"primitives; it takes the {prep.route!r} route (prepare_render)")
+    return prep.scene, prep.cam
 
 
 @functools.lru_cache(maxsize=8)
@@ -111,6 +154,22 @@ def morton_pixel_order(width: int, height: int) -> tuple[np.ndarray, np.ndarray]
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm), dtype=np.int32)
     return perm, inv
+
+
+def pass_size(route: str, spp: int, samples_per_pass: int | None) -> int:
+    """Samples per pixel in one full pass of a route."""
+    if route == "regen":
+        return min(samples_per_pass or PASS_SAMPLES, spp)
+    cap = (trace_kernel.QUOTA_CAP_PRIM if route == "prim" else
+           int(os.environ.get("PT_TPU_PORTAL_PASS_CAP", "1024")))
+    return min(samples_per_pass or cap, cap, spp)
+
+
+def _partial_image(accum, rad, cnt, samples_done: int, npix: int):
+    """Completed passes plus a pass's retired radiance, each pixel divided
+    by its retired count, clamped after averaging (mod.rs:849-856)."""
+    total = torch.clamp(samples_done + cnt[:npix], min=1.0)
+    return torch.clamp((accum[:npix] + rad[:npix]) / total[:, None], 0.0, 1.0)
 
 
 def render(
@@ -151,17 +210,30 @@ def render(
         )
 
     t_start = time.perf_counter()
-    scene_c, cam_c = prepare_scene(scene, res, dev)
-    k = min(config.samples_per_pass or PASS_SAMPLES, spp)
+    prep = prepare_render(scene, res, dev)
+    k = pass_size(prep.route, spp, config.samples_per_pass)
     full_passes, remainder = divmod(spp, k)
+    stats = RenderStats()
+    stats.extra["route"] = prep.route
 
-    # Z-order lanes; accum lives in permuted order until finalize
-    perm, inv_perm = morton_pixel_order(res.width, res.height)
-    perm_dev = torch.from_numpy(perm).to(dev)
+    runner = None
+    perm_dev = inv_perm = None
+    if prep.route == "portal":
+        # accum in pixel order: stages add into it by their pix rows
+        runner = make_portal_pass_runner_v2(
+            prep.portal, prep.cam, prep.kscene, npix=npix, k_full=k,
+            seed=config.seed, max_depth=config.max_depth,
+            rr_start_depth=config.rr_start_depth, device=dev)
+    else:
+        # Z-order lanes; accum lives in permuted order until finalize
+        perm, inv_perm = morton_pixel_order(res.width, res.height)
+        perm_dev = torch.from_numpy(perm).to(dev)
     accum = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     samples_done = 0
     pass_start = 0
-    stats = RenderStats()
+
+    def unpermute(arr: np.ndarray) -> np.ndarray:
+        return arr if inv_perm is None else arr[inv_perm]
 
     # ---- resume ----
     if checkpoint_path and os.path.exists(checkpoint_path):
@@ -175,17 +247,30 @@ def render(
         ]
         if ck["accum"].shape != (npix, 3):
             mismatches.append(f"accum shape {ck['accum'].shape} != {(npix, 3)}")
-        if "mid_pass" in ck.files and int(ck["mid_pass"]):
-            mismatches.append("mid-pass checkpoints need the portal runner "
-                              "(ROADMAP.md Slice 2)")
+        mid_pass = "mid_pass" in ck.files and int(ck["mid_pass"])
+        if mid_pass and runner is None:
+            mismatches.append("mid-pass checkpoint needs the portal route "
+                              "(scene or PT_TPU_NO_PORTAL changed?)")
+        elif mid_pass:
+            got = str(ck["slot_layout"]) if "slot_layout" in ck.files \
+                else "single"
+            if got != runner.slot_layout:
+                mismatches.append(f"slot layout {got} != {runner.slot_layout}")
         if not mismatches:
             accum = torch.from_numpy(np.asarray(ck["accum"], np.float32)).to(dev)
             samples_done = int(ck["samples_done"])
             pass_start = int(ck["next_pass"])
             stats.num_rays = int(ck["num_rays"])
             stats.resumed_samples = samples_done
+            if mid_pass:
+                # resume INTO pass `pass_start`: every remaining sample id
+                # renders exactly once
+                runner.resume_slots = (
+                    ck["slot_pix"], ck["slot_done"], ck["slot_quota"])
+                runner.resume_cycle0 = int(ck["cycle0"])
             if verbose:
-                print(f"Resumed from {checkpoint_path} at {samples_done}/{spp} spp")
+                print(f"Resumed from {checkpoint_path} at {samples_done}/{spp} spp"
+                      + (" (mid-pass)" if mid_pass else ""))
         else:
             # a silently dropped checkpoint would discard hours of
             # accumulation without a trace — ALWAYS say why it was ignored
@@ -206,10 +291,16 @@ def render(
         ray_handles = []
 
     last_update = 0.0
+    last_image_t = 0.0
+    last_image_cost = 0.0
     cancelled = False
+    current_k_pass = 0
 
-    def maybe_progress(force: bool = False):
-        nonlocal last_update
+    def maybe_progress(force: bool = False, extra_samples: float = 0.0,
+                       snapshot=None):
+        # extra_samples: the portal hook's mid-pass completion estimate;
+        # snapshot: its partial image of the pass (radiance, counts)
+        nonlocal last_update, last_image_t, last_image_cost
         if progress is None:
             return
         now = time.perf_counter()
@@ -217,13 +308,77 @@ def render(
             return
         last_update = now
         img = None
-        if progress_snapshots and samples_done > 0:
+        if progress_snapshots and snapshot is not None:
+            # previews cost a device round trip: at most ~10% of the render
+            if force or now - last_image_t >= max(
+                    progress_interval, 10.0 * last_image_cost):
+                rad, cnt = snapshot()
+                partial = _partial_image(accum, rad, cnt, samples_done, npix)
+                img = Image.new(partial.cpu().numpy(), res)
+                last_image_t = time.perf_counter()
+                last_image_cost = last_image_t - now
+        elif progress_snapshots and samples_done > 0:
             partial = integrator.finalize(accum, samples_done).cpu().numpy()
-            img = Image.new(partial[inv_perm], res)
+            img = Image.new(unpermute(partial), res)
         progress(RenderUpdate(
-            progress=min(samples_done / spp, 1.0), image=img,
+            progress=min((samples_done + extra_samples) / spp, 1.0), image=img,
             samples_done=samples_done, stats=stats,
         ))
+
+    if runner is not None and (
+            progress is not None or cancel is not None
+            or (checkpoint_path and checkpoint_every)):
+        # progress, cancel and time-based checkpoints ride the drive's poll
+        # hook: a portal pass is up to 1024 spp, far too coarse for them
+        mid_ckpt = bool(checkpoint_path and checkpoint_every)
+        ck_state = {"t": time.monotonic()}
+        ck_secs = float(os.environ.get("PT_TPU_CKPT_SECS", str(CKPT_SECS)))
+
+        def portal_hook(cycle, w, unfin, *, snapshot=None):
+            if progress is not None:
+                frac = 1.0 - min(unfin / runner.total_slots, 1.0)
+                maybe_progress(extra_samples=frac * current_k_pass,
+                               snapshot=snapshot)
+            if cancel is not None and cancel():
+                return "cancel"
+            if mid_ckpt and time.monotonic() - ck_state["t"] >= ck_secs:
+                return "pause"
+            return False
+
+        def save_mid_pass(accum_dev, slot_rows, pass_idx, k_pass):
+            # accum holds every retired sample; slot_rows = (pix, done,
+            # quota) give the remaining per-slot ranges [done, quota). The
+            # current pass's rays so far stay with the runner: num_rays in
+            # the file is a floor.
+            drain_rays()
+            np.savez(
+                checkpoint_path,
+                accum=accum_dev.cpu().numpy(),
+                samples_done=samples_done,
+                next_pass=pass_idx,
+                seed=config.seed, spp=spp, npix=npix, k=k,
+                num_rays=stats.num_rays,
+                mid_pass=1,
+                cycle0=int(runner.last_pause_cycles),
+                slot_layout=runner.slot_layout,
+                slot_pix=slot_rows[0], slot_done=slot_rows[1],
+                slot_quota=slot_rows[2],
+            )
+            ck_state["t"] = time.monotonic()
+
+        runner.set_hooks(on_check=portal_hook,
+                         on_pause=save_mid_pass if mid_ckpt else None)
+
+    def run_pass(pass_idx: int, k_pass: int):
+        nonlocal accum
+        if runner is not None:
+            accum, rays = runner(accum, pass_idx, k_pass)
+            return rays
+        accum, rays = integrator.render_pass(
+            prep, accum, perm_dev, seed=config.seed, sample_base=pass_idx * k,
+            quota=k_pass, max_depth=config.max_depth,
+            rr_start_depth=config.rr_start_depth)
+        return rays
 
     # ---- pass schedule: full passes of k samples, then one remainder pass ----
     schedule = [(i, k) for i in range(pass_start, full_passes)]
@@ -236,17 +391,18 @@ def render(
                 print("Canceling render prematurely")
             cancelled = True
             break
-        # global sample base: k = FULL pass size, so a remainder pass
-        # continues the subpixel schedule where the full passes stopped
-        accum, rays = integrator.render_pass(
-            scene_c, cam_c, accum, perm_dev, seed=config.seed,
-            sample_base=pass_idx * k, quota=k_pass,
-            max_depth=config.max_depth, rr_start_depth=config.rr_start_depth,
-        )
-        ray_handles.append(rays)
+        current_k_pass = k_pass
+        ray_handles.append(run_pass(pass_idx, k_pass))
+        stats.num_dispatches += 1
+        if runner is not None and runner.last_cancelled:
+            # cancelled mid-pass by freeze-and-drain: every started sample
+            # is in accum, runner.last_partial_counts holds the counts
+            if verbose:
+                print("Canceling render prematurely")
+            cancelled = True
+            break
         samples_done += k_pass
         stats.num_samples += k_pass * npix
-        stats.num_dispatches += 1
         maybe_progress()
 
         if checkpoint_path and checkpoint_every and (
@@ -266,12 +422,23 @@ def render(
             )
 
     # ---- finalize ----
-    final_np = integrator.finalize(accum, max(samples_done, 1)).cpu().numpy()
+    if cancelled and runner is not None and runner.last_partial_counts is not None:
+        # normalize each pixel by its exact retired count: completed passes
+        # plus the cancelled pass's ragged counts
+        cnt = runner.last_partial_counts
+        stats.num_samples += int(cnt.sum().item())
+        final = _partial_image(accum, torch.zeros_like(accum), cnt,
+                               samples_done, npix)
+    else:
+        final = integrator.finalize(accum, max(samples_done, 1))
+    final_np = final.cpu().numpy()
     drain_rays()
     duration = time.perf_counter() - t_start
     stats.wall_seconds = duration
+    if runner is not None:
+        stats.extra.update(cycles=runner.total_cycles, polls=runner.total_polls)
 
-    image = Image.new(final_np[inv_perm], res)
+    image = Image.new(unpermute(final_np), res)
     if verbose:
         print("Rendering complete" if not cancelled else "Rendering cancelled")
 

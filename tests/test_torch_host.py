@@ -33,6 +33,13 @@ from path_tracer_tpu_torch.render import image as t_image
 from path_tracer_tpu_torch.render import pipeline as t_pipeline
 from path_tracer_tpu_torch.render import raygen as t_raygen
 
+# Tier-1 runs six pytest workers on one machine's CPU cores; torch's default
+# intra-op pool (a thread a core, in every worker) then oversubscribes them
+# many times over, and a portal render test of ~15 s took over 200 s. The
+# port's CPU tests work on a few thousand lanes, where one thread is as fast.
+# Every worker imports every test module, so this holds for all of them.
+torch.set_num_threads(1)
+
 SCENE_IDS = ["single-sphere", "cartesian", "two-spheres", "three-spheres",
              "cornell", "mesh"]
 SMALL_IDS = [s for s in SCENE_IDS if s != "mesh"]  # <= 128 primitives

@@ -1,4 +1,5 @@
-"""The port imports and renders without jax and without the JAX package."""
+"""The port imports and renders (cornell through K1's plain version, mesh
+through the portal scheduler) without jax and without the JAX package."""
 
 import subprocess
 import sys
@@ -12,6 +13,16 @@ done = pt.render(scene, RenderConfig(samples_per_pixel=4,
                  resolution=Resolution(8, 12)), device="cpu", out_dir=None,
                  verbose=False)
 assert done.image.pixels.shape == (96, 3) and done.stats.num_rays > 0
+mesh = pt.load_scene("mesh", "scenes", "meshes")
+done = pt.render(mesh, RenderConfig(samples_per_pixel=1,
+                 resolution=Resolution(4, 6)), device="cpu", out_dir=None,
+                 verbose=False)
+assert done.stats.extra["route"] == "portal" and done.stats.num_rays > 0
+import path_tracer_tpu_torch.cli
+import path_tracer_tpu_torch.ops.kernels.build
+import path_tracer_tpu_torch.ops.kernels.portal
+import path_tracer_tpu_torch.render.drive
+import path_tracer_tpu_torch.render.portal
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu")]
 print("LOADED", bad)

@@ -126,17 +126,36 @@ def test_cuda_device_without_cuda_raises(repo_root):
                   os.path.join(repo_root, "scenes"), "--out-dir", "unused"])
 
 
-@pytest.mark.parametrize("what", ["mesh", "literal", "mock_random"])
+def test_pass_sample_base_is_pass_index_times_pass_size(repo_root):
+    """The port's sample base of pass i is i * k, with progress callbacks or
+    without (ROADMAP Queue 3: the JAX package's fused hookless loop uses
+    i * 256 instead): at samples_per_pass 6 both renders are one image."""
+    cfg = tpt.RenderConfig(samples_per_pixel=12, samples_per_pass=6,
+                           resolution=tpt.Resolution(12, 18), seed=4)
+    plain = tpt.render(_cornell(repo_root), cfg, device="cpu", out_dir=None,
+                       verbose=False)
+    updates = []
+    hooked = tpt.render(_cornell(repo_root), cfg, device="cpu", out_dir=None,
+                        verbose=False, progress=updates.append,
+                        progress_interval=0.0)
+    assert len(updates) >= 2
+    np.testing.assert_array_equal(hooked.image.pixels, plain.image.pixels)
+    # and the two 6-spp passes are samples 0-5 and 6-11: one 12-spp pass
+    one = tpt.render(_cornell(repo_root), cfg.with_(samples_per_pass=12),
+                     device="cpu", out_dir=None, verbose=False)
+    np.testing.assert_allclose(one.image.pixels, plain.image.pixels, atol=1e-6)
+
+
+@pytest.mark.parametrize("what", ["literal", "mock_random"])
 def test_off_slice_render_options_raise(repo_root, what):
-    scene = load_both("mesh", repo_root)[1] if what == "mesh" else _cornell(repo_root)
     cfg = tpt.RenderConfig(samples_per_pixel=1, resolution=tpt.Resolution(4, 6))
     if what == "literal":
         cfg = cfg.with_(estimator="literal")
     if what == "mock_random":
         cfg = cfg.with_(mock_random=True)
-    slice_ = "Slice 2" if what == "mesh" else "Slice 1b"
-    with pytest.raises(NotImplementedError, match=slice_):
-        tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
+    with pytest.raises(NotImplementedError, match="Slice 1b"):
+        tpt.render(_cornell(repo_root), cfg, device="cpu", out_dir=None,
+                   verbose=False)
 
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--daemon"]])

@@ -6,10 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line or more each (any failure exits non-zero, with no result
 line):
   1. a CUDA device is present; the card's name and power limit;
-  2. the four CUDA kernels build from the checkout's sources (nvcc, sm_90a),
-     each with and without FMA contraction, all builds started together:
-     K1 trace_regen, K2 trace_cheap_regen, K3 trace_resolve_pool,
-     K4 trace_regen_prim;
+  2. the six CUDA kernels build from the checkout's five sources (nvcc,
+     sm_90a), each with and without FMA contraction, all builds started
+     together: K1 trace_regen, K2 trace_cheap_regen, K3 trace_resolve_pool,
+     K4 trace_regen_prim, K5 trace_stepped_static and K6 trace_stepped_prim
+     (one source);
   3. each kernel against its plain torch version on the card, at the main
      path's inputs: a build without FMA contraction must equal the plain
      version bit for bit, the default build agree on a stated share of
@@ -19,7 +20,9 @@ line):
      step cap 64 over several cycles, K3 with both sources; then three
      cycles of a fresh 1024x768 pool. Times of every kernel and its plain
      version at the main path's shapes (CUDA events; K2 and K3 on the
-     third cycle of the 1024x768 pool, the bulk phase of a drive);
+     third cycle of the 1024x768 pool, the bulk phase of a drive). K5 on
+     cornell and K6 on mesh: one preview frame's rays at 450x300 x 2 spp,
+     both uniform sources, in calls of 12 and of 5 steps;
   4. the main paths through render(), each with the launch counts set to
      0 just before and read just after: cornell 1024x768 at 512 spp (K1);
      mesh 1024x768 at 1024 spp through the portal (K2 and K3; per-pixel
@@ -27,7 +30,19 @@ line):
      small cornell and mesh renders on the card agree with the same
      renders on the CPU far inside Monte Carlo noise; a portal render
      cancelled at its first poll keeps exactly the samples it traced;
-  5. the CLI in a subprocess writes a PPM that parses (cornell and mesh).
+  5. the CLI in a subprocess writes a PPM that parses (cornell and mesh);
+  6. the interactive preview, ProgressiveRenderer(device="cuda") at 450x300
+     (the reference GUI's size) on cornell (K5) and mesh (K6) at 1, 2 and 4
+     spp a frame, the launch counts set to 0 just before each and read just
+     after: warm frame times (2nd best of 8) of step and step_u8, fps, the
+     restart latency (move_camera and the first frame); step_u8 byte-equal
+     to quantize_np of the accumulator; 8 frames of 2 spp against a 16-spp
+     render() of the same seed;
+  7. the viewer app (viewer.app.make_server on 127.0.0.1, an ephemeral
+     port, served from a thread): /state, three /preview.png (decoded here;
+     the etag changes), /control orbit, /pick, /probe, /select_scene
+     cornell, /start_render at 16 spp and res_y 120 until done with no
+     render error, /render.png; each request's latency.
 Then a JSON line per kernel, the card's line, and last
 {"ok": true, "device": {...}}.
 """
@@ -36,10 +51,15 @@ import concurrent.futures
 import glob
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LANE_TOL = 1e-3  # |Δ|₁ per pixel (or per pool column) counted as agreeing
@@ -63,6 +83,9 @@ FLOPS_SLAB = 24  # one AABB slab test
 FLOPS_SHADE = 152  # shade_phase, count_flops.py
 FLOPS_HIT = 29  # m = o x d, the hit point and its normal
 FLOPS_RAYGEN = 40  # a tent-filtered camera ray
+# a K5 segment: K1's cornell segment less count_flops.py's raygen share (64
+# of its 608), since K5's rays come from outside
+FLOPS_K5_SEGMENT = FLOPS_K1_SEGMENT - 64
 
 FAILURES: list[str] = []
 
@@ -123,16 +146,22 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "path_tracer_tpu/ops/pallas/portal.py:802"),
     ("trace_regen_prim", "trace_regen_prim.cu",
      "path_tracer_tpu/ops/pallas/trace_kernel.py:1296"),
+    ("trace_stepped_static", "trace_stepped.cu",
+     "path_tracer_tpu/ops/pallas/trace_v2.py:336"),
+    ("trace_stepped_prim", "trace_stepped.cu",
+     "path_tracer_tpu/ops/pallas/trace_kernel.py:1467"),
 )
 CSRC = "path_tracer_tpu_torch/csrc/"
+PREVIEW = (300, 450)  # the reference GUI's preview size (main.rs:91-92)
 
 
 def build_all():
-    """Build every kernel both ways, one nvcc per build, started together."""
+    """Build every source both ways, one nvcc per build, started together."""
     from path_tracer_tpu_torch.ops.kernels.build import load_kernel
 
-    jobs = {f"{name} fmad={fmad}": (os.path.join(ROOT, CSRC, src), fmad)
-            for fmad in (True, False) for name, src, _ in KERNELS}
+    sources = sorted({src for _, src, _ in KERNELS})
+    jobs = {f"{src} fmad={fmad}": (os.path.join(ROOT, CSRC, src), fmad)
+            for fmad in (True, False) for src in sources}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(load_kernel, *args) for name, args in jobs.items()}
         lines = []
@@ -371,6 +400,279 @@ def check_portal(mesh, dev, card, small, main):
     return k2, k3
 
 
+def preview_rays(scene, res, spp, dev):
+    """One preview frame's rays (integrator.render_samples) at ``res`` and
+    ``spp`` samples a pixel: (o, d, pixel_idx, sample_idx)."""
+    import torch
+
+    from path_tracer_tpu_torch.render.integrator import camera_rays
+    from path_tracer_tpu_torch.render.raygen import camera_arrays
+
+    npix = res.num_pixels
+    pix = torch.arange(npix, dtype=torch.int32, device=dev).repeat_interleave(spp)
+    smp = torch.arange(spp, dtype=torch.int32, device=dev).repeat(npix)
+    o, d = camera_rays(camera_arrays(scene.camera), pix, smp, seed=0,
+                       width=res.width, height=res.height)
+    return o, d, pix, smp
+
+
+def check_stepped(scenes, dev, card):
+    """K5 (cornell) and K6 (mesh) against their plain versions on one
+    preview frame's rays at 450x300 x 2 spp; returns their kernels-line
+    numbers."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.models.scene import pack_scene
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    res, spp, max_depth = Resolution(*PREVIEW), 2, 12
+    out = {}
+    for name, sid in (("K5", "cornell"), ("K6", "mesh")):
+        packed = pack_scene(scenes[sid])
+        if name == "K5":
+            fn, plain = trace_v2.trace_stepped, trace_v2.trace_stepped_plain
+            scene = trace_v2.build_scene_consts(packed).to(dev)
+        else:
+            fn, plain = trace_kernel.trace_stepped, trace_kernel.trace_stepped_plain
+            scene = trace_kernel.build_kernel_scene(packed).to(dev)
+        o, d, pix, smp = preview_rays(scenes[sid], res, spp, dev)
+        n = o.shape[0]
+        table = torch.from_numpy(np.random.default_rng(5).random(
+            (max_depth * 4, n), dtype=np.float32)).to(dev)
+        rec = {"max_abs_err": 0.0}
+        for source, uni in (("counter", None), ("table", table)):
+            for steps in (12, 6 if uni is not None else 5):
+                tag = f"{name} {sid} {res.width}x{res.height}x{spp}/{source}/{steps} steps"
+                kw = dict(seed=7, pixel_idx=pix, sample_idx=smp, uniforms=uni,
+                          max_depth=max_depth, steps_per_call=steps)
+                work: dict = {}
+                rad_k, rays_k = fn(scene, o, d, **kw)
+                t0 = time.perf_counter()
+                rad_p, rays_p = (plain(scene, o, d, work=work, **kw) if name == "K6"
+                                 else plain(scene, o, d, **kw))
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                if not bool(torch.isfinite(rad_k).all()):
+                    fail(f"{tag}: non-finite kernel radiance")
+                frac = lane_share(rad_k, rad_p)
+                err = float((rad_k - rad_p).abs().max())
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                ratio = int(rays_k) / max(int(rays_p), 1)
+                print(f"phase 3 {tag}: {frac:.5f} of rays within {LANE_TOL} "
+                      f"(need {LANE_FRAC}); max |err| {err:.3g}; rays "
+                      f"kernel/plain {ratio:.5f}; plain {plain_s:.2f} s", flush=True)
+                if frac < LANE_FRAC or abs(ratio - 1.0) > SEG_TOL:
+                    fail(f"{tag}: kernel disagrees with its plain version")
+                exact = fn(scene, o, d, fmad=False, **kw)
+                if not (torch.equal(exact[0], rad_p) and torch.equal(exact[1], rays_p)):
+                    fail(f"{tag}: the --fmad=false kernel is not bit-exact with "
+                         "its plain version")
+                if source == "counter" and steps == max_depth:
+                    kw_t = dict(kw)
+                    rec["ms"] = cuda_ms(lambda: fn(scene, o, d, **kw_t), 10)
+                    rec["plain_ms"] = plain_s * 1e3
+                    segs = int(rays_p)
+                    flops = (segs * FLOPS_K5_SEGMENT if name == "K5"
+                             else isect_flops(work, segs))
+                    # each ray reads o, d, pixel and sample index once and
+                    # writes its radiance once
+                    rec["bound_ms"], rec["bound_by"] = bound_ms(
+                        n * (24 + 8 + 12), flops)
+        print(f"phase 3 {name} {sid} {res.width}x{res.height}x{spp}: kernel "
+              f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, bound "
+              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}) ({card})", flush=True)
+        out[name] = rec
+    return out["K5"], out["K6"]
+
+
+def check_preview(scenes, dev, card, counters):
+    """Phase 6: the progressive preview on the card. Returns the launches
+    of K5 and K6 over its runs."""
+    import numpy as np
+    import torch
+
+    import path_tracer_tpu_torch as pt
+    from path_tracer_tpu_torch.ops import tonemap
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
+    from path_tracer_tpu_torch.render import integrator
+    from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
+    from path_tracer_tpu_torch.viewer.progressive import ProgressiveRenderer
+
+    res = Resolution(*PREVIEW)
+    want = {"cornell": trace_v2.trace_stepped, "mesh": trace_kernel.trace_stepped}
+    launches = {"cornell": 0, "mesh": 0}
+    for sid in ("cornell", "mesh"):
+        for spp in (1, 2, 4):
+            for c in counters:
+                c.launches = 0
+            r = ProgressiveRenderer(scenes[sid], res, spp_per_frame=spp,
+                                    device=dev)
+            r.step()  # warm-up
+            times = {}
+            for name, fn in (("step", r.step), ("step_u8", r.step_u8)):
+                ts = []
+                for _ in range(8):
+                    t0 = time.perf_counter()
+                    fn()  # both end in a device-to-host copy
+                    ts.append(time.perf_counter() - t0)
+                times[name] = sorted(ts)[1]
+            frame = r.step_u8()
+            fin = integrator.finalize(r._accum, r.samples_done).cpu().numpy()
+            if not np.array_equal(frame, tonemap.quantize_np(fin)):
+                fail(f"preview {sid} {spp} spp: step_u8 differs from quantize_np")
+            restarts = []
+            cam = r.scene.camera
+            for k in range(3):
+                moved = pt.Camera.looking(cam.position + np.float32(0.01 * (k + 1)),
+                                          cam.direction)
+                t0 = time.perf_counter()
+                r.move_camera(moved)
+                r.step_u8()
+                restarts.append(time.perf_counter() - t0)
+            counts = {c.__module__.rsplit(".", 1)[-1] + "." + c.__name__: c.launches
+                      for c in counters}
+            frames = 1 + 8 + 8 + 1 + 3
+            others = [k for c, (k, v) in zip(counters, counts.items())
+                      if c is not want[sid] and v]
+            if want[sid].launches != frames or others:
+                fail(f"preview {sid} {spp} spp: launches {counts}, want "
+                     f"{frames} of {want[sid].__module__}.trace_stepped only")
+            launches[sid] += want[sid].launches
+            print(f"phase 6 preview {sid} {res.width}x{res.height} {spp} spp/frame: "
+                  f"step {times['step'] * 1e3:.2f} ms ({1 / times['step']:.1f} fps), "
+                  f"step_u8 {times['step_u8'] * 1e3:.2f} ms "
+                  f"({1 / times['step_u8']:.1f} fps), restart "
+                  f"{sorted(restarts)[1] * 1e3:.2f} ms (2nd best of 3); "
+                  f"launches {counts} ({card})", flush=True)
+        # 8 frames at 2 spp against a 16-spp render of the same seed
+        r = ProgressiveRenderer(scenes[sid], res, spp_per_frame=2, device=dev)
+        for _ in range(8):
+            img = r.step().pixels
+        cfg = RenderConfig(samples_per_pixel=16, resolution=res)
+        ref = pt.render(scenes[sid], cfg, device=dev, out_dir=None, verbose=False)
+        ref1 = pt.render(scenes[sid], cfg.with_(seed=1), device=dev, out_dir=None,
+                         verbose=False)
+        same = float(np.abs(img - ref.image.pixels).mean())
+        noise = float(np.abs(ref1.image.pixels - ref.image.pixels).mean())
+        print(f"phase 6 preview {sid} 8 x 2 spp vs render() 16 spp: mean |Δ| "
+              f"{same:.6f}, render seed 0 vs 1 {noise:.5f}", flush=True)
+        if not (np.isfinite(img).all() and same <= 0.25 * noise):
+            fail(f"preview {sid}: 8 frames of 2 spp disagree with render()")
+    return launches["cornell"], launches["mesh"]
+
+
+def decode_png(png: bytes):
+    """8-bit RGB PNG with filter 0 on every row (what the app writes) →
+    [H, W, 3] uint8; checks every chunk's CRC."""
+    import numpy as np
+
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(png):
+        n, tag = struct.unpack(">I4s", png[pos:pos + 8])
+        data = png[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + data) & 0xFFFFFFFF != crc:
+            raise ValueError(f"bad CRC in {tag}")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat += data
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    w, h, depth, ctype = header[:4]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if depth != 8 or ctype != 2 or (rows[:, 0] != 0).any():
+        raise ValueError("not 8-bit RGB with filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def check_app(dev, card):
+    """Phase 7: the viewer app on the card, driven over HTTP."""
+    import numpy as np
+
+    from path_tracer_tpu_torch.ops import tonemap
+    from path_tracer_tpu_torch.render import integrator
+    from path_tracer_tpu_torch.viewer.app import make_server
+
+    server = make_server(0, os.path.join(ROOT, "scenes"),
+                         os.path.join(ROOT, "meshes"), device=dev)
+    state = server.state
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(method, path, body=None, quiet=False):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", method=method,
+            data=None if body is None else json.dumps(body).encode())
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            data, etag = resp.read(), resp.headers.get("ETag")
+        ms = (time.perf_counter() - t0) * 1e3
+        if not quiet:
+            print(f"phase 7 {method} {path} {json.dumps(body) if body else ''}: "
+                  f"{ms:.2f} ms, {len(data)} bytes", flush=True)
+        return data, etag
+
+    try:
+        s = json.loads(call("GET", "/state")[0])
+        if s["scene"] != "mesh":
+            fail(f"the app opened on {s['scene']}, not mesh")
+        tags = []
+        for _ in range(3):
+            png, etag = call("GET", "/preview.png")
+            img = decode_png(png)
+            tags.append(etag)
+            r = state.preview
+            h, w = r.resolution.height, r.resolution.width
+            if img.shape != (h, w, 3):
+                fail(f"/preview.png is {img.shape}, want {(h, w, 3)}")
+        want = tonemap.quantize_np(integrator.finalize(
+            r._accum, r.samples_done).cpu().numpy()).astype(np.uint8)
+        if not np.array_equal(img, want.reshape(h, w, 3)[::-1, ::-1, :]):
+            fail("the last /preview.png is not the preview's frame")
+        if len(set(tags)) != 3:
+            fail(f"/preview.png etags did not change: {tags}")
+        call("POST", "/control", {"action": "orbit", "dx": 40, "dy": 25})
+        call("POST", "/pick", {"relx": 0.5, "rely": 0.5})
+        probe = json.loads(call("POST", "/probe", {"relx": 0.5, "rely": 0.5})[0])
+        if not probe.get("distance", 0) > 0:
+            fail(f"/probe found nothing: {probe}")
+        call("POST", "/select_scene", {"id": "cornell"})
+        t0 = time.perf_counter()
+        call("POST", "/start_render", {"spp": 16, "res_y": 120})
+        polls = 0
+        while time.perf_counter() - t0 < 120:
+            s = json.loads(call("GET", "/state", quiet=True)[0])
+            polls += 1
+            if s["render_state"] == "done" or s["render_error"]:
+                break
+            time.sleep(0.1)
+        print(f"phase 7 render to done in {time.perf_counter() - t0:.2f} s "
+              f"({polls} polls of /state): "
+              f"state {s['render_state']}, error {s['render_error']}, "
+              f"{s['render_seconds']:.3f} s in render() ({card})", flush=True)
+        if s["render_state"] != "done" or s["render_error"]:
+            fail(f"the app's render did not finish: {s}")
+        img = decode_png(call("GET", "/render.png")[0])
+        if img.shape != (120, 180, 3) or img.max() == 0:
+            fail(f"/render.png is {img.shape}, max {img.max()}")
+    except (urllib.error.URLError, ValueError, KeyError) as e:
+        fail(f"the viewer app: {e!r}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        if state._render_thread is not None:
+            state._render_thread.join(timeout=120)
+    print("phase 7 done", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -394,7 +696,7 @@ def main() -> int:
     t0 = time.perf_counter()
     for line in build_all():
         print(f"phase 2 built {line}", flush=True)
-    print(f"phase 2 ok: 8 builds in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 2 ok: 10 builds in {time.perf_counter() - t0:.1f} s", flush=True)
 
     scenes = {sid: pt.load_scene(sid, os.path.join(ROOT, "scenes"),
                                  os.path.join(ROOT, "meshes"))
@@ -405,11 +707,13 @@ def main() -> int:
     k1 = check_k1(scenes, dev, card)
     k4 = check_k4(scenes["mesh"], dev, card, small, main_res)
     k2, k3 = check_portal(scenes["mesh"], dev, card, small, main_res)
+    k5, k6 = check_stepped(scenes, dev, card)
     print("phase 3 done", flush=True)
 
     # ---- phase 4: the main paths through render() ----
     counters = (trace_v2.trace_regen, pk.trace_cheap_regen,
-                pk.trace_resolve_pool, trace_kernel.trace_regen_prim)
+                pk.trace_resolve_pool, trace_kernel.trace_regen_prim,
+                trace_v2.trace_stepped, trace_kernel.trace_stepped)
 
     def run(scene, cfg, env=None):
         """render() on the card with the launch counts zeroed just before
@@ -439,7 +743,7 @@ def main() -> int:
         if want_mean and not ((mean > want_mean[0]).all()
                               and (mean < want_mean[1]).all()):
             fail(f"{tag}: mean radiance {mean} outside {want_mean}")
-        print(f"phase 4 {tag}: launches K1/K2/K3/K4 {launches}; "
+        print(f"phase 4 {tag}: launches K1/K2/K3/K4/K5/K6 {launches}; "
               f"{s.wall_seconds:.3f} s, {s.mrays_per_sec:.1f} Mray/s, "
               f"{s.msamples_per_sec:.1f} Msamples/s, {s.num_samples} samples, "
               f"{s.num_rays} segments, {s.extra}; mean {mean.round(4).tolist()} "
@@ -534,11 +838,20 @@ def main() -> int:
         print(f"phase 5 CLI {' '.join(args)} in {time.perf_counter() - t0:.1f} s: "
               f"{' / '.join(last)}", flush=True)
 
+    # ---- phase 6: the interactive preview ----
+    launches["trace_stepped_static"], launches["trace_stepped_prim"] = (
+        check_preview(scenes, dev, card, counters))
+    print("phase 6 done", flush=True)
+
+    # ---- phase 7: the viewer app ----
+    check_app(dev, card)
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     recs = {"trace_regen": k1, "trace_cheap_regen": k2,
-            "trace_resolve_pool": k3, "trace_regen_prim": k4}
+            "trace_resolve_pool": k3, "trace_regen_prim": k4,
+            "trace_stepped_static": k5, "trace_stepped_prim": k6}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rec["max_abs_err"],

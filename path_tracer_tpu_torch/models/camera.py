@@ -5,8 +5,9 @@ Parity: ``camera_data::CameraData`` in the reference
 aspect ratio 3:2, sensor-plane basis with up-vector switch at |dir.y| >= 0.9,
 lens center at ``position + direction * focal_length``.
 
-Counterpart of ``path_tracer_tpu.models.camera``. The rasterizer's look-at
-and perspective matrices are not ported yet (ROADMAP.md, Slice 3).
+Counterpart of ``path_tracer_tpu.models.camera``, with the look-at and
+perspective matrices that viewport picking (``viewer.controls``) and the
+raster preview use.
 
 All math is float32 to match the reference's f32 arithmetic bit-for-bit where
 possible (e.g. the serialized normalized direction of the built-in scenes).
@@ -60,6 +61,9 @@ class Camera:
         """Constructor parity: ``CameraData::new`` normalizes the direction."""
         return Camera(position=_vec3(position), direction=normalize_f32(direction))
 
+    def set_direction(self, direction) -> None:
+        self.direction = normalize_f32(direction)
+
     @property
     def sensor_height(self) -> np.float32:
         return F32(self.sensor_width / self.aspect_ratio)
@@ -80,6 +84,49 @@ class Camera:
         sv = np.cross(su, d).astype(np.float32)
         return (su * self.sensor_width).astype(np.float32), (
             sv * self.sensor_height
+        ).astype(np.float32)
+
+    # --- rasterizer and picking support (viewport parity, mod.rs:188-202) ---
+
+    def fov_y(self) -> float:
+        return float(2.0 * np.arctan(self.sensor_height / (2.0 * self.focal_length)))
+
+    def view_matrix(self) -> np.ndarray:
+        """Right-handed look-at from position toward lens_center, up +Y."""
+        eye = self.position.astype(np.float64)
+        center = self.lens_center().astype(np.float64)
+        up = np.array([0.0, 1.0, 0.0])
+        f = center - eye
+        f = f / np.linalg.norm(f)
+        s = np.cross(f, up)
+        s = s / np.linalg.norm(s)
+        u = np.cross(s, f)
+        m = np.eye(4)
+        m[0, :3] = s
+        m[1, :3] = u
+        m[2, :3] = -f
+        m[0, 3] = -np.dot(s, eye)
+        m[1, 3] = -np.dot(u, eye)
+        m[2, 3] = np.dot(f, eye)
+        return m.astype(np.float32)
+
+    def projection_matrix(self, aspect_ratio: float) -> np.ndarray:
+        """Right-handed perspective, depth range [0,1] (wgpu convention),
+        near 0.001, far 1000 — parity with ``Mat4::perspective_rh``."""
+        fov, near, far = self.fov_y(), 0.001, 1000.0
+        f = 1.0 / np.tan(fov / 2.0)
+        m = np.zeros((4, 4))
+        m[0, 0] = f / aspect_ratio
+        m[1, 1] = f
+        m[2, 2] = far / (near - far)
+        m[2, 3] = near * far / (near - far)
+        m[3, 2] = -1.0
+        return m.astype(np.float32)
+
+    def view_projection(self, aspect_ratio: float) -> np.ndarray:
+        return (
+            self.projection_matrix(aspect_ratio).astype(np.float64)
+            @ self.view_matrix().astype(np.float64)
         ).astype(np.float32)
 
     # --- JSON (scene schema parity) ---

@@ -1,4 +1,4 @@
-"""Pieces of the regenerative traces, the table-driven scene, and K4.
+"""Pieces of the regenerative traces, the table-driven scene, K4 and K6.
 
 Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
 
@@ -13,7 +13,11 @@ Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
   that K3 and K4 share, ``csrc/isect_full.cuh`` on the card;
 - K4 ``trace_regen_prim`` (``csrc/trace_regen_prim.cu``) and its plain
   version ``trace_regen_prim_plain``: the regenerative loop over the
-  full scene, the JAX package's ``pallasr:`` route.
+  full scene, the JAX package's ``pallasr:`` route;
+- K6 ``trace_stepped`` (``csrc/trace_stepped.cu``) and its plain version
+  ``trace_stepped_plain``: the stepped trace of given rays over the full
+  scene (the JAX ``trace_pallas``), with the state, call loop and draws it
+  shares with K5 (``trace_v2.trace_stepped``).
 
 The torch functions are the plain versions of what the CUDA kernels compute
 per thread: vectorised over [N] lanes, every branch a ``torch.where``,
@@ -899,3 +903,236 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
 
 
 trace_regen_prim.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Stepped traces of given rays: K5 (trace_v2.trace_stepped) and K6 (here)
+# ---------------------------------------------------------------------------
+
+# Rows of the stepped state [STATE_ROWS, N] float32 (csrc/trace_stepped.cu
+# mirrors them): origin, direction, throughput, radiance (3 rows each), alive
+# (1.0 or 0.0) and the departed triangle's packed id (-1 for none): the six
+# state rows of the JAX kernels, in one tensor.
+ROW_O, ROW_D, ROW_THR, ROW_ACC, ROW_ALIVE, ROW_PREV = 0, 3, 6, 9, 12, 13
+STATE_ROWS = 14
+
+CSRC_STEPPED = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "csrc", "trace_stepped.cu")
+
+
+def check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
+                       uniforms):
+    """Argument checks shared by K5 and K6 and their plain versions."""
+    n = o.shape[0]
+    if o.shape != (n, 3) or d.shape != (n, 3) or o.dtype != F32 or d.dtype != F32:
+        raise ValueError("o and d must be [N, 3] float32")
+    for name, t in (("pixel_idx", pixel_idx), ("sample_idx", sample_idx)):
+        if t.shape != (n,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be a [N] int32 tensor")
+    if max_depth < 1 or steps_per_call < 1:
+        raise ValueError(f"need max_depth >= 1 and steps_per_call >= 1 "
+                         f"(got {max_depth}, {steps_per_call})")
+    if uniforms is not None:
+        if uniforms.shape != (max_depth * 4, n) or uniforms.dtype != F32:
+            raise ValueError(f"uniforms must be [{max_depth * 4}, {n}] float32")
+        if max_depth % min(steps_per_call, max_depth):
+            raise ValueError(f"with injected uniforms, steps_per_call="
+                             f"{steps_per_call} must divide max_depth={max_depth}")
+
+
+def stepped_draw(seed, pixel_idx, sample_idx, uniforms):
+    """draw(depth) → the four shading uniforms (u_rr, u1, u2, u_br) of every
+    ray at segment ``depth``: the counter generator keyed by (seed, pixel,
+    sample, depth, slot 0-3), the draws K1 makes for the same sample, or the
+    rows ``depth * 4 ..`` of the injected ``uniforms`` [max_depth * 4, N]."""
+    if uniforms is not None:
+        return lambda depth: [uniforms[depth * 4 + k] for k in range(4)]
+    key = rng.path_key(seed, pixel_idx.to(torch.int64), sample_idx.to(torch.int64))
+    return lambda depth: [rng.uniform(key, depth, k) for k in range(4)]
+
+
+def stepped_call_plain(isect, draw, state, counts, *, depth0, n_steps,
+                       max_depth, rr_start_depth):
+    """One call of the plain stepped trace: up to ``n_steps`` bounces at
+    segment depths ``depth0 ..`` over ``state`` [STATE_ROWS, N] (updated in
+    place); ``counts`` [N] i32 gains one for each step a ray starts alive.
+
+    isect(o, d, prev, alive) → (found, point3, nrm3, color3, emis3, rtype,
+    new_prev [N] f32). The step is the JAX kernels' body (``trace_v2.
+    _make_kernel_v2``, ``trace_kernel._make_kernel``): shade, move o and d
+    only if the path lives on, zero thr on death, prev := new_prev. A ray
+    that is dead is left as it is, as a CUDA thread leaves its loop: the JAX
+    kernel's all-dead block skip (``trace_kernel.py:1064-1082``) lane by
+    lane. INVARIANT (the JAX kernel's): a ray keeps the prev and thr it had
+    at death, where a step run over a dead lane would reset them; dead rays
+    never come back in a stepped trace, so nothing reads them, and state
+    rows compare only for live rays."""
+    o = [state[ROW_O + k] for k in range(3)]
+    d = [state[ROW_D + k] for k in range(3)]
+    thr = [state[ROW_THR + k] for k in range(3)]
+    acc = [state[ROW_ACC + k] for k in range(3)]
+    alive = state[ROW_ALIVE] > 0.0
+    prev = state[ROW_PREV]
+    for s in range(n_steps):
+        if not bool(alive.any()):
+            break
+        counts += alive
+        found, point, nrm, color, emis, rtype, new_prev = isect(o, d, prev, alive)
+        depth = depth0 + s
+        new_depth = torch.tensor(depth + 1, device=prev.device)
+        acc, thr_new, d_new, alive_new = shade_phase(
+            d, nrm, color, emis, rtype, found, thr, acc, draw(depth),
+            new_depth, max_depth, rr_start_depth)
+        am = alive_new.to(F32)
+        o = [torch.where(alive_new, point[k], o[k]) for k in range(3)]
+        d = [torch.where(alive_new, d_new[k], d[k]) for k in range(3)]
+        thr = [torch.where(alive, thr_new[k] * am, thr[k]) for k in range(3)]
+        prev = torch.where(alive, new_prev, prev)
+        alive = alive_new
+    state[ROW_O:ROW_O + 3] = torch.stack(o)
+    state[ROW_D:ROW_D + 3] = torch.stack(d)
+    state[ROW_THR:ROW_THR + 3] = torch.stack(thr)
+    state[ROW_ACC:ROW_ACC + 3] = torch.stack(acc)
+    state[ROW_ALIVE] = alive.to(F32)
+    state[ROW_PREV] = prev
+
+
+def stepped_trace(run_call, o, d, max_depth, steps_per_call):
+    """The JAX wrappers' call loop: ``ceil(max_depth / steps)`` calls of
+    ``steps = min(steps_per_call, max_depth)`` bounces, call c starting at
+    depth ``c * steps``, over a fresh state (thr 1, radiance 0, alive, prev
+    -1). run_call(state, counts, depth0, steps) runs one call. Returns
+    (radiance [N,3] f32, rays traced as an int64 scalar tensor)."""
+    n = o.shape[0]
+    steps = min(steps_per_call, max_depth)
+    state = torch.empty((STATE_ROWS, n), dtype=F32, device=o.device)
+    state[ROW_O:ROW_O + 3] = o.T
+    state[ROW_D:ROW_D + 3] = d.T
+    state[ROW_THR:ROW_THR + 3] = 1.0
+    state[ROW_ACC:ROW_ACC + 3] = 0.0
+    state[ROW_ALIVE] = 1.0
+    state[ROW_PREV] = -1.0
+    counts = torch.zeros(n, dtype=torch.int32, device=o.device)
+    for c in range(-(-max_depth // steps)):
+        run_call(state, counts, c * steps, steps)
+    return state[ROW_ACC:ROW_ACC + 3].T.contiguous(), counts.sum(dtype=torch.int64)
+
+
+def trace_stepped_plain(ks: KernelScene, o, d, *, seed: int, pixel_idx,
+                        sample_idx, max_depth: int = 12, rr_start_depth: int = 5,
+                        steps_per_call: int = 12, uniforms=None, work=None):
+    """Plain torch version of K6, the JAX package's ``trace_pallas``: trace
+    the rays o, d [N,3] through the table-driven scene, ``steps_per_call``
+    bounces a call (``stepped_call_plain``, ``stepped_trace``). Ray i draws
+    as sample ``sample_idx[i]`` of pixel ``pixel_idx[i]`` ([N] int32) under
+    ``seed``, or from the injected ``uniforms`` [max_depth * 4, N]; ``work``
+    as in isect_full_plain. Returns (radiance [N,3] f32, rays traced)."""
+    check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
+                       uniforms)
+    draw = stepped_draw(seed, pixel_idx, sample_idx, uniforms)
+
+    def isect(o_, d_, prev, alive):
+        return isect_full_plain(ks, o_, d_, prev, alive, work)
+
+    def run_call(state, counts, depth0, steps):
+        stepped_call_plain(isect, draw, state, counts, depth0=depth0,
+                           n_steps=steps, max_depth=max_depth,
+                           rr_start_depth=rr_start_depth)
+
+    return stepped_trace(run_call, o, d, max_depth, steps_per_call)
+
+
+@functools.lru_cache(maxsize=2)
+def stepped_library(fmad: bool = True):
+    """``csrc/trace_stepped.cu`` (K5 and K6) built and bound; ``fmad=False``
+    builds it without FMA contraction."""
+    built = load_kernel(CSRC_STEPPED, fmad)
+    tail = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pixel, sample, n
+        ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, depth0, n_steps
+        ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
+        ctypes.c_void_p,  # uniforms [max_depth * 4, n] or NULL
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # state, counts, stream
+    ]
+    fn = built.lib.pt_trace_stepped_static
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int,  # prims, n_prims
+                   ctypes.c_void_p, ctypes.c_int] + tail  # gates, n_gates
+    fn = built.lib.pt_trace_stepped_prim
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,  # sph, S
+        ctypes.c_void_p, ctypes.c_int,  # bnd, M
+        ctypes.c_void_p, ctypes.c_int,  # tri, T
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
+    ] + tail
+    return built
+
+
+def launch_stepped(name: str, entry: str, scene_args, tables, o, d, *, seed,
+                   pixel_idx, sample_idx, max_depth, rr_start_depth,
+                   steps_per_call, uniforms, fmad, counter):
+    """K5's or K6's call loop on the card: checks, then one launch of
+    ``entry`` per call over the state (``stepped_trace``); each launch adds
+    one to ``counter.launches``."""
+    dev = o.device
+    for t in [*tables, o, d] + ([uniforms] if uniforms is not None else []):
+        if t.device != dev or t.dtype != F32 or not t.is_contiguous():
+            raise ValueError(f"{name}: scene, rays and uniforms must be "
+                             f"contiguous float32 tensors on {dev}")
+    for t in (pixel_idx, sample_idx):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: pixel_idx and sample_idx must be "
+                             f"contiguous tensors on {dev}")
+    n = o.shape[0]
+    built = stepped_library(fmad)
+    fn = getattr(built.lib, entry)
+
+    def run_call(state, counts, depth0, steps):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = fn(*scene_args, pixel_idx.data_ptr(), sample_idx.data_ptr(),
+                      n, int(seed) & rng.MASK32, depth0, steps, max_depth,
+                      rr_start_depth,
+                      uniforms.data_ptr() if uniforms is not None else None,
+                      state.data_ptr(), counts.data_ptr(), stream)
+        check_launch(built, code, name)
+        counter.launches += 1
+
+    if n == 0:
+        return (torch.empty((0, 3), dtype=F32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    return stepped_trace(run_call, o, d, max_depth, steps_per_call)
+
+
+def trace_stepped(ks: KernelScene, o, d, *, seed: int, pixel_idx, sample_idx,
+                  max_depth: int = 12, rr_start_depth: int = 5,
+                  steps_per_call: int = 12, uniforms=None, fmad: bool = True):
+    """K6 (see trace_stepped_plain for the contract). CPU tensors run the
+    plain version; CUDA tensors launch ``pt_trace_stepped_prim`` of
+    ``csrc/trace_stepped.cu`` once per call, or raise. ``fmad=False`` builds
+    the kernel without FMA contraction."""
+    dev = o.device
+    kw = dict(seed=seed, pixel_idx=pixel_idx, sample_idx=sample_idx,
+              max_depth=max_depth, rr_start_depth=rr_start_depth,
+              steps_per_call=steps_per_call, uniforms=uniforms)
+    if dev.type == "cpu":
+        return trace_stepped_plain(ks, o, d, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_stepped runs on cpu or cuda, not {dev}")
+    check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
+                       uniforms)
+
+    def ptr(t):
+        return t.data_ptr() if t.numel() else None
+
+    scene_args = (ks.sph.data_ptr(), ks.sph.shape[0], ptr(ks.bnd),
+                  ks.bnd.shape[0], ks.tri.data_ptr(), ks.tri.shape[0],
+                  ptr(ks.tiles), ks.tiles.shape[0], ks.tile_base)
+    return launch_stepped(
+        "trace_stepped (K6)", "pt_trace_stepped_prim", scene_args,
+        (ks.sph, ks.bnd, ks.tri, ks.tiles), o, d, fmad=fmad,
+        counter=trace_stepped, **kw)
+
+
+trace_stepped.launches = 0

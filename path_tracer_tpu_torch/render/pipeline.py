@@ -14,6 +14,16 @@ known:
 - ``prim`` (the JAX ``pallasr:`` mode): every other scene; each pass
   launches K4 (``trace_kernel.trace_regen_prim``) over all pixels.
 
+The interactive preview prepares with ``regen=False``, as the JAX package's
+does, and gets one of two camera-free routes, so that a camera move
+rebuilds nothing on the card:
+
+- ``stepped`` (the JAX ``pallas2:`` mode): scenes of at most 128
+  primitives; rays made by ``raygen.generate_rays`` go through K5
+  (``trace_v2.trace_stepped``);
+- ``stepped_prim`` (the JAX ``pallas`` mode with its kernel tables): every
+  other scene, through K6 (``trace_kernel.trace_stepped``).
+
 Passes: ``min(spp, 256)`` samples for ``regen`` (``samples_per_pass``
 overrides), at most 64 for ``prim`` (K4's quota cap) and at most
 PT_TPU_PORTAL_PASS_CAP (default 1024) for ``portal``. The global sample
@@ -79,11 +89,13 @@ class RenderDone:
 @dataclass(frozen=True)
 class Prepared:
     """A scene ready to render on one device: its route and what it needs.
-    ``scene`` is set for ``regen``, ``portal`` and ``kscene`` for
-    ``portal``, ``kscene`` alone for ``prim``."""
+    ``scene`` is set for ``regen`` and ``stepped``, ``portal`` and
+    ``kscene`` for ``portal``, ``kscene`` alone for ``prim`` and
+    ``stepped_prim``. ``cam`` (the in-kernel camera) is None for the
+    stepped routes, which take their rays from outside."""
 
     route: str
-    cam: trace_v2.CameraConsts
+    cam: trace_v2.CameraConsts | None
     scene: trace_v2.SceneConsts | None = None
     portal: portal_ops.PortalConsts | None = None
     kscene: trace_kernel.KernelScene | None = None
@@ -102,14 +114,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def prepare_render(scene: SceneDescriptor, resolution: Resolution, device
-                   ) -> Prepared:
+def prepare_render(scene: SceneDescriptor, resolution: Resolution, device,
+                   *, regen: bool = True) -> Prepared:
     """Pick the route as the JAX package's prepare_scene_and_mode does and
-    build its tables on ``device``."""
+    build its tables on ``device``. ``regen=False`` (the interactive
+    preview) gives the camera-free ``stepped`` or ``stepped_prim`` route."""
     packed = pack_scene(scene)
+    consts = trace_v2.build_scene_consts(packed)
+    if not regen:
+        if consts is not None:
+            return Prepared("stepped", None, scene=consts.to(device))
+        return Prepared("stepped_prim", None,
+                        kscene=trace_kernel.build_kernel_scene(packed).to(device))
     cam = trace_v2.build_camera_consts(
         scene.camera, resolution.width, resolution.height)
-    consts = trace_v2.build_scene_consts(packed)
     if consts is not None:
         return Prepared("regen", cam, scene=consts.to(device))
     kscene = trace_kernel.build_kernel_scene(packed).to(device)

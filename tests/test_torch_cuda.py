@@ -8,7 +8,9 @@ it as
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Kernels: K1 trace_regen (cornell, three-spheres, a gated scene), K4
-trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh).
+trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh),
+K5 and K6 trace_stepped (cornell and mesh preview rays) and the progressive
+preview on the card.
 
 Tolerance of the default build: at least 99.5% of pixels (K2, K3: pool
 columns) within |Δ|₁ < 1e-3, channel means within rtol 1e-3 and atol 1e-3,
@@ -26,11 +28,15 @@ import torch
 
 import path_tracer_tpu_torch as tpt
 from path_tracer_tpu_torch.ops.kernels import portal, trace_kernel, trace_v2
+from path_tracer_tpu_torch.ops import tonemap
+from path_tracer_tpu_torch.render import integrator
 from path_tracer_tpu_torch.render import portal as rportal
 from path_tracer_tpu_torch.render.pipeline import (
     morton_pixel_order, prepare_render, prepare_scene,
 )
+from path_tracer_tpu_torch.render.raygen import camera_arrays
 from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
+from path_tracer_tpu_torch.viewer.progressive import ProgressiveRenderer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -217,3 +223,80 @@ def test_cuda_mesh_renders_match_cpu(cuda_device, monkeypatch):
         same = np.abs(gpu.image.pixels - cpu.image.pixels).mean()
         assert same <= 0.25 * noise, (env, same, noise)
         assert gpu.stats.num_samples == cpu.stats.num_samples
+
+
+def _preview_rays(scene, res, spp, dev):
+    """The preview's rays for one frame of ``spp`` samples (render_samples)."""
+    npix = res.num_pixels
+    pix = torch.arange(npix, dtype=torch.int32, device=dev).repeat_interleave(spp)
+    smp = torch.arange(spp, dtype=torch.int32, device=dev).repeat(npix)
+    o, d = integrator.camera_rays(camera_arrays(scene.camera), pix, smp, seed=0,
+                                  width=res.width, height=res.height)
+    return o, d, pix, smp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sid,kernel", [("cornell", "K5"), ("three-spheres", "K5"),
+                                        ("mesh", "K6"), ("cornell", "K6")])
+@pytest.mark.parametrize("source", ["counter", "table"])
+def test_cuda_stepped_kernels_match_plain(cuda_device, sid, kernel, source):
+    """K5 and K6 on a frame of preview rays, in calls of 12 and of 5 steps:
+    the --fmad=false build equals the plain version bit for bit, the default
+    build agrees on 99.5% of rays."""
+    res = Resolution(96, 128)
+    prep = prepare_render(_scene(sid), res, cuda_device, regen=False)
+    o, d, pix, smp = _preview_rays(_scene(sid), res, 2, cuda_device)
+    if kernel == "K5":
+        fn, scene = trace_v2.trace_stepped, prep.scene
+        plain = trace_v2.trace_stepped_plain
+    else:
+        fn, plain = trace_kernel.trace_stepped, trace_kernel.trace_stepped_plain
+        scene = trace_kernel.build_kernel_scene(tpt.pack_scene(_scene(sid))).to(
+            cuda_device)
+    uni = None
+    if source == "table":
+        uni = torch.from_numpy(np.random.default_rng(0).random(
+            (48, o.shape[0]), dtype=np.float32)).to(cuda_device)
+    for steps in (12, 6) if source == "table" else (12, 5):
+        kw = dict(seed=5, pixel_idx=pix, sample_idx=smp, uniforms=uni,
+                  steps_per_call=steps)
+        before = fn.launches
+        k_rad, k_rays = fn(scene, o, d, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + -(-12 // steps)
+        p_rad, p_rays = plain(scene, o, d, **kw)
+        assert fn.launches == before + -(-12 // steps)  # plain launches nothing
+        agree = float(((k_rad - p_rad).abs().sum(dim=1) < 1e-3).float().mean())
+        assert agree >= 0.995, agree
+        assert abs(int(k_rays) - int(p_rays)) <= 0.005 * int(p_rays)
+        e_rad, e_rays = fn(scene, o, d, fmad=False, **kw)
+        assert torch.equal(e_rad, p_rad) and torch.equal(e_rays, p_rays)
+        assert float(p_rad.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sid", ["cornell", "mesh"])
+def test_cuda_preview_launches_its_kernel(cuda_device, sid):
+    """The preview on the card runs K5 (cornell) or K6 (mesh) and no other
+    trace kernel; step_u8 is quantize_np of the accumulator; 4 frames of 2
+    spp match the CPU preview far inside the noise between two seeds."""
+    res = Resolution(24, 36)
+    counters = (trace_v2.trace_regen, trace_v2.trace_stepped,
+                trace_kernel.trace_regen_prim, trace_kernel.trace_stepped,
+                portal.trace_cheap_regen, portal.trace_resolve_pool)
+    want = trace_v2.trace_stepped if sid == "cornell" else trace_kernel.trace_stepped
+    before = [c.launches for c in counters]
+    r = ProgressiveRenderer(_scene(sid), res, device=cuda_device)
+    for _ in range(3):
+        r.step()
+    frame = r.step_u8()
+    fin = integrator.finalize(r._accum, r.samples_done).cpu().numpy()
+    np.testing.assert_array_equal(frame, tonemap.quantize_np(fin))
+    for c, b in zip(counters, before):
+        assert c.launches - b == (4 if c is want else 0), c.__name__
+    cpu = ProgressiveRenderer(_scene(sid), res, device="cpu")
+    cpu1 = ProgressiveRenderer(_scene(sid), res, seed=1, device="cpu")
+    for _ in range(4):
+        a, b = cpu.step().pixels, cpu1.step().pixels
+    same = np.abs(fin - a).mean()
+    assert same <= 0.25 * np.abs(a - b).mean(), same

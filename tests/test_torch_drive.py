@@ -25,6 +25,7 @@ from path_tracer_tpu_torch.ops.kernels import portal as t_pm
 from path_tracer_tpu_torch.render import drive as t_drive
 from path_tracer_tpu_torch.render import pipeline as t_pipeline
 from path_tracer_tpu_torch.render import portal as t_rp
+from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 
 def _port(jax_pool, park_k, g=None):

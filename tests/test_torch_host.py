@@ -6,8 +6,12 @@ be identical on both sides: every later comparison feeds both the same
 scene through them.
 """
 
+import faulthandler
 import json
 import os
+import signal
+import sys
+import threading
 from datetime import datetime
 
 import numpy as np
@@ -39,6 +43,38 @@ from path_tracer_tpu_torch.render import raygen as t_raygen
 # port's CPU tests work on a few thousand lanes, where one thread is as fast.
 # Every worker imports every test module, so this holds for all of them.
 torch.set_num_threads(1)
+
+# Each port test module that renders imports this fixture, so that a test
+# that hangs fails on its own instead of stalling the whole Tier-1 run until
+# the line's time limit cuts it: several times the slowest such test
+# measured serially (23 s).
+TEST_LIMIT_S = 120
+
+
+@pytest.fixture(autouse=True)
+def per_test_limit(request):
+    """Fail the test if it runs past TEST_LIMIT_S. Every thread's stack is
+    dumped to stderr first (faulthandler, from its own watchdog thread), so
+    the report names where it hung; then SIGALRM fails the test in the main
+    thread, where pytest-xdist's workers run their tests. Off the main
+    thread (no signals there) the dump alone names the test."""
+    faulthandler.dump_traceback_later(TEST_LIMIT_S, exit=False,
+                                      file=sys.__stderr__)
+    main = threading.current_thread() is threading.main_thread()
+    if main:
+        def on_alarm(signum, frame):
+            pytest.fail(f"{request.node.nodeid} ran past {TEST_LIMIT_S} s; "
+                        "every thread's stack is in its captured stderr")
+
+        previous = signal.signal(signal.SIGALRM, on_alarm)
+        signal.alarm(TEST_LIMIT_S + 2)
+    try:
+        yield
+    finally:
+        if main:
+            signal.alarm(0)
+            signal.signal(signal.SIGALRM, previous)
+        faulthandler.cancel_dump_traceback_later()
 
 SCENE_IDS = ["single-sphere", "cartesian", "two-spheres", "three-spheres",
              "cornell", "mesh"]

@@ -1,8 +1,11 @@
 """The port imports and renders (cornell through K1's plain version, mesh
-through the portal scheduler) without jax and without the JAX package."""
+through the portal scheduler) and imports its viewer app without jax, the
+JAX package or an imaging library."""
 
 import subprocess
 import sys
+
+from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 CODE = """
 import sys
@@ -23,8 +26,9 @@ import path_tracer_tpu_torch.ops.kernels.build
 import path_tracer_tpu_torch.ops.kernels.portal
 import path_tracer_tpu_torch.render.drive
 import path_tracer_tpu_torch.render.portal
+import path_tracer_tpu_torch.viewer.app
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu")]
+       if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu", "PIL")]
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """

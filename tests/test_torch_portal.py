@@ -42,6 +42,7 @@ from path_tracer_tpu_torch.ops.kernels import trace_kernel as t_tk
 from path_tracer_tpu_torch.ops.kernels import trace_v2 as t_tv2
 from path_tracer_tpu_torch.render import portal as t_rp
 from tests.test_torch_host import SCENE_IDS, load_both
+from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(

@@ -32,6 +32,7 @@ from path_tracer_tpu_torch.ops.kernels import trace_kernel as t_tk
 from path_tracer_tpu_torch.ops.kernels import trace_v2 as t_tv2
 from tests.test_torch_host import SYNTH, load_both
 from tests.test_torch_portal import synthetic_portal
+from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 LANE_TOL = 1e-3
 LANE_FRAC = 0.995

@@ -33,6 +33,7 @@ from path_tracer_tpu.ops.pallas import trace_kernel as j_tk
 from path_tracer_tpu.ops.pallas import trace_v2 as j_tv2
 from path_tracer_tpu_torch.ops.kernels import trace_v2 as t_tv2
 from tests.test_torch_trace import _consts, _np
+from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 LANE_TOL = 1e-3
 LANE_FRAC = 0.995

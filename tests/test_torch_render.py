@@ -21,6 +21,7 @@ import path_tracer_tpu_torch as tpt
 from path_tracer_tpu_torch import cli
 from path_tracer_tpu_torch.render.image import read_ppm
 from tests.test_torch_host import load_both
+from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 
 def _rmse(a, b):

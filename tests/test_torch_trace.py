@@ -24,6 +24,7 @@ from path_tracer_tpu_torch.ops import rng
 from path_tracer_tpu_torch.ops.kernels import trace_kernel as t_tk
 from path_tracer_tpu_torch.ops.kernels import trace_v2 as t_tv2
 from tests.test_torch_host import SYNTH, load_both
+from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 def _scenes(sid, repo_root):
     if sid in SYNTH:

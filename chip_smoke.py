@@ -6,11 +6,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line or more each (any failure exits non-zero, with no result
 line):
   1. a CUDA device is present; the card's name and power limit;
-  2. the six CUDA kernels build from the checkout's five sources (nvcc,
+  2. the nine CUDA kernels build from the checkout's six sources (nvcc,
      sm_90a), each with and without FMA contraction, all builds started
      together: K1 trace_regen, K2 trace_cheap_regen, K3 trace_resolve_pool,
-     K4 trace_regen_prim, K5 trace_stepped_static and K6 trace_stepped_prim
-     (one source);
+     K4 trace_regen_prim, K5 trace_stepped_static, K6 trace_stepped_prim,
+     K7 trace_resolve and K9 trace_sorted (K5, K6, K7 and K9 one source),
+     K8 trace_cheap_blocked;
   3. each kernel against its plain torch version on the card, at the main
      path's inputs: a build without FMA contraction must equal the plain
      version bit for bit, the default build agree on a stated share of
@@ -22,14 +23,22 @@ line):
      version at the main path's shapes (CUDA events; K2 and K3 on the
      third cycle of the 1024x768 pool, the bulk phase of a drive). K5 on
      cornell and K6 on mesh: one preview frame's rays at 450x300 x 2 spp,
-     both uniform sources, in calls of 12 and of 5 steps;
+     both uniform sources, in calls of 12 and of 5 steps. K8 on a fresh
+     1,048,576-lane v1 pool of mesh primary rays at 1024x768, K7 on its
+     first 524,288 lanes after K8 and the partition (the v1 shape) and on
+     the 4 x 786,432 lanes of a mid-drive park-3 pool (the glue shape),
+     both sources. K9 on the mesh preview frame, sorted every bounce, equal
+     to K6 on the same rays, timed beside K6;
   4. the main paths through render(), each with the launch counts set to
      0 just before and read just after: cornell 1024x768 at 512 spp (K1);
      mesh 1024x768 at 1024 spp through the portal (K2 and K3; per-pixel
      counts exact); mesh 1024x768 at 64 spp under PT_TPU_NO_PORTAL (K4);
-     small cornell and mesh renders on the card agree with the same
-     renders on the CPU far inside Monte Carlo noise; a portal render
-     cancelled at its first poll keeps exactly the samples it traced;
+     mesh 1024x768 at 64 spp through the v2 portal, the v1 scheduler (K8
+     and K7, not K2 or K3) and the glue route (K2 and K7, not K3), each
+     within ulp flips of the v2 image; small cornell and mesh renders on
+     the card agree with the same renders on the CPU far inside Monte Carlo
+     noise; a portal render cancelled at its first poll keeps exactly the
+     samples it traced;
   5. the CLI in a subprocess writes a PPM that parses (cornell and mesh);
   6. the interactive preview, ProgressiveRenderer(device="cuda") at 450x300
      (the reference GUI's size) on cornell (K5) and mesh (K6) at 1, 2 and 4
@@ -150,6 +159,12 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "path_tracer_tpu/ops/pallas/trace_v2.py:336"),
     ("trace_stepped_prim", "trace_stepped.cu",
      "path_tracer_tpu/ops/pallas/trace_kernel.py:1467"),
+    ("trace_resolve", "trace_stepped.cu",
+     "path_tracer_tpu/ops/pallas/trace_kernel.py:1367"),
+    ("trace_cheap_blocked", "portal_cheap_blocked.cu",
+     "path_tracer_tpu/ops/pallas/portal.py:879"),
+    ("trace_sorted", "trace_stepped.cu",
+     "path_tracer_tpu/ops/pallas/trace_kernel.py:1607"),
 )
 CSRC = "path_tracer_tpu_torch/csrc/"
 PREVIEW = (300, 450)  # the reference GUI's preview size (main.rs:91-92)
@@ -301,6 +316,29 @@ def check_k4(mesh, dev, card, small, main):
     return out
 
 
+def compare(tag, kern, exact, plain, rec):
+    """(pool or state [rows, n], counts) of a kernel, its --fmad=false build
+    and its plain version: the second must equal the third bit for bit, the
+    first agree on LANE_FRAC of the columns; rec["max_abs_err"] grows."""
+    import torch
+
+    (pk_, ck), (pe, ce), (pp, cp) = kern, exact, plain
+    torch.cuda.synchronize()
+    if not (torch.equal(pe, pp) and torch.equal(ce, cp)):
+        fail(f"{tag}: the --fmad=false kernel is not bit-exact with its "
+             "plain version")
+    if not bool(torch.isfinite(pk_).all()):
+        fail(f"{tag}: non-finite pool")
+    frac = lane_share(pk_, pp, dim=0)
+    err = float((pk_ - pp).abs().max())
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    print(f"phase 3 {tag}: {frac:.5f} of slots within {LANE_TOL} "
+          f"(need {LANE_FRAC}); max |err| {err:.3g}; segments "
+          f"{int(ck.sum())}/{int(cp.sum())}", flush=True)
+    if frac < LANE_FRAC:
+        fail(f"{tag}: kernel disagrees with its plain version")
+
+
 def check_portal(mesh, dev, card, small, main):
     """K2 and K3 against their plain versions over cycles of a drive, and
     timed on the third cycle of a fresh 1024x768 pool (the bulk phase);
@@ -315,23 +353,6 @@ def check_portal(mesh, dev, card, small, main):
     park_k, step_cap, seed, max_depth = 3, 64, 7, 12
     k2 = {"max_abs_err": 0.0}
     k3 = {"max_abs_err": 0.0}
-
-    def compare(tag, kern, exact, plain, rec):
-        (pk_, ck), (pe, ce), (pp, cp) = kern, exact, plain
-        torch.cuda.synchronize()
-        if not (torch.equal(pe, pp) and torch.equal(ce, cp)):
-            fail(f"{tag}: the --fmad=false kernel is not bit-exact with its "
-                 "plain version")
-        if not bool(torch.isfinite(pk_).all()):
-            fail(f"{tag}: non-finite pool")
-        frac = lane_share(pk_, pp, dim=0)
-        err = float((pk_ - pp).abs().max())
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        print(f"phase 3 {tag}: {frac:.5f} of slots within {LANE_TOL} "
-              f"(need {LANE_FRAC}); max |err| {err:.3g}; segments "
-              f"{int(ck.sum())}/{int(cp.sum())}", flush=True)
-        if frac < LANE_FRAC:
-            fail(f"{tag}: kernel disagrees with its plain version")
 
     for res, cycles in ((small, 6), (main, 3)):
         prep = prepare_render(mesh, res, dev)
@@ -485,6 +506,198 @@ def check_stepped(scenes, dev, card):
               f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}) ({card})", flush=True)
         out[name] = rec
     return out["K5"], out["K6"]
+
+
+def k7_call(fn, ks, state, pix, smp, **kw):
+    """K7 (or its plain version) as (state [15, n], counts [n])."""
+    import torch
+
+    out = fn(ks, *state, pixel_idx=pix, sample_idx=smp, **kw)
+    return torch.cat(out[:7]), out[7][0]
+
+
+def check_v1(mesh, dev, card, main):
+    """K8 on a fresh v1 pool of mesh primary rays at 1024x768 (1,048,576
+    lanes, as the v1 runner sizes it), K7 on the first F_cap lanes of that
+    pool after K8 and the cycle's partition, and K7 at the glue shape (the
+    4 x 786,432 lanes of a mid-drive park-3 v2 pool), each against its
+    plain version with both uniform sources. Returns the K8 and K7
+    kernels-line dicts (K7 timed at the v1 shape; the glue shape's time in
+    k7["glue_ms"])."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.ops.kernels import portal as pk
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel
+    from path_tracer_tpu_torch.render import portal as rp
+    from path_tracer_tpu_torch.render.pipeline import prepare_render
+
+    seed, max_depth = 7, 12
+    prep = prepare_render(mesh, main, dev)
+    pc, ks = prep.portal, prep.kscene
+    npix = main.num_pixels
+    C = max(min(rp.DEFAULT_POOL, rp._round_block(npix * 4)), rp.CHEAP_BLOCK)
+    F_cap = max(rp.RESOLVE_BLOCK, rp._round_resolve(C // 2))
+    pool = torch.zeros((pk.V1_PORT_ROWS, C), device=dev)
+    pool[pk.ROW_PIX] = -1.0
+    pool, _, _, _ = rp.portal_cycle(  # the refill fills every slot
+        pool, torch.zeros((npix, 3), device=dev), torch.zeros(npix, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev), limit=64 * npix,
+        sample_base=0, pc=pc, cam=prep.cam, ks=ks, seed=seed, npix=npix,
+        max_depth=max_depth, rr_start_depth=5, F_cap=F_cap)
+    if not bool((pool[pk.ROW_ALIVE] > 0).all()):
+        fail("the v1 refill left free slots")
+    rng = np.random.default_rng(6)
+    k8 = {"max_abs_err": 0.0}
+    for source in ("counter", "table"):
+        uni = None if source == "counter" else torch.from_numpy(
+            rng.random((4, C), dtype=np.float32)).to(dev)
+        kw = dict(seed=seed, max_depth=max_depth, uniforms=uni)
+        work: dict = {}
+        kern = pk.trace_cheap_blocked(pc, pool, **kw)
+        exact = pk.trace_cheap_blocked(pc, pool, fmad=False, **kw)
+        t0 = time.perf_counter()
+        plain = pk.trace_cheap_blocked_plain(pc, pool, work=work, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        compare(f"K8 mesh v1 pool {C}/{source}", kern, exact, plain, k8)
+        if source == "counter":
+            k8["ms"] = cuda_ms(lambda: pk.trace_cheap_blocked(pc, pool, **kw), 5)
+            k8["plain_ms"] = plain_s * 1e3
+            k8["bound_ms"], k8["bound_by"] = bound_ms(
+                2 * pool.numel() * 4 + C * 4,
+                work.get("scan", 0) * (FLOPS_SLAB + pc.scene.prims.shape[0] * FLOPS_TRI)
+                + work.get("shade", 0) * (FLOPS_SHADE + FLOPS_HIT))
+            frozen = plain[0]
+    print(f"phase 3 K8 mesh v1 pool {C}: {int((frozen[pk.ROW_ALIVE] > 0).sum())} "
+          f"lanes frozen at the portal; kernel {k8['ms']:.3f} ms, plain "
+          f"{k8['plain_ms']:.1f} ms, bound {k8['bound_ms']:.3f} ms "
+          f"({k8['bound_by']}) ({card})", flush=True)
+
+    perm = torch.argsort((frozen[pk.ROW_ALIVE] <= 0.0).to(torch.int32), stable=True)
+    front = frozen[:, perm][:, :F_cap]
+    v1_state = tuple(front[a:b] for a, b in ((0, 3), (3, 6), (6, 9), (9, 12),
+                                             (12, 13), (13, 14), (14, 15)))
+    v1_lanes = (v1_state, front[pk.ROW_PIX].to(torch.int32),
+                front[pk.V1_ROW_SAMPLE].to(torch.int32))
+    # the glue shape: a park-3 v2 pool two cycles into a drive, then K2
+    park_k = 3
+    n2 = rp._round_block(npix)
+    pool2 = rp.make_pool_v2(npix, n2, 256, park_k=park_k, device=dev)
+    cheap = dict(seed=seed, quota=256, sample_base=0, step_cap=64,
+                 park_k=park_k, max_depth=max_depth)
+    for _ in range(2):
+        pool2, _ = pk.trace_cheap_regen(pc, prep.cam, pool2, **cheap)
+        pool2, _, _ = rp.portal_resolve_phase(pool2, ks, seed=seed, park_k=park_k,
+                                              max_depth=max_depth, rr_start_depth=5)
+    pool2, _ = pk.trace_cheap_regen(pc, prep.cam, pool2, **cheap)
+    glue_lanes = rp.glue_lanes(pool2, park_k)[:3]
+
+    k7 = {"max_abs_err": 0.0}
+    for shape, (state, pix, smp) in (("v1 front", v1_lanes), ("glue", glue_lanes)):
+        n = pix.shape[0]
+        live = int((state[4] > 0).sum())
+        for source in ("counter", "table"):
+            uni = None if source == "counter" else torch.from_numpy(
+                rng.random((4, n), dtype=np.float32)).to(dev)
+            kw = dict(seed=seed, max_depth=max_depth, uniforms=uni)
+            work = {}
+            kern = k7_call(trace_kernel.trace_resolve, ks, state, pix, smp, **kw)
+            exact = k7_call(trace_kernel.trace_resolve, ks, state, pix, smp,
+                            fmad=False, **kw)
+            t0 = time.perf_counter()
+            plain = k7_call(trace_kernel.trace_resolve_plain, ks, state, pix, smp,
+                            work=work, **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            compare(f"K7 mesh {shape} {n} lanes ({live} alive)/{source}", kern,
+                    exact, plain, k7)
+            if source != "counter":
+                continue
+            ms = cuda_ms(lambda: trace_kernel.trace_resolve(
+                ks, *state, pixel_idx=pix, sample_idx=smp, **kw), 5)
+            # 15 state rows in, 16 out, pixel and sample index
+            bound = bound_ms(n * (15 * 4 + 16 * 4 + 8), isect_flops(work, live))
+            print(f"phase 3 K7 mesh {shape} {n} lanes: kernel {ms:.3f} ms, plain "
+                  f"{plain_s * 1e3:.1f} ms, bound {bound[0]:.3f} ms ({bound[1]}) "
+                  f"({card})", flush=True)
+            if shape == "glue":
+                k7["glue_ms"] = ms
+            else:
+                k7["ms"], k7["plain_ms"] = ms, plain_s * 1e3
+                k7["bound_ms"], k7["bound_by"] = bound
+    return k8, k7
+
+
+def check_sorted(mesh, dev, card):
+    """K9 on one preview frame's mesh rays at 450x300 x 2 spp against K6 on
+    the same rays (scripts/bench_sorted.py's measurement of the JAX
+    package): the sorted trace equals K6 ray for ray in both builds, the
+    --fmad=false build equals the plain version bit for bit. Times K9 sorted
+    every 1 and 3 bounces and K6 in calls of 12 and 1 steps; returns the
+    kernels-line dict, whose launches are one sorted trace's."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.models.scene import pack_scene
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    res, spp, max_depth = Resolution(*PREVIEW), 2, 12
+    ks = tk.build_kernel_scene(pack_scene(mesh)).to(dev)
+    o, d, pix, smp = preview_rays(mesh, res, spp, dev)
+    n = o.shape[0]
+    rec = {"max_abs_err": 0.0}
+    for source in ("counter", "table"):
+        uni = None if source == "counter" else torch.from_numpy(
+            np.random.default_rng(8).random((max_depth * 4, n),
+                                            dtype=np.float32)).to(dev)
+        tag = f"K9 mesh {res.width}x{res.height}x{spp}/{source}"
+        kw = dict(seed=7, pixel_idx=pix, sample_idx=smp, uniforms=uni,
+                  max_depth=max_depth)
+        work: dict = {}
+        k9 = tk.trace_sorted(ks, o, d, sort_every=1, **kw)
+        k6 = tk.trace_stepped(ks, o, d, steps_per_call=1, **kw)
+        e9 = tk.trace_sorted(ks, o, d, sort_every=1, fmad=False, **kw)
+        e6 = tk.trace_stepped(ks, o, d, steps_per_call=1, fmad=False, **kw)
+        t0 = time.perf_counter()
+        p9 = tk.trace_sorted_plain(ks, o, d, sort_every=1, work=work, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(k9 + e9, k6 + e6)):
+            fail(f"{tag}: the sorted trace differs from K6 on the same rays")
+        if not all(torch.equal(a, b) for a, b in zip(e9, p9)):
+            fail(f"{tag}: the --fmad=false kernel is not bit-exact with its "
+                 "plain version")
+        frac = lane_share(k9[0], p9[0])
+        err = float((k9[0] - p9[0]).abs().max())
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"phase 3 {tag}: equals K6 {torch.equal(k9[0], k6[0])}; {frac:.5f} "
+              f"of rays within {LANE_TOL} of the plain version (need "
+              f"{LANE_FRAC}); max |err| {err:.3g}; plain {plain_s:.2f} s",
+              flush=True)
+        if frac < LANE_FRAC:
+            fail(f"{tag}: kernel disagrees with its plain version")
+        if source != "counter":
+            continue
+        times = {f"K9 sort every {k}": cuda_ms(lambda k=k: tk.trace_sorted(
+            ks, o, d, sort_every=k, **kw), 5) for k in (1, 3)}
+        times.update({f"K6 {k} steps a call": cuda_ms(lambda k=k: tk.trace_stepped(
+            ks, o, d, steps_per_call=k, **kw), 5) for k in (12, 1)})
+        rec["ms"] = times["K9 sort every 1"]
+        rec["plain_ms"] = plain_s * 1e3
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            n * (24 + 8 + 12), isect_flops(work, int(p9[1])))
+        tk.trace_sorted.launches = 0  # one sorted trace, as bench_sorted runs it
+        tk.trace_sorted(ks, o, d, sort_every=1, **kw)
+        torch.cuda.synchronize()
+        rec["launches"] = tk.trace_sorted.launches
+        print(f"phase 3 K9 vs K6 mesh {res.width}x{res.height}x{spp}: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+              + f"; K9 plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.3f} "
+              f"ms ({rec['bound_by']}); {rec['launches']} launches a trace ({card})",
+              flush=True)
+    return rec
 
 
 def check_preview(scenes, dev, card, counters):
@@ -685,6 +898,7 @@ def main() -> int:
     import path_tracer_tpu_torch as pt
     from path_tracer_tpu_torch.ops.kernels import portal as pk
     from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
+    from path_tracer_tpu_torch.render import portal as rportal
     from path_tracer_tpu_torch.render.image import read_ppm
     from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 
@@ -694,9 +908,11 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    for line in build_all():
+    lines = build_all()
+    for line in lines:
         print(f"phase 2 built {line}", flush=True)
-    print(f"phase 2 ok: 10 builds in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 2 ok: {len(lines)} builds in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     scenes = {sid: pt.load_scene(sid, os.path.join(ROOT, "scenes"),
                                  os.path.join(ROOT, "meshes"))
@@ -708,18 +924,23 @@ def main() -> int:
     k4 = check_k4(scenes["mesh"], dev, card, small, main_res)
     k2, k3 = check_portal(scenes["mesh"], dev, card, small, main_res)
     k5, k6 = check_stepped(scenes, dev, card)
+    k8, k7 = check_v1(scenes["mesh"], dev, card, main_res)
+    k9 = check_sorted(scenes["mesh"], dev, card)
     print("phase 3 done", flush=True)
 
     # ---- phase 4: the main paths through render() ----
     counters = (trace_v2.trace_regen, pk.trace_cheap_regen,
                 pk.trace_resolve_pool, trace_kernel.trace_regen_prim,
-                trace_v2.trace_stepped, trace_kernel.trace_stepped)
+                trace_v2.trace_stepped, trace_kernel.trace_stepped,
+                trace_kernel.trace_resolve, pk.trace_cheap_blocked,
+                trace_kernel.trace_sorted)
 
-    def run(scene, cfg, env=None):
+    def run(scene, cfg, env=None, pool_resolve=True):
         """render() on the card with the launch counts zeroed just before
         and read just after; returns (RenderDone, launches per kernel)."""
         old = {k: os.environ.get(k) for k in (env or {})}
         os.environ.update(env or {})
+        rportal.POOL_RESOLVE = pool_resolve
         try:
             for c in counters:
                 c.launches = 0
@@ -728,6 +949,7 @@ def main() -> int:
                                  verbose=False)
             return done, [c.launches for c in counters]
         finally:
+            rportal.POOL_RESOLVE = True
             for k, v in old.items():
                 if v is None:
                     os.environ.pop(k, None)
@@ -743,7 +965,7 @@ def main() -> int:
         if want_mean and not ((mean > want_mean[0]).all()
                               and (mean < want_mean[1]).all()):
             fail(f"{tag}: mean radiance {mean} outside {want_mean}")
-        print(f"phase 4 {tag}: launches K1/K2/K3/K4/K5/K6 {launches}; "
+        print(f"phase 4 {tag}: launches K1/K2/K3/K4/K5/K6/K7/K8/K9 {launches}; "
               f"{s.wall_seconds:.3f} s, {s.mrays_per_sec:.1f} Mray/s, "
               f"{s.msamples_per_sec:.1f} Msamples/s, {s.num_samples} samples, "
               f"{s.num_rays} segments, {s.extra}; mean {mean.round(4).tolist()} "
@@ -774,10 +996,42 @@ def main() -> int:
     if lr[3] <= 0:
         fail("the PT_TPU_NO_PORTAL render did not launch K4")
     launches = {"trace_regen": l1[0], "trace_cheap_regen": lp[1],
-                "trace_resolve_pool": lp[2], "trace_regen_prim": lr[3]}
+                "trace_resolve_pool": lp[2], "trace_regen_prim": lr[3],
+                "trace_sorted": k9["launches"]}
     diff = float(np.abs(done.image.pixels - mesh_portal).mean())
     print(f"phase 4 mesh portal {spp} spp vs prim 64 spp: mean |Δ| {diff:.4f}",
           flush=True)
+
+    # the v1 scheduler (K8, K7) and the v2 glue route (K2, K7) against the
+    # v2 route (K2, K3) of the same seed, at 64 spp: the same paths, so the
+    # images differ only where ulps part a path
+    cfg64 = RenderConfig(samples_per_pixel=64, resolution=big)
+    v2, lv2 = run(scenes["mesh"], cfg64)
+    report("mesh 1024x768 64 spp (portal v2)", v2, lv2, (0.05, 0.95))
+    v2_seed1, _ = run(scenes["mesh"], cfg64.with_(seed=1))
+    noise = float(np.abs(v2_seed1.image.pixels - v2.image.pixels).mean())
+    for name, kw, want, absent in (
+            ("v1, PT_TPU_PORTAL_V1=1", dict(env={"PT_TPU_PORTAL_V1": "1"}),
+             (6, 7), (1, 2)),
+            ("glue, POOL_RESOLVE False", dict(pool_resolve=False), (1, 6), (2,))):
+        done, lv = run(scenes["mesh"], cfg64, **kw)
+        report(f"mesh 1024x768 64 spp (portal {name})", done, lv, (0.05, 0.95))
+        same = float(np.abs(done.image.pixels - v2.image.pixels).mean())
+        print(f"phase 4 mesh {name} vs v2, 64 spp: mean |Δ| {same:.6f}, v2 seed "
+              f"0 vs 1 {noise:.5f}; Mray/s {done.stats.mrays_per_sec:.1f} vs "
+              f"{v2.stats.mrays_per_sec:.1f}", flush=True)
+        if not all(lv[i] > 0 for i in want) or any(lv[i] for i in absent):
+            fail(f"the {name} render launched {lv} (K1..K9)")
+        if done.stats.num_samples != 64 * big.num_pixels:
+            fail(f"the {name} render counted {done.stats.num_samples} samples")
+        if not same <= 0.25 * noise:
+            fail(f"the {name} render disagrees with v2 beyond ulp flips")
+        if name.startswith("v1"):
+            launches["trace_cheap_blocked"], launches["trace_resolve"] = lv[7], lv[6]
+        else:
+            glue_k7 = lv[6]
+    print(f"phase 4 K7 launches: {launches['trace_resolve']} in the v1 render, "
+          f"{glue_k7} in the glue render", flush=True)
 
     # the same counter-based random numbers on both devices: a small render
     # on the card differs from the CPU's only where ulps part a path
@@ -846,12 +1100,16 @@ def main() -> int:
     # ---- phase 7: the viewer app ----
     check_app(dev, card)
 
+    for name, _, _ in KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"{name} was launched no time on its main path")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     recs = {"trace_regen": k1, "trace_cheap_regen": k2,
             "trace_resolve_pool": k3, "trace_regen_prim": k4,
-            "trace_stepped_static": k5, "trace_stepped_prim": k6}
+            "trace_stepped_static": k5, "trace_stepped_prim": k6,
+            "trace_resolve": k7, "trace_cheap_blocked": k8, "trace_sorted": k9}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
         "launches": launches[name], "max_abs_err": rec["max_abs_err"],

@@ -1,8 +1,9 @@
-// K5 and K6: stepped path tracing of given rays, for Hopper (sm_90a).
+// K5, K6 and K7: stepped path tracing of given rays, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels that trace camera rays made outside the kernel,
+// Replaces three TPU kernels. Two trace camera rays made outside the kernel,
 // `steps` bounces per call, over a state that rides device memory between
-// calls (the interactive preview's kernels):
+// calls (the interactive preview's kernels; K9, trace_pallas_sorted, is K6
+// with a sort of the rays in torch between calls):
 //  - K5 pt_trace_stepped_static: path_tracer_tpu/ops/pallas/trace_v2.py
 //    trace_pallas_v2 (body _make_kernel_v2), over the baked scene of at most
 //    128 primitives. Plain torch version:
@@ -11,6 +12,13 @@
 //    trace_pallas (body _make_kernel with regen=None, per_lane_depth=False),
 //    over the table-driven scene of isect_full.cuh. Plain torch version:
 //    path_tracer_tpu_torch/ops/kernels/trace_kernel.py:trace_stepped_plain.
+// The third gives one full-scene bounce to rays whose depths differ (the
+// portal schedulers' resolve of frozen paths):
+//  - K7 pt_trace_resolve: path_tracer_tpu/ops/pallas/trace_kernel.py
+//    trace_pallas_resolve (body _make_kernel with per_lane_depth=True, one
+//    step): K6's body for one step, the depth read per ray and written back,
+//    a dead ray's thr and prev cleaned. Plain torch version:
+//    trace_kernel.py:trace_resolve_plain.
 //
 // What one call computes: thread i owns ray i and runs up to n_steps
 // bounces at segment depths depth0, depth0 + 1, ..: closest hit (K5 the
@@ -52,6 +60,8 @@ namespace {
 // Row offsets of the state [STATE_ROWS, n] (trace_kernel.py ROW_*)
 constexpr int ROW_O = 0, ROW_D = 3, ROW_THR = 6, ROW_ACC = 9, ROW_ALIVE = 12,
               ROW_PREV = 13;
+// K7's two more rows (trace_kernel.py RESOLVE_ROWS)
+constexpr int ROW_DEPTH = 14, ROW_COUNT = 15;
 
 struct Ray {
   float o[3], d[3], thr[3], acc[3];
@@ -201,6 +211,43 @@ trace_stepped_prim_kernel(FullScene sc, const int* __restrict__ pixel_idx,
   counts[i] += steps;
 }
 
+// K7: one bounce at each ray's own depth. `in` and `out` are [16, n]: the
+// state rows, the depth row (bounces completed, exact in float32) and, in
+// `out`, the count row (1 where the ray was alive on entry). A dead ray is
+// cleaned as the JAX kernel's step cleans a dead lane of a live block: thr
+// 0, prev -1; its other rows pass through.
+__global__ void __launch_bounds__(THREADS)
+trace_resolve_kernel(FullScene sc, const float* __restrict__ in,
+                     float* __restrict__ out,
+                     const int* __restrict__ pixel_idx,
+                     const int* __restrict__ sample_idx, int n, uint32_t seed,
+                     int max_depth, int rr_start_depth,
+                     const float* __restrict__ uniforms) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(in, n, i);
+  const float alive_f = in[ROW_ALIVE * n + i];
+  const float depth = in[ROW_DEPTH * n + i];
+  if (r.alive) {
+    const uint32_t key = mix32(pixel_key(seed, pixel_idx[i]),
+                               static_cast<uint32_t>(sample_idx[i]));
+    const int dep = static_cast<int>(depth);
+    float u[4];
+    for (int k = 0; k < 4; ++k) u[k] = draw(uniforms, n, i, key, dep, k);
+    Hit h;
+    isect_full(sc, r.o, r.d, r.prev, true, h);
+    bounce(r, h.found, h.point, h.nrm, h.color, h.emis, h.rtype, h.new_prev,
+           u, static_cast<int>(depth + 1.0f), max_depth, rr_start_depth);
+  } else {
+    for (int k = 0; k < 3; ++k) r.thr[k] = 0.0f;
+    r.prev = -1.0f;
+  }
+  store_ray(out, n, i, r);
+  // the JAX kernel adds the alive row itself (1.0 or 0.0)
+  out[ROW_DEPTH * n + i] = depth + alive_f;
+  out[ROW_COUNT * n + i] = alive_f;
+}
+
 bool stepped_args_ok(int n, int depth0, int n_steps, int max_depth) {
   return n > 0 && depth0 >= 0 && n_steps > 0 && max_depth > 0;
 }
@@ -247,6 +294,28 @@ extern "C" int pt_trace_stepped_prim(
                               static_cast<cudaStream_t>(stream)>>>(
       sc, pixel_idx, sample_idx, n, seed, depth0, n_steps, max_depth,
       rr_start_depth, uniforms, state, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7 on `stream`: one bounce of every ray of `in` [16, n] at its own depth
+// into `out` [16, n] (distinct buffers). uniforms is NULL for the counter
+// generator, else [4, n].
+extern "C" int pt_trace_resolve(
+    const float* sph, int n_sph, const float* bnd, int n_bnd,
+    const float* tri, int n_tri, const float* tiles, int n_tiles,
+    int tile_base, const float* in, float* out, const int* pixel_idx,
+    const int* sample_idx, int n, uint32_t seed, int max_depth,
+    int rr_start_depth, const float* uniforms, void* stream) {
+  if (n <= 0) return 0;
+  const FullScene sc{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
+                     tile_base};
+  if (!full_scene_ok(sc) || max_depth <= 0 || in == out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + THREADS - 1) / THREADS;
+  trace_resolve_kernel<<<blocks, THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      sc, in, out, pixel_idx, sample_idx, n, seed, max_depth, rr_start_depth,
+      uniforms);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
-"""Portal-deferred mesh tracing: the pool layout, host prep, K2 and K3.
+"""Portal-deferred mesh tracing: the pool layouts, host prep, K2, K3, K8.
 
-Counterpart of ``path_tracer_tpu.ops.pallas.portal`` for the path that the
-JAX package's v2 portal scheduler takes (``render.portal``):
+Counterpart of ``path_tracer_tpu.ops.pallas.portal`` for the paths that the
+JAX package's portal schedulers take (``render.portal``):
 
 - K2 ``trace_cheap_regen`` advances a pixel-pinned pool of paths through the
   cheap geometry (everything but the heavy mesh, at most 128 primitives, the
@@ -11,19 +11,24 @@ JAX package's v2 portal scheduler takes (``render.portal``):
 - K3 ``trace_resolve_pool`` gives the active path and every frozen parked
   path one full-scene bounce (the table-driven intersector of
   ``trace_kernel``), with the retire/park bookkeeping done in the kernel.
+- K8 ``trace_cheap_blocked`` is the v1 scheduler's cheap kernel: bounces
+  through the cheap geometry until death or a portal freeze, voted per
+  group of lanes (``trace_cheap_blocked_plain``).
 
-Both take the pool as one [rows, n] float32 matrix, one column per slot.
-``trace_cheap_regen`` and ``trace_resolve_pool`` launch
-``csrc/portal_cheap.cu`` and ``csrc/portal_resolve.cu`` for CUDA tensors and
-run their plain torch versions for CPU tensors; both return a new pool and
-leave the one they were given as it was.
+All take the pool as one [rows, n] float32 matrix, one column per slot,
+launch ``csrc/portal_cheap.cu``, ``csrc/portal_resolve.cu`` and
+``csrc/portal_cheap_blocked.cu`` for CUDA tensors and run their plain torch
+versions for CPU tensors; each returns a new pool and leaves the one it was
+given as it was. K3's plain version is K7's (``trace_kernel.
+trace_resolve_plain``) applied part by part.
 
 Pool rows. The JAX package's layout, row for row (``ROW_*``, ``V2_*``,
 ``V3_*``, ``BUF_*``), then rows the port adds AFTER it, so that every JAX row
 keeps its index and compares directly:
 
 - ``sample_row(park_k)``: the global sample index of the slot's active path;
-- ``sample_row(park_k, j)``: the sample index of the path parked in buffer j.
+- ``sample_row(park_k, j)``: the sample index of the path parked in buffer j;
+- v1: ``V1_ROW_SAMPLE`` after the 16 rows of ``ROWS``.
 
 The port keys every random number by (seed, pixel, sample, depth, slot)
 (``ops.rng``), so a path carries its sample index wherever it goes: its
@@ -51,7 +56,8 @@ from path_tracer_tpu_torch.models.scene import ScenePacked
 from path_tracer_tpu_torch.ops import rng
 from path_tracer_tpu_torch.ops.kernels.build import check_launch, load_kernel
 from path_tracer_tpu_torch.ops.kernels.trace_kernel import (
-    BIG, KernelScene, isect_full_plain, make_raygen, shade_phase,
+    BIG, KernelScene, make_raygen, path_uniforms, shade_phase,
+    trace_resolve_plain,
 )
 from path_tracer_tpu_torch.ops.kernels.trace_v2 import (
     CameraConsts, SceneConsts, build_scene_consts, f, prim_scan,
@@ -89,6 +95,16 @@ BUF_ROWS = 12
 # K2's loop bound is checked every STEP_GRANULE steps, as the JAX kernel's
 # unrolled while loop does: a call runs a multiple of it
 STEP_GRANULE = 8
+
+# The v1 pool (K8 and the v1 scheduler): the JAX package's 16 rows, the first
+# 15 as above and the slot's pixel (-1 for a free slot), then the port's row
+# of the path's global sample index
+ROW_PIX = 15
+ROWS = 16
+V1_ROW_SAMPLE = 16
+V1_PORT_ROWS = 17
+# K8's lanes vote in groups of this many (the CUDA block; a multiple of 32)
+BLOCKED_GROUP = 128
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -224,12 +240,6 @@ def _portal_blocked(lo, hi, o, d, alive):
     return (t_ex >= t_en) & (t_ex > 0.0) & alive, t_en
 
 
-def _path_uniforms(seed, pix, sample, depth, slots):
-    key = rng.path_key(seed, pix, sample.to(torch.int64))
-    dep = depth.to(torch.int64)
-    return [rng.uniform(key, dep, s) for s in slots]
-
-
 def trace_cheap_regen_plain(pc: PortalConsts, cam: CameraConsts,
                             pool: torch.Tensor, *, seed: int, quota: int,
                             sample_base: int, step_cap: int = 0,
@@ -323,8 +333,8 @@ def trace_cheap_regen_plain(pc: PortalConsts, cam: CameraConsts,
         if uniforms is not None:
             u45 = [uniforms[4], uniforms[5]]
         else:
-            u45 = _path_uniforms(seed, pix, s_new, torch.zeros_like(s_new),
-                                 (4, 5))
+            u45 = path_uniforms(seed, pix, s_new, torch.zeros_like(s_new),
+                                (4, 5))
         d_new = raygen(s_new.to(torch.int64), *u45)
         for k in range(3):
             st["o"][k] = torch.where(need, lc[k], st["o"][k])
@@ -361,7 +371,7 @@ def trace_cheap_regen_plain(pc: PortalConsts, cam: CameraConsts,
         if uniforms is not None:
             u4 = [uniforms[k] for k in range(4)]
         else:
-            u4 = _path_uniforms(seed, pix, st["sample"], st["depth"], range(4))
+            u4 = path_uniforms(seed, pix, st["sample"], st["depth"], range(4))
         new_depth = st["depth"] + 1.0
         acc, thr_new, d2, alive_new = shade_phase(
             d, nrm, h_color, h_emis, h_rtype, found, st["thr"], st["acc"], u4,
@@ -425,6 +435,105 @@ def trace_cheap_regen_plain(pc: PortalConsts, cam: CameraConsts,
     return pool, counts
 
 
+def _check_v1_pool(pool, group, uniforms):
+    if pool.dim() != 2 or pool.dtype != F32 or pool.shape[0] != V1_PORT_ROWS:
+        raise ValueError(f"pool must be a [{V1_PORT_ROWS}, n] float32 tensor")
+    if group < 1:
+        raise ValueError(f"group must be positive, got {group}")
+    _check_table(uniforms, 4, pool.shape[1])
+
+
+def trace_cheap_blocked_plain(pc: PortalConsts, pool: torch.Tensor, *,
+                              seed: int, max_depth: int = 12,
+                              rr_start_depth: int = 5,
+                              group: int = BLOCKED_GROUP,
+                              uniforms: torch.Tensor | None = None,
+                              work=None):
+    """Plain torch version of K8, the JAX package's ``trace_cheap_blocked``:
+    up to ``max_depth`` cheap-scene steps over the v1 pool [V1_PORT_ROWS, n].
+
+    Lanes vote in groups of ``group`` consecutive lanes (the JAX block; the
+    CUDA block on the card; a ragged last group votes alone): a step runs
+    for a group only if one of its lanes is alive and its ray misses the
+    heavy mesh's padded AABB (the slab test alone, JAX ``portal.py:265-275``).
+    Once a group's vote fails its lanes never change again. In a step that
+    runs, every lane of the group goes through the JAX body
+    (``portal.py:224-263``): a live segment whose AABB entry is not beyond
+    its cheap hit freezes (ties freeze) and keeps its state; every other
+    live segment is processed: counted, shaded at new depth = depth + 1,
+    depth += 1; a dead lane is cleaned (thr 0, prev -1). The pix and sample
+    rows pass through.
+
+    Uniforms: the counter generator keyed by (seed, pix row, sample row,
+    depth), or ``uniforms`` [4, n] used at every step. ``work`` (a dict,
+    optional) counts "scan" live lane-steps of running groups (a slab test
+    and a cheap-scene scan each) and "shade" shaded hits. Returns (pool',
+    processed segments per lane [n] int32)."""
+    _check_v1_pool(pool, group, uniforms)
+    n = pool.shape[1]
+    out = pool.clone()
+    o = [out[ROW_O + k] for k in range(3)]
+    d = [out[ROW_D + k] for k in range(3)]
+    thr = [out[ROW_THR + k] for k in range(3)]
+    acc = [out[ROW_ACC + k] for k in range(3)]
+    alive_f, prev, depth = out[ROW_ALIVE], out[ROW_PREV], out[ROW_DEPTH]
+    pix = pool[ROW_PIX].to(torch.int32)
+    sample = pool[V1_ROW_SAMPLE].to(torch.int32)
+    lo, hi = pc.lo, pc.hi
+    counts = torch.zeros(n, dtype=torch.int32, device=pool.device)
+    n_groups = -(-n // group)
+    pad = n_groups * group - n
+
+    for _ in range(max_depth):
+        alive = alive_f > 0.0
+        hit_box, t_en = _portal_blocked(lo, hi, o, d, alive)
+        runnable = torch.nn.functional.pad(alive & ~hit_box, (0, pad))
+        run = runnable.view(n_groups, group).any(dim=1)
+        if not bool(run.any()):
+            break
+        run = run.repeat_interleave(group)[:n]
+
+        tmin, h_color, h_emis, h_aux, h_rtype, h_sph, h_prev = prim_scan(
+            pc.scene, o, d, prev)
+        needs = hit_box & (t_en <= tmin)  # ties freeze (conservative)
+        proc = alive & ~needs & run
+        counts = counts + proc.to(torch.int32)
+        found = (tmin < BIG) & proc
+        if work is not None:
+            work["scan"] = work.get("scan", 0) + int((run & alive).sum())
+            work["shade"] = work.get("shade", 0) + int(found.sum())
+        point = [o[k] + d[k] * tmin for k in range(3)]
+        sn = [point[k] - h_aux[k] for k in range(3)]
+        sl = torch.rsqrt(torch.clamp(
+            sn[0] * sn[0] + sn[1] * sn[1] + sn[2] * sn[2], min=1e-30))
+        nrm = [torch.where(h_sph > 0.5, sn[k] * sl, h_aux[k]) for k in range(3)]
+        new_prev = torch.where(found, h_prev.to(F32), -1.0)
+        u4 = ([uniforms[k] for k in range(4)] if uniforms is not None else
+              path_uniforms(seed, pix, sample, depth, range(4)))
+        acc_n, thr_new, d2, alive_new = shade_phase(
+            d, nrm, h_color, h_emis, h_rtype, found, thr, acc, u4,
+            depth + 1.0, max_depth, rr_start_depth)
+        am = alive_new.to(F32)
+        keep = needs | ~run  # a frozen lane, or a lane of a group at rest
+        acc = [torch.where(run, acc_n[k], acc[k]) for k in range(3)]
+        o = [torch.where(alive_new, point[k], o[k]) for k in range(3)]
+        d = [torch.where(alive_new, d2[k], d[k]) for k in range(3)]
+        thr = [torch.where(keep, thr[k], thr_new[k] * am) for k in range(3)]
+        prev = torch.where(keep, prev, new_prev)
+        alive_f = torch.where(keep, alive_f, am)
+        depth = depth + proc.to(F32)
+
+    for k in range(3):
+        out[ROW_O + k] = o[k]
+        out[ROW_D + k] = d[k]
+        out[ROW_THR + k] = thr[k]
+        out[ROW_ACC + k] = acc[k]
+    out[ROW_ALIVE] = alive_f
+    out[ROW_PREV] = prev
+    out[ROW_DEPTH] = depth
+    return out, counts
+
+
 def trace_resolve_pool_plain(ks: KernelScene, pool: torch.Tensor, *,
                              seed: int, parts: int, park_k: int,
                              max_depth: int = 12, rr_start_depth: int = 5,
@@ -454,28 +563,20 @@ def trace_resolve_pool_plain(ks: KernelScene, pool: torch.Tensor, *,
     n = pool.shape[1]
     _check_table(uniforms, 4, parts * n)
     out = pool.clone()
-    pix = pool[V2_ROW_PIX].to(torch.int64)
+    pix = pool[V2_ROW_PIX].to(torch.int32)
     counts = torch.zeros(n, dtype=torch.int32, device=pool.device)
 
     def bounce(j, o, d, thr, acc, alive_f, prev, depth, sample):
-        live = alive_f > 0.0
-        found, point, nrm, color, emis, rtype, new_prev = isect_full_plain(
-            ks, o, d, prev, live, work)
-        if uniforms is not None:
-            u4 = [uniforms[k, j * n:(j + 1) * n] for k in range(4)]
-        else:
-            u4 = _path_uniforms(seed, pix, sample, depth, range(4))
-        acc, thr_new, d_new, alive_new = shade_phase(
-            d, nrm, color, emis, rtype, found, thr, acc, u4, depth + 1.0,
-            max_depth, rr_start_depth)
-        am = alive_new.to(F32)
-        o = [torch.where(alive_new, point[k], o[k]) for k in range(3)]
-        d = [torch.where(alive_new, d_new[k], d[k]) for k in range(3)]
-        thr = [thr_new[k] * am for k in range(3)]
-        return o, d, thr, acc, alive_new, new_prev, depth + alive_f
+        o, d, thr, acc, alive, prev, depth, _ = trace_resolve_plain(
+            ks, o, d, thr, acc, alive_f[None], prev[None], depth[None],
+            pixel_idx=pix, sample_idx=sample.to(torch.int32), seed=seed,
+            max_depth=max_depth, rr_start_depth=rr_start_depth,
+            uniforms=None if uniforms is None else uniforms[:, j * n:(j + 1) * n],
+            work=work)
+        return o, d, thr, acc, alive[0] > 0.0, prev[0], depth[0]
 
     def rows(r, k=3):
-        return [pool[r + i] for i in range(k)]
+        return pool[r:r + k]
 
     alive_in = pool[ROW_ALIVE]
     o, d, thr, acc, alive_new, prev, depth = bounce(
@@ -493,7 +594,7 @@ def trace_resolve_pool_plain(ks: KernelScene, pool: torch.Tensor, *,
     out[V2_ROW_DONE] = pool[V2_ROW_DONE] + (
         (alive_in > 0.0) & ~alive_new).to(F32)
 
-    zero3 = [torch.zeros(n, dtype=F32, device=pool.device)] * 3
+    zero3 = torch.zeros((3, n), dtype=F32, device=pool.device)
     for j in range(1, parts):
         b = buf_row(j - 1)
         ps = pool[b + BUF_STATE]
@@ -653,3 +754,64 @@ def trace_resolve_pool(ks: KernelScene, pool: torch.Tensor, *, seed: int,
 
 
 trace_resolve_pool.launches = 0
+
+
+@functools.lru_cache(maxsize=2)
+def _blocked_library(fmad: bool = True):
+    built = load_kernel(os.path.join(CSRC_DIR, "portal_cheap_blocked.cu"), fmad)
+    fn = built.lib.pt_cheap_blocked
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,  # prims, n_prims
+        ctypes.c_void_p, ctypes.c_int,  # gates, n_gates
+        ctypes.c_void_p,  # aabb (host): lo, hi
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pool in, out, n
+        ctypes.c_int, ctypes.c_uint32,  # group, seed
+        ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts, stream
+    ]
+    return built
+
+
+def trace_cheap_blocked(pc: PortalConsts, pool: torch.Tensor, *, seed: int,
+                        max_depth: int = 12, rr_start_depth: int = 5,
+                        group: int = BLOCKED_GROUP,
+                        uniforms: torch.Tensor | None = None,
+                        fmad: bool = True):
+    """K8 (see trace_cheap_blocked_plain for the contract). CPU tensors run
+    the plain version; CUDA tensors launch ``csrc/portal_cheap_blocked.cu``
+    with ``group`` threads a block (a multiple of 32, at most 1024), or
+    raise. ``fmad=False`` builds the kernel without FMA contraction."""
+    dev = pool.device
+    kw = dict(seed=seed, max_depth=max_depth, rr_start_depth=rr_start_depth,
+              group=group, uniforms=uniforms)
+    if dev.type == "cpu":
+        return trace_cheap_blocked_plain(pc, pool, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_cheap_blocked runs on cpu or cuda, not {dev}")
+    _check_v1_pool(pool, group, uniforms)
+    if group % 32 or group > 1024:
+        raise ValueError(f"group must be a multiple of 32 up to 1024, got {group}")
+    n = pool.shape[1]
+    _device_args(dev, [pc.scene.prims, pc.scene.gates, pool] + (
+        [uniforms] if uniforms is not None else []), "scene, pool and uniforms")
+    out = torch.empty_like(pool)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out, counts
+    built = _blocked_library(fmad)
+    aabb = torch.tensor(pc.aabb(), dtype=F32)  # host memory
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = built.lib.pt_cheap_blocked(
+            pc.scene.prims.data_ptr(), pc.scene.prims.shape[0],
+            _ptr(pc.scene.gates), pc.scene.gates.shape[0], aabb.data_ptr(),
+            pool.data_ptr(), out.data_ptr(), n, int(group),
+            int(seed) & rng.MASK32, int(max_depth), int(rr_start_depth),
+            _ptr(uniforms), counts.data_ptr(), stream)
+    check_launch(built, code, "trace_cheap_blocked")
+    trace_cheap_blocked.launches += 1
+    return out, counts
+
+
+trace_cheap_blocked.launches = 0

@@ -1,4 +1,4 @@
-"""Pieces of the regenerative traces, the table-driven scene, K4 and K6.
+"""Pieces of the regenerative traces, the table-driven scene, K4, K6, K7, K9.
 
 Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
 
@@ -17,7 +17,13 @@ Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
 - K6 ``trace_stepped`` (``csrc/trace_stepped.cu``) and its plain version
   ``trace_stepped_plain``: the stepped trace of given rays over the full
   scene (the JAX ``trace_pallas``), with the state, call loop and draws it
-  shares with K5 (``trace_v2.trace_stepped``).
+  shares with K5 (``trace_v2.trace_stepped``);
+- K7 ``trace_resolve`` (``pt_trace_resolve`` of ``csrc/trace_stepped.cu``)
+  and ``trace_resolve_plain``: one full-scene bounce at each ray's own depth
+  (the JAX ``trace_pallas_resolve``), the portal schedulers' resolve;
+- K9 ``trace_sorted`` and ``trace_sorted_plain``: K6 in calls of
+  ``sort_every`` steps with the wavefront sorted by ``ray_sort_keys``
+  between calls (the JAX ``trace_pallas_sorted``).
 
 The torch functions are the plain versions of what the CUDA kernels compute
 per thread: vectorised over [N] lanes, every branch a ``torch.where``,
@@ -552,7 +558,9 @@ class KernelScene:
       emission, reflect type, packed order, quad flag, packed id, gate;
     - ``tiles`` [C, 6]: each culling tile's AABB (lo, hi); tile c holds
       rows ``tile_base + c*TRI_TILE ..`` and rows below ``tile_base`` are
-      the always-tested base set (``tile_base`` is 0 without tiles).
+      the always-tested base set (``tile_base`` is 0 without tiles);
+    - ``aabb_lo``, ``aabb_inv_span``: the scene box (host floats), which
+      K9's sort keys grid.
     """
 
     sph: torch.Tensor
@@ -560,11 +568,13 @@ class KernelScene:
     tri: torch.Tensor
     tiles: torch.Tensor
     tile_base: int
+    aabb_lo: tuple = (0.0, 0.0, 0.0)
+    aabb_inv_span: tuple = (1.0, 1.0, 1.0)
 
     def to(self, device) -> "KernelScene":
         return KernelScene(self.sph.to(device), self.bnd.to(device),
                            self.tri.to(device), self.tiles.to(device),
-                           self.tile_base)
+                           self.tile_base, self.aabb_lo, self.aabb_inv_span)
 
 
 def kernel_scene_from_jax(bufs: dict) -> KernelScene:
@@ -608,9 +618,13 @@ def kernel_scene_from_jax(bufs: dict) -> KernelScene:
     if "tile_lo" in b:
         tiles = np.concatenate([b["tile_lo"].T, b["tile_hi"].T], axis=1)
         tile_base = T - tiles.shape[0] * TRI_TILE
+    box = {}
+    if "aabb_lo" in bufs:
+        box = {k: tuple(float(x) for x in np.asarray(bufs[k], np.float32).ravel())
+               for k in ("aabb_lo", "aabb_inv_span")}
     return KernelScene(torch.from_numpy(sph), torch.from_numpy(bnd),
                        torch.from_numpy(tri), torch.from_numpy(tiles),
-                       int(tile_base))
+                       int(tile_base), **box)
 
 
 def build_kernel_scene(packed: ScenePacked) -> KernelScene:
@@ -865,14 +879,8 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"trace_regen_prim runs on cpu or cuda, not {dev}")
     _check_regen_args(pixel_idx, quota, max_depth, uniforms, QUOTA_CAP_PRIM)
-    tensors = [ks.sph, ks.bnd, ks.tri, ks.tiles] + (
-        [uniforms] if uniforms is not None else [])
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("scene and uniforms must be contiguous float32 "
-                             f"tensors on {dev}")
-    if not pixel_idx.is_contiguous():
-        raise ValueError("pixel_idx must be contiguous")
+    _check_on("trace_regen_prim (K4)", dev, [ks.sph, ks.bnd, ks.tri, ks.tiles]
+              + ([uniforms] if uniforms is not None else []), (pixel_idx,))
     n = pixel_idx.shape[0]
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     segs = torch.empty(n, dtype=torch.int32, device=dev)
@@ -881,21 +889,13 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
         return rad, segs, done
     built = _prim_library(fmad)
     params = cam.params.to(torch.float32).contiguous()  # host memory
-
-    def ptr(t):
-        return t.data_ptr() if t.numel() else None
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = built.lib.pt_trace_regen_prim(
-            ks.sph.data_ptr(), ks.sph.shape[0], ptr(ks.bnd), ks.bnd.shape[0],
-            ks.tri.data_ptr(), ks.tri.shape[0], ptr(ks.tiles),
-            ks.tiles.shape[0], ks.tile_base,
-            params.data_ptr(), cam.width, cam.height,
+            *_scene_args(ks), params.data_ptr(), cam.width, cam.height,
             pixel_idx.data_ptr(), n,
             int(seed) & rng.MASK32, int(sample_base), int(quota),
-            int(max_depth), int(rr_start_depth),
-            uniforms.data_ptr() if uniforms is not None else None,
+            int(max_depth), int(rr_start_depth), _ptr(uniforms),
             rad.data_ptr(), segs.data_ptr(), done.data_ptr(), stream)
     check_launch(built, code, "trace_regen_prim")
     trace_regen_prim.launches += 1
@@ -1058,15 +1058,68 @@ def stepped_library(fmad: bool = True):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int,  # prims, n_prims
                    ctypes.c_void_p, ctypes.c_int] + tail  # gates, n_gates
-    fn = built.lib.pt_trace_stepped_prim
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    scene = [
         ctypes.c_void_p, ctypes.c_int,  # sph, S
         ctypes.c_void_p, ctypes.c_int,  # bnd, M
         ctypes.c_void_p, ctypes.c_int,  # tri, T
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
-    ] + tail
+    ]
+    fn = built.lib.pt_trace_stepped_prim
+    fn.restype = ctypes.c_int
+    fn.argtypes = scene + tail
+    fn = built.lib.pt_trace_resolve
+    fn.restype = ctypes.c_int
+    fn.argtypes = scene + [
+        ctypes.c_void_p, ctypes.c_void_p,  # in, out [RESOLVE_ROWS, n]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pixel, sample, n
+        ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, depth, rr start
+        ctypes.c_void_p, ctypes.c_void_p,  # uniforms [4, n] or NULL, stream
+    ]
     return built
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None and t.numel() else None
+
+
+def _check_on(name: str, dev, floats, ints=()):
+    for t in floats:
+        if t.device != dev or t.dtype != F32 or not t.is_contiguous():
+            raise ValueError(f"{name}: scene, rays and uniforms must be "
+                             f"contiguous float32 tensors on {dev}")
+    for t in ints:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: pixel_idx and sample_idx must be "
+                             f"contiguous tensors on {dev}")
+
+
+def _scene_args(ks: KernelScene):
+    return (ks.sph.data_ptr(), ks.sph.shape[0], _ptr(ks.bnd), ks.bnd.shape[0],
+            ks.tri.data_ptr(), ks.tri.shape[0], _ptr(ks.tiles),
+            ks.tiles.shape[0], ks.tile_base)
+
+
+def stepped_launcher(name: str, entry: str, scene_args, *, seed, max_depth,
+                     rr_start_depth, fmad, counter):
+    """launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms):
+    one launch of K5's or K6's ``entry`` over the state [STATE_ROWS, N] on
+    the state's device (one call of ``stepped_call_plain``); each adds one
+    to ``counter.launches``."""
+    built = stepped_library(fmad)
+    fn = getattr(built.lib, entry)
+
+    def launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms):
+        dev = state.device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = fn(*scene_args, pixel_idx.data_ptr(), sample_idx.data_ptr(),
+                      state.shape[1], int(seed) & rng.MASK32, depth0, steps,
+                      max_depth, rr_start_depth, _ptr(uniforms),
+                      state.data_ptr(), counts.data_ptr(), stream)
+        check_launch(built, code, name)
+        counter.launches += 1
+
+    return launch
 
 
 def launch_stepped(name: str, entry: str, scene_args, tables, o, d, *, seed,
@@ -1076,32 +1129,19 @@ def launch_stepped(name: str, entry: str, scene_args, tables, o, d, *, seed,
     ``entry`` per call over the state (``stepped_trace``); each launch adds
     one to ``counter.launches``."""
     dev = o.device
-    for t in [*tables, o, d] + ([uniforms] if uniforms is not None else []):
-        if t.device != dev or t.dtype != F32 or not t.is_contiguous():
-            raise ValueError(f"{name}: scene, rays and uniforms must be "
-                             f"contiguous float32 tensors on {dev}")
-    for t in (pixel_idx, sample_idx):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: pixel_idx and sample_idx must be "
-                             f"contiguous tensors on {dev}")
-    n = o.shape[0]
-    built = stepped_library(fmad)
-    fn = getattr(built.lib, entry)
-
-    def run_call(state, counts, depth0, steps):
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = fn(*scene_args, pixel_idx.data_ptr(), sample_idx.data_ptr(),
-                      n, int(seed) & rng.MASK32, depth0, steps, max_depth,
-                      rr_start_depth,
-                      uniforms.data_ptr() if uniforms is not None else None,
-                      state.data_ptr(), counts.data_ptr(), stream)
-        check_launch(built, code, name)
-        counter.launches += 1
-
-    if n == 0:
+    _check_on(name, dev, [*tables, o, d] + (
+        [uniforms] if uniforms is not None else []), (pixel_idx, sample_idx))
+    if o.shape[0] == 0:
         return (torch.empty((0, 3), dtype=F32, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
+    launch = stepped_launcher(name, entry, scene_args, seed=seed,
+                              max_depth=max_depth,
+                              rr_start_depth=rr_start_depth, fmad=fmad,
+                              counter=counter)
+
+    def run_call(state, counts, depth0, steps):
+        launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms)
+
     return stepped_trace(run_call, o, d, max_depth, steps_per_call)
 
 
@@ -1122,17 +1162,246 @@ def trace_stepped(ks: KernelScene, o, d, *, seed: int, pixel_idx, sample_idx,
         raise ValueError(f"trace_stepped runs on cpu or cuda, not {dev}")
     check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
                        uniforms)
-
-    def ptr(t):
-        return t.data_ptr() if t.numel() else None
-
-    scene_args = (ks.sph.data_ptr(), ks.sph.shape[0], ptr(ks.bnd),
-                  ks.bnd.shape[0], ks.tri.data_ptr(), ks.tri.shape[0],
-                  ptr(ks.tiles), ks.tiles.shape[0], ks.tile_base)
     return launch_stepped(
-        "trace_stepped (K6)", "pt_trace_stepped_prim", scene_args,
+        "trace_stepped (K6)", "pt_trace_stepped_prim", _scene_args(ks),
         (ks.sph, ks.bnd, ks.tri, ks.tiles), o, d, fmad=fmad,
         counter=trace_stepped, **kw)
 
 
 trace_stepped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: one full-scene bounce at each ray's own depth (the portal resolve)
+# ---------------------------------------------------------------------------
+
+# K7's rows after the state rows: the depth (bounces completed) and, on
+# output, the count (1.0 where the ray was alive on entry)
+ROW_DEPTH, ROW_COUNT = 14, 15
+RESOLVE_ROWS = 16
+
+
+def path_uniforms(seed, pixel_idx, sample_idx, depth, slots):
+    """The counter generator's uniforms of each path's segment ``depth``
+    (a per-lane tensor) in the given slots, keyed by (seed, pixel, sample)."""
+    key = rng.path_key(seed, pixel_idx.to(torch.int64), sample_idx.to(torch.int64))
+    dep = depth.to(torch.int64)
+    return [rng.uniform(key, dep, s) for s in slots]
+
+
+def _check_resolve_args(state, pixel_idx, sample_idx, max_depth, uniforms):
+    rows = (("o", 3), ("d", 3), ("thr", 3), ("acc", 3), ("alive", 1),
+            ("prev", 1), ("depth", 1))
+    n = state[0].shape[-1]
+    for (name, k), t in zip(rows, state):
+        if t.shape != (k, n) or t.dtype != F32:
+            raise ValueError(f"{name} must be [{k}, {n}] float32")
+    for name, t in (("pixel_idx", pixel_idx), ("sample_idx", sample_idx)):
+        if t.shape != (n,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be a [{n}] int32 tensor")
+    if max_depth < 1:
+        raise ValueError(f"need max_depth >= 1, got {max_depth}")
+    if uniforms is not None and (uniforms.shape != (4, n) or uniforms.dtype != F32):
+        raise ValueError(f"uniforms must be [4, {n}] float32")
+
+
+def trace_resolve_plain(ks: KernelScene, o, d, thr, acc, alive, prev, depth, *,
+                        pixel_idx, sample_idx, seed: int, max_depth: int = 12,
+                        rr_start_depth: int = 5, uniforms=None, work=None):
+    """Plain torch version of K7, the JAX package's ``trace_pallas_resolve``:
+    one full-scene bounce of rays whose depths differ. o, d, thr, acc [3, n];
+    alive, prev, depth [1, n] (depth = bounces completed); ray i draws as
+    sample ``sample_idx[i]`` of pixel ``pixel_idx[i]`` ([n] int32) at its
+    own depth, or from ``uniforms`` [4, n]; ``work`` as in isect_full_plain.
+
+    Per ray (``trace_kernel.py:1040-1053`` of the JAX package): shading at
+    new depth = depth + 1; o and d move only if the path lives on; thr is
+    zeroed on death; prev := the hit triangle (-1 for a sphere or a miss);
+    depth += alive; alive := lives on. A dead ray is cleaned as a dead lane
+    of a live JAX block is (thr 0, prev -1). Returns the seven arrays in
+    the same shapes and counts [1, n] (the alive row on entry)."""
+    _check_resolve_args((o, d, thr, acc, alive, prev, depth), pixel_idx,
+                        sample_idx, max_depth, uniforms)
+    alive_f, dep = alive[0], depth[0]
+    dl = [d[k] for k in range(3)]
+    found, point, nrm, color, emis, rtype, new_prev = isect_full_plain(
+        ks, [o[k] for k in range(3)], dl, prev[0], alive_f > 0.0, work)
+    u4 = ([uniforms[k] for k in range(4)] if uniforms is not None else
+          path_uniforms(seed, pixel_idx, sample_idx, dep, range(4)))
+    acc_n, thr_new, d_new, alive_new = shade_phase(
+        dl, nrm, color, emis, rtype, found, [thr[k] for k in range(3)],
+        [acc[k] for k in range(3)], u4, dep + 1.0, max_depth, rr_start_depth)
+    am = alive_new.to(F32)
+    return (torch.stack([torch.where(alive_new, point[k], o[k]) for k in range(3)]),
+            torch.stack([torch.where(alive_new, d_new[k], d[k]) for k in range(3)]),
+            torch.stack([thr_new[k] * am for k in range(3)]),
+            torch.stack(acc_n), am[None], new_prev[None], (dep + alive_f)[None],
+            alive_f[None].clone())
+
+
+def trace_resolve(ks: KernelScene, o, d, thr, acc, alive, prev, depth, *,
+                  pixel_idx, sample_idx, seed: int, max_depth: int = 12,
+                  rr_start_depth: int = 5, uniforms=None, fmad: bool = True):
+    """K7 (see trace_resolve_plain for the contract). CPU tensors run the
+    plain version; CUDA tensors launch ``pt_trace_resolve`` of
+    ``csrc/trace_stepped.cu`` once, or raise. The rays are copied into one
+    [RESOLVE_ROWS, n] buffer the kernel reads once and writes once; the
+    results are views of the output. ``fmad=False`` builds the kernel
+    without FMA contraction."""
+    state = (o, d, thr, acc, alive, prev, depth)
+    kw = dict(pixel_idx=pixel_idx, sample_idx=sample_idx, seed=seed,
+              max_depth=max_depth, rr_start_depth=rr_start_depth,
+              uniforms=uniforms)
+    dev = o.device
+    if dev.type == "cpu":
+        return trace_resolve_plain(ks, *state, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_resolve runs on cpu or cuda, not {dev}")
+    _check_resolve_args(state, pixel_idx, sample_idx, max_depth, uniforms)
+    n = o.shape[1]
+    buf = torch.empty((RESOLVE_ROWS, n), dtype=F32, device=dev)
+    torch.cat(state, out=buf[:ROW_COUNT])
+    out = torch.empty_like(buf)
+    name = "trace_resolve (K7)"
+    _check_on(name, dev, [ks.sph, ks.bnd, ks.tri, ks.tiles] + (
+        [uniforms] if uniforms is not None else []), (pixel_idx, sample_idx))
+    if n:
+        built = stepped_library(fmad)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = built.lib.pt_trace_resolve(
+                *_scene_args(ks), buf.data_ptr(), out.data_ptr(),
+                pixel_idx.data_ptr(), sample_idx.data_ptr(), n,
+                int(seed) & rng.MASK32, int(max_depth), int(rr_start_depth),
+                _ptr(uniforms), stream)
+        check_launch(built, code, name)
+        trace_resolve.launches += 1
+    return (out[ROW_O:ROW_O + 3], out[ROW_D:ROW_D + 3], out[ROW_THR:ROW_THR + 3],
+            out[ROW_ACC:ROW_ACC + 3], out[ROW_ALIVE:ROW_ALIVE + 1],
+            out[ROW_PREV:ROW_PREV + 1], out[ROW_DEPTH:ROW_DEPTH + 1],
+            out[ROW_COUNT:ROW_COUNT + 1])
+
+
+trace_resolve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: K6's stepped trace with the wavefront sorted between calls
+# ---------------------------------------------------------------------------
+
+_DEAD_KEY = 1 << 30  # dead rays sort last
+
+
+def _spread6(v):
+    """Interleave the low 6 bits of v (int64 tensor) into every 3rd bit: the
+    JAX uint32 Morton spread, in int64 with the same masks (every product
+    stays below 2^32)."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0x30C30C3
+    return (v * 0x00000005) & 0x9249249
+
+
+def ray_sort_keys(o, d, alive, lo, inv_span, dir_major: bool = False):
+    """int32 sort key per ray, the JAX package's ``ray_sort_keys``: the
+    18-bit Morton cell of the origin (64³ grid over the scene box lo,
+    inv_span, 3-tuples of floats) and the 3-bit direction octant; dead rays
+    get _DEAD_KEY. o, d [3, n]; alive [1, n]. dir_major puts the octant in
+    the high bits."""
+    q = [torch.clamp((o[k] - lo[k]) * inv_span[k] * 64.0, 0.0, 63.0).to(torch.int64)
+         for k in range(3)]
+    morton = (_spread6(q[0]) << 2) | (_spread6(q[1]) << 1) | _spread6(q[2])
+    octant = ((d[0] < 0.0).to(torch.int64) * 4 + (d[1] < 0.0).to(torch.int64) * 2
+              + (d[2] < 0.0).to(torch.int64))
+    key = (octant << 18) | morton if dir_major else (morton << 3) | octant
+    return torch.where(alive[0] > 0.0, key, _DEAD_KEY).to(torch.int32)
+
+
+def sorted_trace(run_call, ks: KernelScene, o, d, pixel_idx, sample_idx,
+                 uniforms, max_depth, sort_every, dir_major):
+    """K9's call loop around ``stepped_trace``'s state: before every call but
+    the first, argsort the rays by ray_sort_keys (stable, as jnp.argsort)
+    and permute the state columns, pixel_idx, sample_idx, the ray ids and
+    the uniform columns. run_call(state, counts, depth0, steps, pixel_idx,
+    sample_idx, uniforms) runs one call. Returns (radiance [N,3] in the
+    caller's order, rays traced)."""
+    ids = torch.arange(o.shape[0], device=o.device)
+
+    def call(state, counts, depth0, steps):
+        nonlocal ids, pixel_idx, sample_idx, uniforms
+        if depth0:
+            perm = torch.argsort(ray_sort_keys(
+                state[ROW_O:ROW_O + 3], state[ROW_D:ROW_D + 3],
+                state[ROW_ALIVE:ROW_ALIVE + 1], ks.aabb_lo, ks.aabb_inv_span,
+                dir_major), stable=True)
+            state.copy_(state[:, perm])
+            ids, pixel_idx = ids[perm], pixel_idx[perm]
+            sample_idx = sample_idx[perm]
+            if uniforms is not None:
+                uniforms = uniforms[:, perm]
+        run_call(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms)
+
+    acc, total = stepped_trace(call, o, d, max_depth, sort_every)
+    rad = torch.empty_like(acc)
+    rad[ids] = acc
+    return rad, total
+
+
+def trace_sorted_plain(ks: KernelScene, o, d, *, seed: int, pixel_idx,
+                       sample_idx, max_depth: int = 12, rr_start_depth: int = 5,
+                       sort_every: int = 1, dir_major: bool = False,
+                       uniforms=None, work=None):
+    """Plain torch version of K9, the JAX package's ``trace_pallas_sorted``:
+    K6's trace (``trace_stepped_plain``) in calls of ``sort_every`` steps
+    with the wavefront sorted between calls (``sorted_trace``). Draws are
+    keyed by ray (or the injected rows ride the permutation), so the
+    radiance equals K6's ray for ray. Returns (radiance [N,3] in the
+    caller's order, rays traced)."""
+    check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, sort_every,
+                       uniforms)
+
+    def isect(o_, d_, prev, alive):
+        return isect_full_plain(ks, o_, d_, prev, alive, work)
+
+    def run_call(state, counts, depth0, steps, pix, smp, uni):
+        stepped_call_plain(isect, stepped_draw(seed, pix, smp, uni), state,
+                           counts, depth0=depth0, n_steps=steps,
+                           max_depth=max_depth, rr_start_depth=rr_start_depth)
+
+    return sorted_trace(run_call, ks, o, d, pixel_idx, sample_idx, uniforms,
+                        max_depth, sort_every, dir_major)
+
+
+def trace_sorted(ks: KernelScene, o, d, *, seed: int, pixel_idx, sample_idx,
+                 max_depth: int = 12, rr_start_depth: int = 5,
+                 sort_every: int = 1, dir_major: bool = False, uniforms=None,
+                 fmad: bool = True):
+    """K9 (see trace_sorted_plain for the contract). CPU tensors run the
+    plain version; CUDA tensors launch K6's ``pt_trace_stepped_prim`` once
+    per call, counted on ``trace_sorted.launches``, with the sort in torch
+    between calls (as XLA composes it around the JAX kernel), or raise."""
+    dev = o.device
+    kw = dict(seed=seed, pixel_idx=pixel_idx, sample_idx=sample_idx,
+              max_depth=max_depth, rr_start_depth=rr_start_depth,
+              sort_every=sort_every, dir_major=dir_major, uniforms=uniforms)
+    if dev.type == "cpu":
+        return trace_sorted_plain(ks, o, d, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_sorted runs on cpu or cuda, not {dev}")
+    check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, sort_every,
+                       uniforms)
+    name = "trace_sorted (K9)"
+    _check_on(name, dev, [ks.sph, ks.bnd, ks.tri, ks.tiles, o, d] + (
+        [uniforms] if uniforms is not None else []), (pixel_idx, sample_idx))
+    if o.shape[0] == 0:
+        return (torch.empty((0, 3), dtype=F32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    launch = stepped_launcher(name, "pt_trace_stepped_prim", _scene_args(ks),
+                              seed=seed, max_depth=max_depth,
+                              rr_start_depth=rr_start_depth, fmad=fmad,
+                              counter=trace_sorted)
+    return sorted_trace(launch, ks, o, d, pixel_idx, sample_idx, uniforms,
+                        max_depth, sort_every, dir_major)
+
+
+trace_sorted.launches = 0

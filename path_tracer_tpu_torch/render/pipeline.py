@@ -10,7 +10,11 @@ known:
 - ``portal``: scenes with one mesh of at least 65 triangles and a cheap
   remainder of at most 128 primitives (``mesh``), unless PT_TPU_NO_PORTAL
   is set. Each pass runs the v2 portal scheduler (``render.portal``) over
-  K2 and K3; progress, cancel and mid-pass checkpoints ride its poll hook.
+  K2 and K3 (with ``render.portal.POOL_RESOLVE`` off, from
+  PT_TPU_POOL_RESOLVE=0, K2 and K7); progress, cancel and mid-pass
+  checkpoints ride its poll hook. With PT_TPU_PORTAL_V1 set, the v1
+  scheduler instead (K8 and K7), which cancels and checkpoints only
+  between passes, at most 64 spp a pass when checkpointing.
 - ``prim`` (the JAX ``pallasr:`` mode): every other scene; each pass
   launches K4 (``trace_kernel.trace_regen_prim``) over all pixels.
 
@@ -57,7 +61,9 @@ from path_tracer_tpu_torch.ops.kernels import portal as portal_ops
 from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
 from path_tracer_tpu_torch.render import integrator
 from path_tracer_tpu_torch.render.image import Image, write_ppm
-from path_tracer_tpu_torch.render.portal import make_portal_pass_runner_v2
+from path_tracer_tpu_torch.render.portal import (
+    make_portal_pass_runner, make_portal_pass_runner_v2,
+)
 from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 from path_tracer_tpu_torch.utils.profiling import RenderStats
 
@@ -230,6 +236,12 @@ def render(
     t_start = time.perf_counter()
     prep = prepare_render(scene, res, dev)
     k = pass_size(prep.route, spp, config.samples_per_pass)
+    portal_v1 = prep.route == "portal" and bool(
+        os.environ.get("PT_TPU_PORTAL_V1"))
+    if portal_v1 and checkpoint_path and checkpoint_every:
+        # v1 has no poll hook, so it checkpoints only between passes: keep
+        # them at 64 spp, as the JAX package does (pipeline.py:361-367)
+        k = min(k, 64)
     full_passes, remainder = divmod(spp, k)
     stats = RenderStats()
     stats.extra["route"] = prep.route
@@ -238,10 +250,13 @@ def render(
     perm_dev = inv_perm = None
     if prep.route == "portal":
         # accum in pixel order: stages add into it by their pix rows
-        runner = make_portal_pass_runner_v2(
+        make_runner = (make_portal_pass_runner if portal_v1
+                       else make_portal_pass_runner_v2)
+        runner = make_runner(
             prep.portal, prep.cam, prep.kscene, npix=npix, k_full=k,
             seed=config.seed, max_depth=config.max_depth,
             rr_start_depth=config.rr_start_depth, device=dev)
+        stats.extra["portal_runner"] = "v1" if portal_v1 else "v2"
     else:
         # Z-order lanes; accum lives in permuted order until finalize
         perm, inv_perm = morton_pixel_order(res.width, res.height)
@@ -343,7 +358,7 @@ def render(
             samples_done=samples_done, stats=stats,
         ))
 
-    if runner is not None and (
+    if hasattr(runner, "set_hooks") and (
             progress is not None or cancel is not None
             or (checkpoint_path and checkpoint_every)):
         # progress, cancel and time-based checkpoints ride the drive's poll

@@ -1,8 +1,8 @@
-"""The v2 portal scheduler: a pixel-pinned pool cycled through K2 and K3.
+"""The portal schedulers: pools of mesh paths cycled through the portal
+kernels, the counterpart of the JAX package's ``render.portal``.
 
-Counterpart of the JAX package's ``render.portal`` v2 path, in plain torch
-around the two kernels of ``ops.kernels.portal``. Slot i of the pool owns
-pixel ``pix`` row i; each cycle runs
+v2, the default (``make_portal_pass_runner_v2``): slot i of a pixel-pinned
+pool owns pixel ``pix`` row i; each cycle runs
 
     K2 trace_cheap_regen  (cheap bounces, in-kernel regeneration, portal
                            freeze, parking; at most step_cap steps a slot)
@@ -14,34 +14,56 @@ drains, the unfinished tail is compacted down a ladder of narrower pools
 (``TAIL_LADDER``), and finished slots adopt the upper half of laggards'
 remaining sample ranges (``redistribute_samples``). At pass end every
 stage's acc rows add into the framebuffer keyed by their pix row; per-pixel
-sample counts are exact by construction.
+sample counts are exact by construction. With ``POOL_RESOLVE`` off
+(PT_TPU_POOL_RESOLVE=0) the resolve is the glue branch instead: K7
+``trace_resolve`` over the active paths and buffers side by side, and the
+bookkeeping in torch (``glue_lanes``, ``_resolve_glue``).
+
+v1 (``make_portal_pass_runner``, PT_TPU_PORTAL_V1): a pool of free slots;
+each cycle runs K8 ``trace_cheap_blocked``, compacts the frozen paths to
+the front, resolves them with K7, retires dead paths into the framebuffer
+and refills free slots with fresh samples (``portal_cycle``). It cancels
+and checkpoints only between passes.
 
 Not ported, each for its reason (ROADMAP.md, Slice 2 crosswalk):
 ``portal_cycles_v2`` (fusing cycles into one dispatch amortised a ~1.75 ms
-remote-TPU dispatch), the ``POOL_RESOLVE=0`` glue path (it needs K7), narrow
-resolves (``PT_TPU_NARROW_BUFS``), the resolve-lane sorts
-(``sort_lanes``, ``_tile_slab_masks``, ``_resolve_sort_order``,
-``_counting_positions``: measured dead), ``freeze_pixel_order`` (measured
-neutral), ``make_pool_v2``'s slot-order option (no render passes one) and
-the v1 scheduler; the sharded runner's ``flush_pix`` and ``pix_offset``
-arguments wait for the sharded scheduler (Slice 4).
+remote-TPU dispatch), narrow resolves (``PT_TPU_NARROW_BUFS``), the
+resolve-lane sorts (``sort_lanes``, ``_tile_slab_masks``,
+``_resolve_sort_order``, ``_counting_positions``: measured dead),
+``freeze_pixel_order`` (measured neutral) and ``make_pool_v2``'s slot-order
+option (no render passes one); the sharded runner's ``flush_pix`` and
+``pix_offset`` arguments wait for the sharded scheduler (Slice 4).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from path_tracer_tpu_torch.ops.kernels import portal as pm
 from path_tracer_tpu_torch.ops.kernels.portal import (
-    BUF_STATE, ROW_ACC, ROW_ALIVE, ROW_PREV, V2_ROW_DONE, V2_ROW_PIX,
-    V2_ROW_QUOTA, V3_ROW_STARTED, buf_row, port_rows, trace_cheap_regen,
+    BUF_STATE, ROW_ACC, ROW_ALIVE, ROW_PIX, ROW_PREV, V1_PORT_ROWS,
+    V1_ROW_SAMPLE, V2_ROW_DONE, V2_ROW_PIX, V2_ROW_QUOTA, V3_ROW_STARTED,
+    buf_row, port_rows, trace_cheap_blocked, trace_cheap_regen,
     trace_resolve_pool,
+)
+from path_tracer_tpu_torch.ops.kernels.trace_kernel import (
+    make_raygen, path_uniforms, trace_resolve,
 )
 from path_tracer_tpu_torch.render import drive
 
 F32 = torch.float32
 CHEAP_BLOCK = 2048  # pool widths are multiples of this
+RESOLVE_BLOCK = 1024  # v1: K7's lane count is a multiple of this
+# v1 pool capacity (lanes): 1M lanes = 68 MB of pool state
+DEFAULT_POOL = 1 << 20
+
+# The v2 resolve: K3 (True) or the glue branch, K7 and torch (False). Read
+# once at import from PT_TPU_POOL_RESOLVE, as the JAX package does; tests
+# and chip_smoke.py set the attribute, which drive_pool_v2 reads per drive.
+POOL_RESOLVE = os.environ.get("PT_TPU_POOL_RESOLVE", "1") != "0"
 
 # tail-compaction ladder: fixed pool widths the unfinished tail is squeezed
 # into once it fits, so that late cycles cost in proportion to the tail
@@ -63,23 +85,107 @@ def _unfinished(pool):
     return (pool[V2_ROW_DONE] < pool[V2_ROW_QUOTA]).sum()
 
 
+def glue_lanes(pool, park_k: int):
+    """K7's input on the glue route: the active paths and the park_k
+    buffers of a v2 pool concatenated along the lane axis ((park_k + 1) * n
+    lanes, part-major, as the JAX package's ``render/portal.py:462-487``).
+    A buffer lane counts as alive only where it holds a frozen path, with a
+    zero acc. Returns (the seven state arrays, pixel_idx, sample_idx, the
+    buffers' frozen masks)."""
+    n = pool.shape[1]
+
+    def part_rows(r0, rb, k):
+        return torch.cat([pool[r0:r0 + k]]
+                         + [pool[buf_row(j, rb):buf_row(j, rb) + k]
+                            for j in range(park_k)], dim=1)
+
+    frozen = [(pool[buf_row(j, BUF_STATE)] > 0.5)
+              & (pool[buf_row(j, BUF_STATE)] < 1.5) for j in range(park_k)]
+    acc_in = torch.cat([pool[ROW_ACC:ROW_ACC + 3],
+                        torch.zeros((3, park_k * n), dtype=F32,
+                                    device=pool.device)], dim=1)
+    alive_in = torch.cat([pool[ROW_ALIVE]] + [f.to(F32) for f in frozen])[None]
+    state = (part_rows(pm.ROW_O, pm.BUF_O, 3), part_rows(pm.ROW_D, pm.BUF_D, 3),
+             part_rows(pm.ROW_THR, pm.BUF_THR, 3), acc_in, alive_in,
+             part_rows(ROW_PREV, pm.BUF_PREV, 1),
+             part_rows(pm.ROW_DEPTH, pm.BUF_DEPTH, 1))
+    pix = pool[V2_ROW_PIX].to(torch.int32).repeat(park_k + 1)
+    smp = torch.cat([pool[pm.sample_row(park_k)]] + [
+        pool[pm.sample_row(park_k, j)] for j in range(park_k)]).to(torch.int32)
+    return state, pix, smp, frozen
+
+
+def _resolve_glue(pool, ks, *, seed: int, park_k: int, max_depth: int,
+                  rr_start_depth: int, uniforms=None):
+    """The resolve phase composed in torch around K7, the JAX package's
+    glue branch (``render/portal.py:462-564``): K7 over ``glue_lanes``,
+    then K3's bookkeeping. Slot acc and done add the parts in part order,
+    as K3 does, so the pool equals K3's bit for bit. ``uniforms`` [4,
+    (park_k + 1) * n] as K3's."""
+    n = pool.shape[1]
+    state, pix, smp, frozen = glue_lanes(pool, park_k)
+    o, d, thr, acc, alive, prev, depth, c2 = trace_resolve(
+        ks, *state, pixel_idx=pix, sample_idx=smp, seed=seed,
+        max_depth=max_depth, rr_start_depth=rr_start_depth, uniforms=uniforms)
+
+    def part(x, j):  # part 0 the active path, part j >= 1 buffer j-1
+        return x[:, j * n:(j + 1) * n]
+
+    out = pool.clone()
+    ended = (pool[ROW_ALIVE] > 0.0) & (part(alive, 0)[0] <= 0.0)
+    out[pm.ROW_O:pm.ROW_O + 3] = part(o, 0)
+    out[pm.ROW_D:pm.ROW_D + 3] = part(d, 0)
+    out[pm.ROW_THR:pm.ROW_THR + 3] = part(thr, 0)
+    out[ROW_ACC:ROW_ACC + 3] = part(acc, 0)
+    out[ROW_ALIVE] = part(alive, 0)[0]
+    out[ROW_PREV] = part(prev, 0)[0]
+    out[pm.ROW_DEPTH] = part(depth, 0)[0]
+    out[V2_ROW_DONE] = pool[V2_ROW_DONE] + ended.to(F32)
+    for j in range(park_k):
+        proc = frozen[j]
+        b = buf_row(j)
+        for r0, src, k in ((pm.BUF_O, o, 3), (pm.BUF_D, d, 3),
+                           (pm.BUF_THR, thr, 3), (pm.BUF_PREV, prev, 1),
+                           (pm.BUF_DEPTH, depth, 1)):
+            out[b + r0:b + r0 + k] = torch.where(
+                proc, part(src, j + 1), pool[b + r0:b + r0 + k])
+        out[ROW_ACC:ROW_ACC + 3] = out[ROW_ACC:ROW_ACC + 3] + part(acc, j + 1)
+        lives = part(alive, j + 1)[0] > 0.0
+        out[b + BUF_STATE] = torch.where(
+            proc, torch.where(lives, 2.0, 0.0), pool[b + BUF_STATE])
+        out[V2_ROW_DONE] = out[V2_ROW_DONE] + (proc & ~lives).to(F32)
+    return out, c2.sum().to(torch.int64)
+
+
 def portal_resolve_phase(pool, ks, *, seed: int, park_k: int, max_depth: int,
-                         rr_start_depth: int):
-    """The resolve half of a cycle: K3 over the active path and every parked
-    buffer. Returns (pool', segments traced, unfinished slots), the last two
-    as scalar tensors on the pool's device."""
-    pool, counts = trace_resolve_pool(
-        ks, pool, seed=seed, parts=park_k + 1, park_k=park_k,
-        max_depth=max_depth, rr_start_depth=rr_start_depth)
-    return pool, counts.sum(dtype=torch.int64), _unfinished(pool)
+                         rr_start_depth: int, pool_resolve: bool = True,
+                         uniforms=None):
+    """The resolve half of a cycle over the active path and every parked
+    buffer: K3, or with ``pool_resolve=False`` or injected ``uniforms`` (K3's
+    [4, (park_k + 1) * n] layout) the glue branch, K7 and torch
+    (``_resolve_glue``), as the JAX package chooses. Returns (pool',
+    segments traced, unfinished slots), the last two as scalar tensors on
+    the pool's device."""
+    if pool_resolve and uniforms is None:
+        pool, counts = trace_resolve_pool(
+            ks, pool, seed=seed, parts=park_k + 1, park_k=park_k,
+            max_depth=max_depth, rr_start_depth=rr_start_depth)
+        rays = counts.sum(dtype=torch.int64)
+    else:
+        pool, rays = _resolve_glue(pool, ks, seed=seed, park_k=park_k,
+                                   max_depth=max_depth,
+                                   rr_start_depth=rr_start_depth,
+                                   uniforms=uniforms)
+    return pool, rays, _unfinished(pool)
 
 
 def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
                     seed: int, step_cap: int, park_k: int, max_depth: int,
-                    rr_start_depth: int):
+                    rr_start_depth: int, pool_resolve: bool = True):
     """One cycle: K2 until every slot is frozen (parked park_k deep), out of
-    samples or step-capped, then K3. A capped but unfrozen path just has its
-    next segment traced by the full scene (which contains the cheap scene).
+    samples or step-capped, then the resolve phase (K3, or K7 and torch with
+    ``pool_resolve=False``). A capped but unfrozen path just has its next
+    segment traced by the full scene (which contains the cheap scene).
     Returns (pool', segments traced, unfinished slots)."""
     pool, c1 = trace_cheap_regen(
         pc, cam, pool, seed=seed, quota=quota, sample_base=sample_base,
@@ -87,7 +193,7 @@ def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
         rr_start_depth=rr_start_depth)
     pool, c2, unfin = portal_resolve_phase(
         pool, ks, seed=seed, park_k=park_k, max_depth=max_depth,
-        rr_start_depth=rr_start_depth)
+        rr_start_depth=rr_start_depth, pool_resolve=pool_resolve)
     return pool, c1.sum(dtype=torch.int64) + c2, unfin
 
 
@@ -304,6 +410,7 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
     reconstruct the retired radiance exactly. ``on_check(cycle, width,
     unfin[, snapshot])`` is the poll hook (see render.drive)."""
     step_cap = STEP_CAP
+    pool_resolve = POOL_RESOLVE
     redist_min = _redist_min(k_pass)
     redist = k_pass >= 2 * redist_min  # a laggard needs 2 * redist_min left
     # flush and snapshot buffers are keyed by global pixel id: they cover
@@ -318,7 +425,8 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
             pool, r, unfin = portal_cycle_v2(
                 pool, pc, cam, ks, quota=k_pass, sample_base=sample_base,
                 seed=seed, step_cap=step_cap, park_k=park_k,
-                max_depth=max_depth, rr_start_depth=rr_start_depth)
+                max_depth=max_depth, rr_start_depth=rr_start_depth,
+                pool_resolve=pool_resolve)
             rays = rays + r
         return pool, rays, unfin
 
@@ -470,4 +578,155 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
     pass_runner.set_hooks = set_hooks
     pass_runner.total_slots = npix
     pass_runner.slot_layout = "single"
+    return pass_runner
+
+
+# ---------------------------------------------------------------------------
+# v1: a pool of free-floating path slots, compacted and refilled each cycle
+# ---------------------------------------------------------------------------
+
+
+def _round_resolve(n: int) -> int:
+    return max(((n + RESOLVE_BLOCK - 1) // RESOLVE_BLOCK) * RESOLVE_BLOCK,
+               RESOLVE_BLOCK)
+
+
+def portal_cycle(pool, accum, counts, issued, *, limit: int, sample_base: int,
+                 pc, cam, ks, seed: int, npix: int, max_depth: int,
+                 rr_start_depth: int, F_cap: int):
+    """One v1 cycle over the pool [V1_PORT_ROWS, C] (the JAX package's
+    ``portal_cycle``, ``render/portal.py:54-162``):
+
+    1. K8 ``trace_cheap_blocked``: cheap bounces until each lane is dead or
+       frozen at the portal;
+    2. a stable partition putting the alive (frozen) lanes first: one
+       gather of the pool's columns;
+    3. K7 ``trace_resolve`` on the first F_cap lanes: one full-scene bounce
+       (trailing dead lanes there are inert);
+    4. retire: every dead occupied slot (pix >= 0) adds its acc into accum
+       [npix, 3] and one into counts [npix] at its pixel, then pix := -1;
+    5. refill: free slot of rank r takes pass-local sample id issued + r
+       while it is below ``limit``: pixel id % npix, global sample
+       ``sample_base + id // npix``, a camera ray from the kernels' camera
+       sampling (``make_raygen``, the rays K2 and K4 make) drawn at depth 0.
+
+    Every kernel draws under (seed, pixel, sample, depth), so a path's
+    random numbers do not depend on the cycle. accum and counts are
+    updated in place. Returns (pool', issued', retired this cycle,
+    segments traced), the last three as scalar tensors."""
+    pool, c1 = trace_cheap_blocked(pc, pool, seed=seed, max_depth=max_depth,
+                                   rr_start_depth=rr_start_depth)
+    perm = torch.argsort((pool[ROW_ALIVE] <= 0.0).to(torch.int32), stable=True)
+    pool = pool[:, perm]
+    front = pool[:, :F_cap]
+    *state, c2 = trace_resolve(
+        ks, front[pm.ROW_O:pm.ROW_O + 3], front[pm.ROW_D:pm.ROW_D + 3],
+        front[pm.ROW_THR:pm.ROW_THR + 3], front[ROW_ACC:ROW_ACC + 3],
+        front[ROW_ALIVE:ROW_ALIVE + 1], front[ROW_PREV:ROW_PREV + 1],
+        front[pm.ROW_DEPTH:pm.ROW_DEPTH + 1],
+        pixel_idx=front[ROW_PIX].to(torch.int32),
+        sample_idx=front[V1_ROW_SAMPLE].to(torch.int32), seed=seed,
+        max_depth=max_depth, rr_start_depth=rr_start_depth)
+    pool[:ROW_PIX, :F_cap] = torch.cat(state)
+
+    pix_row = pool[ROW_PIX]
+    dead = (pool[ROW_ALIVE] <= 0.0) & (pix_row >= 0.0)
+    pix_i = torch.clamp(pix_row.to(torch.int64), 0, npix - 1)
+    accum.index_add_(0, pix_i, torch.where(
+        dead[None], pool[ROW_ACC:ROW_ACC + 3], 0.0).T)
+    deadf = dead.to(F32)
+    counts.index_add_(0, pix_i, deadf)
+    pool[ROW_PIX] = torch.where(dead, -1.0, pix_row)
+
+    free = pool[ROW_PIX] < 0.0
+    sid = issued + torch.cumsum(free.to(torch.int64), 0) - 1
+    can = free & (sid < limit)
+    pixel = torch.remainder(sid, npix)
+    samp = sample_base + torch.div(sid, npix, rounding_mode="floor")
+    raygen, lc = make_raygen(cam, pixel)
+    d0 = raygen(samp, *path_uniforms(seed, pixel, samp,
+                                     torch.zeros_like(samp), (4, 5)))
+    fresh = {pm.ROW_THR: 1.0, ROW_ACC: 0.0}
+    for k in range(3):
+        pool[pm.ROW_O + k] = torch.where(can, lc[k], pool[pm.ROW_O + k])
+        pool[pm.ROW_D + k] = torch.where(can, d0[k], pool[pm.ROW_D + k])
+        for r, v in fresh.items():
+            pool[r + k] = torch.where(can, v, pool[r + k])
+    for r, v in ((ROW_ALIVE, 1.0), (ROW_PREV, -1.0), (pm.ROW_DEPTH, 0.0),
+                 (ROW_PIX, pixel.to(F32)), (V1_ROW_SAMPLE, samp.to(F32))):
+        pool[r] = torch.where(can, v, pool[r])
+    issued = issued + can.sum()
+    rays = c1.sum(dtype=torch.int64) + c2.sum().to(torch.int64)
+    return pool, issued, dead.sum(), rays
+
+
+def make_portal_pass_runner(pc, cam, ks, *, npix: int, k_full: int,
+                            seed: int, max_depth: int = 12,
+                            rr_start_depth: int = 5, device="cpu"):
+    """The v1 portal pass runner (the JAX package's
+    ``make_portal_pass_runner``, ``render/portal.py:165-221``):
+    ``runner(accum, pass_idx, k_pass)`` pushes npix * k_pass fresh samples
+    (global indices pass_idx * k_full ..) through a pool of
+    C = max(min(DEFAULT_POOL, npix * min(k_full, 4) rounded to CHEAP_BLOCK),
+    CHEAP_BLOCK) slots, K7 resolving F_cap = C / 2 (rounded to
+    RESOLVE_BLOCK) lanes a cycle, until every sample retired; adds the
+    radiance into accum [npix, 3] (pixel order) and returns (accum,
+    segments traced).
+
+    The host reads the retired count every CHECK_EVERY cycles; more
+    than 64 + total * (max_depth + 2) * 4 / C cycles raise RuntimeError (a
+    stalled scheduler). A pass retires every sample once: the pass's
+    per-pixel counts (``.last_counts``) must equal k_pass, else
+    RuntimeError. v1 has no poll hook: it cancels and checkpoints only at
+    pass boundaries."""
+    C = max(min(DEFAULT_POOL, _round_block(npix * min(k_full, 4))),
+            CHEAP_BLOCK)
+    F_cap = max(RESOLVE_BLOCK, _round_resolve(C // 2))
+    device = torch.device(device)
+
+    def pass_runner(accum, pass_idx, k_pass):
+        total = npix * k_pass
+        pool = torch.zeros((V1_PORT_ROWS, C), dtype=F32, device=device)
+        pool[ROW_PIX] = -1.0
+        counts = torch.zeros(npix, dtype=F32, device=device)
+        issued = torch.zeros((), dtype=torch.int64, device=device)
+        retired = torch.zeros((), dtype=torch.int64, device=device)
+        rays = torch.zeros((), dtype=torch.int64, device=device)
+        cycles = 0
+        hard_limit = 64 + (total * (max_depth + 2) * 4) // C
+        while True:
+            for _ in range(CHECK_EVERY):
+                pool, issued, r, c = portal_cycle(
+                    pool, accum, counts, issued, limit=total,
+                    sample_base=pass_idx * k_full, pc=pc, cam=cam, ks=ks,
+                    seed=seed, npix=npix, max_depth=max_depth,
+                    rr_start_depth=rr_start_depth, F_cap=F_cap)
+                retired = retired + r
+                rays = rays + c
+                cycles += 1
+            pass_runner.total_polls += 1
+            done = int(retired)
+            if done >= total:
+                break
+            if cycles > hard_limit:
+                raise RuntimeError(
+                    f"portal scheduler stalled: {done}/{total} samples "
+                    f"retired after {cycles} cycles")
+        pass_runner.total_cycles += cycles
+        pass_runner.last_counts = counts
+        if done != total or not bool((counts == k_pass).all()):
+            raise RuntimeError(
+                f"portal v1 pass retired {done} of {total} samples with "
+                f"per-pixel counts in [{float(counts.min())}, "
+                f"{float(counts.max())}], want {k_pass}")
+        return accum, rays
+
+    pass_runner.last_cancelled = False  # v1 cancels only between passes
+    pass_runner.last_partial_counts = None
+    pass_runner.last_counts = None
+    pass_runner.total_cycles = 0  # cycles and polls over every pass
+    pass_runner.total_polls = 0
+    pass_runner.total_slots = npix
+    pass_runner.slot_layout = "v1"  # no mid-pass checkpoint resumes into v1
+    pass_runner.pool_width, pass_runner.resolve_width = C, F_cap
     return pass_runner

@@ -10,7 +10,8 @@ it as
 Kernels: K1 trace_regen (cornell, three-spheres, a gated scene), K4
 trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh),
 K5 and K6 trace_stepped (cornell and mesh preview rays) and the progressive
-preview on the card.
+preview on the card; K7 trace_resolve, K8 trace_cheap_blocked and K9
+trace_sorted (mesh) and the v1 and glue portal routes.
 
 Tolerance of the default build: at least 99.5% of pixels (K2, K3: pool
 columns) within |Δ|₁ < 1e-3, channel means within rtol 1e-3 and atol 1e-3,
@@ -300,3 +301,122 @@ def test_cuda_preview_launches_its_kernel(cuda_device, sid):
         a, b = cpu.step().pixels, cpu1.step().pixels
     same = np.abs(fin - a).mean()
     assert same <= 0.25 * np.abs(a - b).mean(), same
+
+
+def _v1_pool(prep, res, dev):
+    """A fresh v1 pool of camera rays, one sample of each pixel, built by
+    the v1 cycle's refill (a cycle over an empty pool with K8 and K7 idle)."""
+    npix = res.num_pixels
+    n = rportal._round_block(npix)
+    pool = torch.zeros((portal.V1_PORT_ROWS, n), device=dev)
+    pool[portal.ROW_PIX] = -1.0
+    accum = torch.zeros((npix, 3), device=dev)
+    counts = torch.zeros(npix, device=dev)
+    issued = torch.zeros((), dtype=torch.int64, device=dev)
+    pool, issued, _, _ = rportal.portal_cycle(
+        pool, accum, counts, issued, limit=npix, sample_base=0, pc=prep.portal,
+        cam=prep.cam, ks=prep.kscene, seed=3, npix=npix, max_depth=12,
+        rr_start_depth=5, F_cap=rportal.RESOLVE_BLOCK)
+    assert int(issued) == npix
+    return pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["counter", "table"])
+def test_cuda_v1_kernels_match_plain(cuda_device, source):
+    """K8 then K7 over cycles of a mesh v1 pool: the --fmad=false builds
+    equal the plain versions bit for bit, the default builds agree on 99.5%
+    of the pool's columns; each wrapper launches once a call."""
+    res = Resolution(96, 128)
+    prep = prepare_render(_scene("mesh"), res, cuda_device)
+    pool = _v1_pool(prep, res, cuda_device)
+    n = pool.shape[1]
+    uni = None
+    if source == "table":
+        uni = torch.from_numpy(np.random.default_rng(0).random(
+            (4, n), dtype=np.float32)).to(cuda_device)
+    for _ in range(3):
+        kw = dict(seed=3, uniforms=uni)
+        before = portal.trace_cheap_blocked.launches
+        k_pool, k_counts = portal.trace_cheap_blocked(prep.portal, pool, **kw)
+        e_pool, e_counts = portal.trace_cheap_blocked(prep.portal, pool,
+                                                      fmad=False, **kw)
+        p_pool, p_counts = portal.trace_cheap_blocked_plain(prep.portal, pool, **kw)
+        torch.cuda.synchronize()
+        assert portal.trace_cheap_blocked.launches == before + 2
+        assert torch.equal(e_pool, p_pool) and torch.equal(e_counts, p_counts)
+        agree = float(((k_pool - p_pool).abs().sum(dim=0) < 1e-3).float().mean())
+        assert agree >= 0.995, agree
+        rows = [p_pool[a:b] for a, b in ((0, 3), (3, 6), (6, 9), (9, 12),
+                                         (12, 13), (13, 14), (14, 15))]
+        rkw = dict(pixel_idx=p_pool[portal.ROW_PIX].to(torch.int32),
+                   sample_idx=p_pool[portal.V1_ROW_SAMPLE].to(torch.int32),
+                   seed=3, uniforms=uni)
+        before = trace_kernel.trace_resolve.launches
+        k_out = trace_kernel.trace_resolve(prep.kscene, *rows, **rkw)
+        e_out = trace_kernel.trace_resolve(prep.kscene, *rows, fmad=False, **rkw)
+        p_out = trace_kernel.trace_resolve_plain(prep.kscene, *rows, **rkw)
+        torch.cuda.synchronize()
+        assert trace_kernel.trace_resolve.launches == before + 2
+        assert all(torch.equal(e, p) for e, p in zip(e_out, p_out))
+        k_state, p_state = torch.cat(k_out[:7]), torch.cat(p_out[:7])
+        agree = float(((k_state - p_state).abs().sum(dim=0) < 1e-3).float().mean())
+        assert agree >= 0.995, agree
+        pool = p_pool.clone()
+        pool[:portal.ROW_PIX] = p_state
+    assert float(pool[portal.ROW_ACC:portal.ROW_ACC + 3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort_every,dir_major", [(1, False), (4, True)])
+def test_cuda_k9_equals_k6(cuda_device, sort_every, dir_major):
+    """K9 on the card: the K6 kernel in calls of sort_every steps with the
+    rays sorted in between gives K6's radiance ray for ray (--fmad=false:
+    bit for bit, and equal to the plain version)."""
+    res = Resolution(96, 128)
+    scene = _scene("mesh")
+    ks = trace_kernel.build_kernel_scene(tpt.pack_scene(scene)).to(cuda_device)
+    o, d, pix, smp = _preview_rays(scene, res, 2, cuda_device)
+    kw = dict(seed=5, pixel_idx=pix, sample_idx=smp)
+    before = (trace_kernel.trace_sorted.launches, trace_kernel.trace_stepped.launches)
+    s_rad, s_rays = trace_kernel.trace_sorted(ks, o, d, sort_every=sort_every,
+                                              dir_major=dir_major, fmad=False, **kw)
+    k_rad, k_rays = trace_kernel.trace_stepped(ks, o, d, steps_per_call=sort_every,
+                                               fmad=False, **kw)
+    torch.cuda.synchronize()
+    calls = -(-12 // sort_every)
+    assert (trace_kernel.trace_sorted.launches - before[0],
+            trace_kernel.trace_stepped.launches - before[1]) == (calls, calls)
+    assert torch.equal(s_rad, k_rad) and int(s_rays) == int(k_rays)
+    p_rad, _ = trace_kernel.trace_sorted_plain(ks, o, d, sort_every=sort_every,
+                                               dir_major=dir_major, **kw)
+    assert torch.equal(s_rad, p_rad)
+
+
+@pytest.mark.cuda
+def test_cuda_v1_and_glue_renders_match_cpu(cuda_device, monkeypatch):
+    """The v1 route launches K8 and K7 (not K2, K3), the glue route K2 and
+    K7 (not K3); both agree with the CPU render of the same seed far inside
+    the noise between two seeds, with every sample counted."""
+    scene = _scene("mesh")
+    cfg = RenderConfig(samples_per_pixel=8, resolution=Resolution(24, 36))
+    cpu = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
+    cpu1 = tpt.render(scene, cfg.with_(seed=1), device="cpu", out_dir=None,
+                      verbose=False)
+    noise = np.abs(cpu1.image.pixels - cpu.image.pixels).mean()
+    counters = (portal.trace_cheap_regen, portal.trace_resolve_pool,
+                portal.trace_cheap_blocked, trace_kernel.trace_resolve)
+    for route, launched in (("v1", {2, 3}), ("glue", {0, 3})):
+        with monkeypatch.context() as m:
+            if route == "v1":
+                m.setenv("PT_TPU_PORTAL_V1", "1")
+            else:
+                m.setattr(rportal, "POOL_RESOLVE", False)
+            before = [c.launches for c in counters]
+            gpu = tpt.render(scene, cfg, device=cuda_device, out_dir=None,
+                             verbose=False)
+        for i, c in enumerate(counters):
+            assert (c.launches > before[i]) == (i in launched), (route, i)
+        same = np.abs(gpu.image.pixels - cpu.image.pixels).mean()
+        assert same <= 0.25 * noise, (route, same, noise)
+        assert gpu.stats.num_samples == cpu.stats.num_samples

@@ -17,6 +17,7 @@ from datetime import datetime
 import numpy as np
 import pytest
 import torch
+from jax._src.pallas.mosaic.interpret import interpret_pallas_call as _interp
 
 import path_tracer_tpu as jpt
 import path_tracer_tpu_torch as tpt
@@ -44,6 +45,28 @@ from path_tracer_tpu_torch.render import raygen as t_raygen
 # Every worker imports every test module, so this holds for all of them.
 torch.set_num_threads(1)
 
+# The Pallas interpreter (jax 0.9) runs parts of a kernel as io_callbacks,
+# which receive their arguments as JAX arrays. Every such callback turns its
+# device id into an int first except _update_clocks_for_device_barrier,
+# which multiplies the array: a JAX dispatch from the runtime's callback
+# thread. When the main thread of an unjitted driver dispatches its next
+# operation meanwhile (JAX on the CPU dispatches asynchronously), the two
+# deadlock for good: tests/test_pallas.py's
+# test_sorted_trace_is_a_permutation (trace_pallas_sorted.__wrapped__ in
+# interpret mode) hung so and stalled whole Tier-1 runs until the line's
+# time limit, with the main thread in dispatch.apply_primitive under
+# ray_sort_keys and the callback thread in update_clocks_for_device_barrier.
+# The callback is given the int here. Every worker imports every test module
+# before it runs a test, so this holds for all of them.
+_barrier_clocks = _interp._update_clocks_for_device_barrier
+
+
+def _update_clocks_for_device_barrier(device_id):
+    _barrier_clocks(int(device_id))
+
+
+_interp._update_clocks_for_device_barrier = _update_clocks_for_device_barrier
+
 # Each port test module that renders imports this fixture, so that a test
 # that hangs fails on its own instead of stalling the whole Tier-1 run until
 # the line's time limit cuts it: several times the slowest such test
@@ -53,21 +76,27 @@ TEST_LIMIT_S = 120
 
 @pytest.fixture(autouse=True)
 def per_test_limit(request):
-    """Fail the test if it runs past TEST_LIMIT_S. Every thread's stack is
-    dumped to stderr first (faulthandler, from its own watchdog thread), so
-    the report names where it hung; then SIGALRM fails the test in the main
-    thread, where pytest-xdist's workers run their tests. Off the main
-    thread (no signals there) the dump alone names the test."""
-    faulthandler.dump_traceback_later(TEST_LIMIT_S, exit=False,
+    """Fail the test if it runs past TEST_LIMIT_S (four times that for a
+    test marked slow, such as a golden regeneration): SIGALRM fails it in the
+    main thread, where pytest-xdist's workers run their tests, after
+    dumping every thread's stack to stderr so the report names where it
+    hung. A test stuck in native code never returns to the interpreter, so
+    the signal's handler cannot run: 30 s later faulthandler's own watchdog
+    thread dumps the stacks and ends the worker, which xdist reports as
+    down while the run goes on to its end. Off the main thread (no
+    signals there) the watchdog alone acts."""
+    limit = TEST_LIMIT_S * (4 if request.node.get_closest_marker("slow") else 1)
+    faulthandler.dump_traceback_later(limit + 30, exit=True,
                                       file=sys.__stderr__)
     main = threading.current_thread() is threading.main_thread()
     if main:
         def on_alarm(signum, frame):
-            pytest.fail(f"{request.node.nodeid} ran past {TEST_LIMIT_S} s; "
-                        "every thread's stack is in its captured stderr")
+            faulthandler.dump_traceback(file=sys.__stderr__, all_threads=True)
+            pytest.fail(f"{request.node.nodeid} ran past {limit} s; "
+                        "every thread's stack is in the worker's stderr")
 
         previous = signal.signal(signal.SIGALRM, on_alarm)
-        signal.alarm(TEST_LIMIT_S + 2)
+        signal.alarm(limit)
     try:
         yield
     finally:
@@ -75,6 +104,7 @@ def per_test_limit(request):
             signal.alarm(0)
             signal.signal(signal.SIGALRM, previous)
         faulthandler.cancel_dump_traceback_later()
+
 
 SCENE_IDS = ["single-sphere", "cartesian", "two-spheres", "three-spheres",
              "cornell", "mesh"]

@@ -21,7 +21,9 @@ line):
      step cap 64 over several cycles, K3 with both sources; then three
      cycles of a fresh 1024x768 pool. Times of every kernel and its plain
      version at the main path's shapes (CUDA events; K2 and K3 on the
-     third cycle of the 1024x768 pool, the bulk phase of a drive). K5 on
+     third cycle of the 1024x768 pool, the bulk phase of a drive), with
+     K3's registers (nvcc -Xptxas -v), resident blocks per SM and the
+     shares of scripts/k3_coherence.py's model on that pool. K5 on
      cornell and K6 on mesh: one preview frame's rays at 450x300 x 2 spp,
      both uniform sources, in calls of 12 and of 5 steps. K8 on a fresh
      1,048,576-lane v1 pool of mesh primary rays at 1024x768, K7 on its
@@ -182,11 +184,31 @@ def build_all():
         lines = []
         for name, fut in futs.items():
             built = fut.result()
-            regs = [ln.split(":", 1)[-1].strip() for ln in built.log.splitlines()
-                    if "registers" in ln]
+            BUILT[name] = built
             lines.append(f"{name}: {os.path.relpath(built.path, ROOT)} in "
-                         f"{built.seconds:.1f} s, ptxas: {' | '.join(regs)}")
+                         f"{built.seconds:.1f} s, ptxas: "
+                         f"{' | '.join(ptxas_registers(built.log))}")
     return lines
+
+
+BUILT: dict = {}  # "source fmad=..." -> build_all's Built
+
+
+def ptxas_registers(log: str) -> list[str]:
+    """The register lines of nvcc's -Xptxas -v report, one a kernel."""
+    return [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+            if "registers" in ln]
+
+
+def k3_coherence():
+    """scripts/k3_coherence.py as a module (the model of K3's schedule)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "k3_coherence", os.path.join(ROOT, "scripts", "k3_coherence.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def check_k1(scenes, dev, card):
@@ -339,6 +361,31 @@ def compare(tag, kern, exact, plain, rec):
         fail(f"{tag}: kernel disagrees with its plain version")
 
 
+def k3_design(ks, pool, card):
+    """K3's registers, resident blocks and the coherence model's shares on
+    its input pool (the phase-3 shape), on lines of their own."""
+    from path_tracer_tpu_torch.ops.kernels import portal as pk
+
+    regs = ptxas_registers(BUILT["portal_resolve.cu fmad=True"].log)
+    cfg = pk.resolve_pool_config(ks)
+    window = cfg["window"]
+    print(f"phase 3 K3 design: ptxas {' | '.join(regs)}; chunk {window} "
+          f"columns, {cfg['smem_bytes']} bytes of shared memory a block, "
+          f"{cfg['blocks_per_sm']} resident blocks per SM, table in shared "
+          f"memory {cfg['shared_table']} ({card})", flush=True)
+    model = k3_coherence().coherence(ks, pool, windows=(window,))
+    col = model["column_schedule"]
+    new = model[f"window_{window}_sorted"]
+    print(f"phase 3 K3 coherence (scripts/k3_coherence.py) on its input pool: "
+          f"{model['items']} live items of {model['columns']} columns, live "
+          f"share per part {[round(x, 4) for x in model['live_share_per_part']]}; "
+          f"one thread a column: lane slots {col['lane_slot_share']:.4f}, "
+          f"useful rows {col['useful_row_share']:.4f}; packed and sorted in "
+          f"chunks of {window}: lane slots "
+          f"{new['lane_slot_share']:.4f}, useful rows "
+          f"{new['useful_row_share']:.4f}", flush=True)
+
+
 def check_portal(mesh, dev, card, small, main):
     """K2 and K3 against their plain versions over cycles of a drive, and
     timed on the third cycle of a fresh 1024x768 pool (the bulk phase);
@@ -395,6 +442,7 @@ def check_portal(mesh, dev, card, small, main):
             for source, uni in sources:
                 kw = dict(resolve, uniforms=uni)
                 if last and source == "counter":
+                    k3_design(ks, pool, card)
                     k3["ms"] = cuda_ms(lambda: pk.trace_resolve_pool(
                         ks, pool, **kw), 5)
                     t0 = time.perf_counter()

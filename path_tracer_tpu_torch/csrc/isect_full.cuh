@@ -1,19 +1,29 @@
 // The full-scene closest-hit intersector over the table-driven scene, for one
-// ray per thread: the single definition that K3 (portal_resolve.cu) and K4
-// (trace_regen_prim.cu) include, as the JAX package's K3 and K4 share
-// trace_kernel.make_isect. Its plain torch version is
-// path_tracer_tpu_torch/ops/kernels/trace_kernel.py isect_full_plain, which
-// holds the semantics in its docstring; the operations here follow it in
-// order.
+// ray per thread: the single definition that K3 (portal_resolve.cu), K4
+// (trace_regen_prim.cu) and K6/K7 (trace_stepped.cu) include, as the JAX
+// package's K3 and K4 share trace_kernel.make_isect. Its plain torch version
+// is path_tracer_tpu_torch/ops/kernels/trace_kernel.py isect_full_plain,
+// which holds the semantics in its docstring; the operations here follow it
+// in order.
 //
-// The tables (KernelScene: spheres [S, 12], bounding spheres [M, 4],
-// triangle rows [T, 32], tile AABBs [C, 6]) stay in device memory and are
-// read through the read-only cache (__ldg). The mesh scene's 840 triangle
-// rows are 107 KB: they would fit in shared memory, but a resident block
-// would then pin most of an SM's 227 KB for a kernel whose threads walk
-// different tiles, and every tile a warp reads is shared by the warp's
-// lanes through L1 anyway. Moving them to shared memory is a measured
-// decision for a later change.
+// Where the rows live is a template parameter of the scan:
+//  - GlobalRows: the KernelScene tables (spheres [S, 12], bounding spheres
+//    [M, 4], triangle rows [T, 32], tile AABBs [C, 6]) in device memory,
+//    read through the read-only cache (__ldg). K4, K6 and K7 use it (the
+//    default), and K3 for a scene whose compact table is too large for
+//    shared memory.
+//  - SharedRows: the compact hit-test rows (KernelScene.hit [T, 20]: the 19
+//    floats the distance test reads) and the small tables, staged by the
+//    kernel into shared memory. K3 uses it: with its lanes sorted by the
+//    tiles they enter, a warp's lanes read one row at a time, a broadcast.
+//    Measured on the H100 (PERF.md; scripts/ablate_k3.py): the
+//    shared table cuts K3's time by a quarter on sorted lanes and by a
+//    third on unsorted ones. K4, K6 and K7 are not redesigned yet and keep
+//    the read-only path, which compiles for them as it did before the
+//    template.
+// The shading fields of the winning row (normal, colour, emission, type,
+// order, id) are read from the 32-float rows in device memory after the
+// scan, for that row only.
 //
 // Per-lane culling: the always-tested base set first, then each Morton tile
 // whose AABB the lane's ray enters closer than its best hit so far. The
@@ -27,7 +37,7 @@
 
 namespace pt {
 
-// KernelScene row layouts: ops/kernels/trace_kernel.py S_* and T_*
+// KernelScene row layouts: ops/kernels/trace_kernel.py S_*, T_* and HIT_COLS
 constexpr int SPH_F = 12;
 constexpr int S_CENTER = 0, S_RAD2 = 3, S_COLOR = 4, S_EMIS = 7, S_RTYPE = 10,
               S_ORDER = 11;
@@ -35,6 +45,7 @@ constexpr int TRI_F = 32;
 constexpr int T_N = 0, T_E1 = 3, T_E2 = 6, T_E2XA = 9, T_AXE1 = 12, T_NA = 15,
               T_NORMAL = 16, T_COLOR = 19, T_EMIS = 22, T_RTYPE = 25,
               T_ORDER = 26, T_QUAD = 27, T_PID = 28, T_GATE = 29;
+constexpr int HIT_F = 20;  // T_N .. T_NA, then T_QUAD, T_PID, T_GATE, a pad
 constexpr int TILE_F = 6;
 constexpr int TRI_TILE = 64;
 constexpr int MAX_BND = 32;  // bounding spheres, one bit each
@@ -50,6 +61,29 @@ struct FullScene {
   const float* tiles;
   int n_tiles;
   int tile_base;
+  const float* hit = nullptr;  // compact rows (SharedRows)
+};
+
+// The distance test's rows, and how every scan table is loaded
+struct GlobalRows {
+  static constexpr int F = TRI_F, N = T_N, E1 = T_E1, E2 = T_E2,
+                       E2XA = T_E2XA, AXE1 = T_AXE1, NA = T_NA, QUAD = T_QUAD,
+                       PID = T_PID, GATE = T_GATE;
+  static __device__ __forceinline__ const float* rows(const FullScene& sc) {
+    return sc.tri;
+  }
+  static __device__ __forceinline__ float ld(const float* p) {
+    return __ldg(p);
+  }
+};
+
+struct SharedRows {
+  static constexpr int F = HIT_F, N = 0, E1 = 3, E2 = 6, E2XA = 9, AXE1 = 12,
+                       NA = 15, QUAD = 16, PID = 17, GATE = 18;
+  static __device__ __forceinline__ const float* rows(const FullScene& sc) {
+    return sc.hit;
+  }
+  static __device__ __forceinline__ float ld(const float* p) { return *p; }
 };
 
 struct Hit {
@@ -59,13 +93,12 @@ struct Hit {
   float new_prev;  // packed triangle id of the hit, -1 for a sphere or miss
 };
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-
 // The JAX intersector's expanded sphere test (BIG = miss; r2 <= 0 marks
 // padding, whose far-away center makes b^2 - |op|^2 cancel)
+template <class R>
 __device__ __forceinline__ float sphere_t(const float* c, float rad2,
                                           const float o[3], const float d[3]) {
-  const float c0 = ld(c), c1 = ld(c + 1), c2 = ld(c + 2);
+  const float c0 = R::ld(c), c1 = R::ld(c + 1), c2 = R::ld(c + 2);
   const float cd = 0.0f + c0 * d[0] + c1 * d[1] + c2 * d[2];
   const float co = 0.0f + c0 * o[0] + c1 * o[1] + c2 * o[2];
   const float cc = 0.0f + c0 * c0 + c1 * c1 + c2 * c2;
@@ -80,27 +113,29 @@ __device__ __forceinline__ float sphere_t(const float* c, float rad2,
   return (det < 0.0f || rad2 <= 0.0f) ? BIG : t;
 }
 
+template <class R>
 __device__ __forceinline__ float dot_row(const float* row, const float v[3]) {
-  return ld(row) * v[0] + ld(row + 1) * v[1] + ld(row + 2) * v[2];
+  return R::ld(row) * v[0] + R::ld(row + 1) * v[1] + R::ld(row + 2) * v[2];
 }
 
 // Distance to triangle/quad row r (BIG = no valid hit)
+template <class R>
 __device__ __forceinline__ float tri_t(const float* r, const float o[3],
                                        const float d[3], const float m[3],
                                        float prevf, uint32_t gate_ok) {
-  const float det = -dot_row(r + T_N, d);
-  const float udet = dot_row(r + T_E2, m) - dot_row(r + T_E2XA, d);
-  const float vdet = -dot_row(r + T_E1, m) - dot_row(r + T_AXE1, d);
-  const float tdet = dot_row(r + T_N, o) - ld(r + T_NA);
+  const float det = -dot_row<R>(r + R::N, d);
+  const float udet = dot_row<R>(r + R::E2, m) - dot_row<R>(r + R::E2XA, d);
+  const float vdet = -dot_row<R>(r + R::E1, m) - dot_row<R>(r + R::AXE1, d);
+  const float tdet = dot_row<R>(r + R::N, o) - R::ld(r + R::NA);
   const bool dvalid = fabsf(det) >= EPS;
   const float inv = 1.0f / (dvalid ? det : 1.0f);
   const float u = udet * inv;
   const float v = vdet * inv;
   const float t = tdet * inv;
-  const float uv_hi = ld(r + T_QUAD) > 0.5f ? v : u + v;
+  const float uv_hi = R::ld(r + R::QUAD) > 0.5f ? v : u + v;
   bool valid = dvalid && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-               uv_hi <= 1.0f && t > EPS && ld(r + T_PID) != prevf;
-  const float gate = ld(r + T_GATE);
+               uv_hi <= 1.0f && t > EPS && R::ld(r + R::PID) != prevf;
+  const float gate = R::ld(r + R::GATE);
   if (gate != GATE_NONE)
     valid = valid && gate >= 0.0f &&
             ((gate_ok >> static_cast<int>(gate)) & 1u) != 0u;
@@ -108,13 +143,14 @@ __device__ __forceinline__ float tri_t(const float* r, const float o[3],
 }
 
 // Strictly-closer scan of rows [lo, hi)
-__device__ __forceinline__ void tri_rows(const float* tri, int lo, int hi,
+template <class R>
+__device__ __forceinline__ void tri_rows(const float* rows, int lo, int hi,
                                          const float o[3], const float d[3],
                                          const float m[3], float prevf,
                                          uint32_t gate_ok, float& d_t,
                                          int& r_t) {
   for (int r = lo; r < hi; ++r) {
-    const float t = tri_t(tri + r * TRI_F, o, d, m, prevf, gate_ok);
+    const float t = tri_t<R>(rows + r * R::F, o, d, m, prevf, gate_ok);
     if (t < d_t) {
       d_t = t;
       r_t = r;
@@ -122,6 +158,33 @@ __device__ __forceinline__ void tri_rows(const float* tri, int lo, int hi,
   }
 }
 
+// The slab test of a tile AABB as isect_full's cull makes it: whether the
+// ray's line enters the box ahead of the origin, and its entry distance.
+// K3 keys its sort with it; isect_full keeps its own copy inline, so that
+// K4, K6 and K7 compile as before this helper existed.
+template <class R>
+__device__ __forceinline__ bool tile_slab(const float* box, const float o[3],
+                                          const float inv[3], float& t_en) {
+  float t_ex = BIG;
+  t_en = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float ta = (R::ld(box + k) - o[k]) * inv[k];
+    const float tb = (R::ld(box + 3 + k) - o[k]) * inv[k];
+    t_en = fmaxf(t_en, fminf(ta, tb));
+    t_ex = fminf(t_ex, fmaxf(ta, tb));
+  }
+  return t_ex >= t_en && t_ex >= 0.0f;
+}
+
+__device__ __forceinline__ void inv_dir(const float d[3], float inv[3]) {
+  for (int k = 0; k < 3; ++k)
+    inv[k] = 1.0f / (fabsf(d[k]) < TINY ? TINY : d[k]);
+}
+
+// The scan keeps the best sphere (d_s, i_s) and the best triangle row (d_t,
+// r_t) only; the surface of the winner is read after it: spheres through R,
+// a triangle's shading fields from its 32-float row in device memory.
+template <class R = GlobalRows>
 __device__ __forceinline__ void isect_full(const FullScene& sc,
                                            const float o[3], const float d[3],
                                            float prevf, bool alive, Hit& h) {
@@ -130,7 +193,7 @@ __device__ __forceinline__ void isect_full(const FullScene& sc,
   int i_s = 0;
   for (int s = 0; s < sc.n_sph; ++s) {
     const float* row = sc.sph + s * SPH_F;
-    const float t = sphere_t(row + S_CENTER, ld(row + S_RAD2), o, d);
+    const float t = sphere_t<R>(row + S_CENTER, R::ld(row + S_RAD2), o, d);
     if (t < d_s) {
       d_s = t;
       i_s = s;
@@ -139,15 +202,15 @@ __device__ __forceinline__ void isect_full(const FullScene& sc,
   uint32_t gate_ok = 0u;
   for (int g = 0; g < sc.n_bnd; ++g) {
     const float* row = sc.bnd + g * 4;
-    if (sphere_t(row, ld(row + 3), o, d) < BIG) gate_ok |= 1u << g;
+    if (sphere_t<R>(row, R::ld(row + 3), o, d) < BIG) gate_ok |= 1u << g;
   }
 
   const float m[3] = {o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
                       o[0] * d[1] - o[1] * d[0]};
   float d_t = BIG;
   int r_t = 0;
-  tri_rows(sc.tri, 0, sc.n_tiles ? sc.tile_base : sc.n_tri, o, d, m, prevf,
-           gate_ok, d_t, r_t);
+  tri_rows<R>(R::rows(sc), 0, sc.n_tiles ? sc.tile_base : sc.n_tri, o, d, m,
+              prevf, gate_ok, d_t, r_t);
   if (sc.n_tiles && alive) {
     float inv[3];
     for (int k = 0; k < 3; ++k)
@@ -156,15 +219,16 @@ __device__ __forceinline__ void isect_full(const FullScene& sc,
       const float* box = sc.tiles + c * TILE_F;
       float t_en = 0.0f, t_ex = BIG;
       for (int k = 0; k < 3; ++k) {
-        const float ta = (ld(box + k) - o[k]) * inv[k];
-        const float tb = (ld(box + 3 + k) - o[k]) * inv[k];
+        const float ta = (R::ld(box + k) - o[k]) * inv[k];
+        const float tb = (R::ld(box + 3 + k) - o[k]) * inv[k];
         t_en = fmaxf(t_en, fminf(ta, tb));
         t_ex = fminf(t_ex, fmaxf(ta, tb));
       }
       const float bound = fminf(d_t, d_s);
       if (t_ex >= t_en && t_ex >= 0.0f && t_en < bound) {
         const int lo = sc.tile_base + c * TRI_TILE;
-        tri_rows(sc.tri, lo, lo + TRI_TILE, o, d, m, prevf, gate_ok, d_t, r_t);
+        tri_rows<R>(R::rows(sc), lo, lo + TRI_TILE, o, d, m, prevf, gate_ok,
+                    d_t, r_t);
       }
     }
   }
@@ -172,30 +236,30 @@ __device__ __forceinline__ void isect_full(const FullScene& sc,
   const float* srow = sc.sph + i_s * SPH_F;
   const float* trow = sc.tri + r_t * TRI_F;
   const bool sph_wins =
-      d_s < d_t || (d_s == d_t && ld(srow + S_ORDER) < ld(trow + T_ORDER));
+      d_s < d_t || (d_s == d_t && R::ld(srow + S_ORDER) < __ldg(trow + T_ORDER));
   const float t = sph_wins ? d_s : d_t;
   h.found = t < BIG && alive;
   for (int k = 0; k < 3; ++k) h.point[k] = o[k] + d[k] * t;
   if (sph_wins) {
     float sn[3];
-    for (int k = 0; k < 3; ++k) sn[k] = h.point[k] - ld(srow + S_CENTER + k);
+    for (int k = 0; k < 3; ++k) sn[k] = h.point[k] - R::ld(srow + S_CENTER + k);
     const float sl =
         rsqrtf(fmaxf(sn[0] * sn[0] + sn[1] * sn[1] + sn[2] * sn[2], TINY));
     for (int k = 0; k < 3; ++k) {
       h.nrm[k] = sn[k] * sl;
-      h.color[k] = ld(srow + S_COLOR + k);
-      h.emis[k] = ld(srow + S_EMIS + k);
+      h.color[k] = R::ld(srow + S_COLOR + k);
+      h.emis[k] = R::ld(srow + S_EMIS + k);
     }
-    h.rtype = ld(srow + S_RTYPE);
+    h.rtype = R::ld(srow + S_RTYPE);
   } else {
     for (int k = 0; k < 3; ++k) {
-      h.nrm[k] = ld(trow + T_NORMAL + k);
-      h.color[k] = ld(trow + T_COLOR + k);
-      h.emis[k] = ld(trow + T_EMIS + k);
+      h.nrm[k] = __ldg(trow + T_NORMAL + k);
+      h.color[k] = __ldg(trow + T_COLOR + k);
+      h.emis[k] = __ldg(trow + T_EMIS + k);
     }
-    h.rtype = ld(trow + T_RTYPE);
+    h.rtype = __ldg(trow + T_RTYPE);
   }
-  h.new_prev = (h.found && !sph_wins) ? ld(trow + T_PID) : -1.0f;
+  h.new_prev = (h.found && !sph_wins) ? __ldg(trow + T_PID) : -1.0f;
 }
 
 // Launch-time checks shared by the kernels that take a FullScene

@@ -6,31 +6,61 @@
 // portal.py:trace_resolve_pool_plain.
 //
 // What it computes: one full-scene bounce (isect_full.cuh, the intersector
-// K4 uses too) for the active path and the frozen paths of the first
-// parts-1 park buffers of each pool column, with the bookkeeping in the
-// kernel: part 0 bumps done where its path ended; part j >= 1 bounces only a
-// frozen buffer (BUF_STATE 1) with a zero acc, adds that acc to the slot's
-// acc, bumps done where the path ended and sets BUF_STATE to 2 (ready) or 0.
-// Empty and ready buffers pass through.
+// K4, K6 and K7 use too) for the active path and the frozen paths of the
+// first parts-1 park buffers of each pool column, with the bookkeeping in
+// the kernel: part 0 bumps done where its path ended; part j >= 1 bounces
+// only a frozen buffer (BUF_STATE 1) with a zero acc, adds that acc to the
+// slot's acc, bumps done where the path ended and sets BUF_STATE to 2
+// (ready) or 0. Empty and ready buffers pass through; a dead active path is
+// not traced, its scratch is cleaned (thr 0, prev -1).
 //
-// Design: one thread per pool column, looping over the parts in order. The
-// JAX kernel runs a grid of (column block, part) with the part fastest and
-// read-modify-writes the slot's acc and done rows across parts; here the
-// loop is inside the thread, so those rows are plain registers and need no
-// atomics, and the sum order is the JAX kernel's part order. A dead active
-// path is not traced; its scratch is cleaned (thr 0, prev -1) as the JAX
-// bounce does in any block with a live lane.
+// What bounds it on this card: FP32 work in the triangle distance tests
+// (no matrix product, so neither wgmma nor the tensor cores apply; the TPU
+// kernel's one-hot MXU table read stays unported) and the divergence of a
+// warp whose lanes need different tiles: a warp executes the union of its
+// lanes' tiles. One thread per column, walking the parts in turn, had 68%
+// of its lane slots on a live bounce and 17% of the triangle rows it
+// executed needed by a lane (scripts/k3_coherence.py, PERF.md).
 //
-// What bounds it on this card: the full-scene intersector's FP32 work for
-// each live part (the base set plus the Morton tiles the ray can enter
-// closer than its best hit), and divergence between lanes with different
-// numbers of live parts and candidate tiles. Each column is read once and
-// written once, coalesced across the warp.
+// Design: a persistent grid (SMs x resident blocks: one block of 1,024
+// threads an SM, 64 registers a thread), each block looping over chunks of
+// `window` (1,024) pool columns. Per chunk:
+//  1. load: one thread per column reads the live flags coalesced (part 0:
+//     ROW_ALIVE > 0; part j: BUF_STATE == 1); a warp scan and a block scan
+//     pack the live (column, part) items into shared memory in column order,
+//     each with its sort key, the tiles its ray's line enters (the slab test
+//     without the distance cull, the first KEY_TILES tiles: every tile of a
+//     scene whose table fits in shared memory up to 32 tiles, a prefix
+//     beyond). The mask comes within 3 points of a key of the tiles a ray
+//     really tests in the share of useful rows; a key of the nearest
+//     entered tile does worse (scripts/k3_coherence.py, PERF.md);
+//  2. sort: a bitonic sort of the chunk's items by key in shared memory, so
+//     the lanes of a warp enter the same tiles; warp 0 then orders the
+//     groups of 32 sorted items by how many tiles they enter, most first;
+//  3. trace: each warp takes the next group until none is left, gathers
+//     its items' state (the chunk's columns were just read, so from L2),
+//     bounces them and writes their parts' state rows; the acc and whether
+//     the path lives go to the item's slot in shared memory. The per-lane
+//     cull is exactly isect_full's, so a lane's result does not depend on
+//     its warp;
+//  4. columns: one thread per column adds the parts' acc in part order 0,
+//     1, 2, 3, bumps done, and writes every row that no item wrote, once.
+// The compact hit-test table (KernelScene.hit, [T, 20], 67 KB for mesh), the
+// spheres, bounding spheres and tile AABBs are staged into dynamic shared
+// memory once per block, the table with 1-D TMA bulk copies completing on
+// an mbarrier that the block first waits on before its first trace, so the
+// copy overlaps the first chunk's load and sort. A scene whose tables do not
+// fit beside the chunk's arrays in a block's shared memory (a compact table
+// above ~150 KB on an H100) reads its rows through the read-only path
+// instead (GlobalRows, chosen in pt_resolve_pool_config from the scene's
+// size and the card's limit, not on failure); a launch the card refuses
+// is reported, never retried another way. The chunk's loads are not
+// overlapped with the previous chunk's trace: one block holds the SM.
 //
 // Random numbers: the counter generator keyed by (seed, pixel, the part's
 // own sample row, depth, slot), or injected uniforms[4, parts*n] in the
-// JAX package's part-major layout. Built with --fmad=false it equals the
-// plain version bit for bit.
+// JAX package's part-major layout, indexed by (part, column). Built with
+// --fmad=false it equals the plain version bit for bit.
 
 #include "isect_full.cuh"
 
@@ -45,15 +75,153 @@ constexpr int ROW_O = 0, ROW_D = 3, ROW_THR = 6, ROW_ACC = 9, ROW_ALIVE = 12,
               BUF_THR = 6, BUF_PREV = 9, BUF_DEPTH = 10, BUF_STATE = 11,
               BUF_ROWS = 12, MAX_PARK_K = 3;
 
+// The design's choices, fixed at build time; scripts/ablate_k3.py builds
+// the kernel with others (-D...) to time each part
+#ifndef K3_THREADS
+#define K3_THREADS 1024  // threads a block
+#endif
+#ifndef K3_MIN_BLOCKS
+#define K3_MIN_BLOCKS 1  // resident blocks an SM the registers must allow
+#endif
+#ifndef K3_WINDOW
+#define K3_WINDOW 1024  // pool columns a chunk (a power of two, 32 .. 4096)
+#endif
+#ifndef K3_SORT
+#define K3_SORT 1  // 0: trace each chunk's items in column order
+#endif
+#ifndef K3_GROUP_ORDER
+#define K3_GROUP_ORDER 1  // 1: warps take the groups with most key tiles first
+#endif
+#ifndef K3_SHARED_TABLE
+#define K3_SHARED_TABLE 1  // 0: every scene reads its rows from device memory
+#endif
+constexpr int WARPS = K3_THREADS / 32;
+constexpr int MAX_PARTS = MAX_PARK_K + 1;  // an item is (part << 14) | column
+constexpr int KEY_TILES = 32;
+constexpr int MAX_WINDOW = 4096;  // columns a chunk (14 bits of an item)
+static_assert(K3_WINDOW >= 32 && K3_WINDOW <= MAX_WINDOW &&
+                  (K3_WINDOW & (K3_WINDOW - 1)) == 0,
+              "K3_WINDOW: a power of two, 32 .. 4096");
+static_assert(K3_THREADS % 32 == 0 && K3_THREADS <= 1024, "K3_THREADS");
+constexpr uint32_t BULK_PIECE = 32768;  // bytes a TMA bulk copy
+
+__host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
+
+// Dynamic shared memory of a block, in bytes from its start. For each of
+// the chunk's window * MAX_PARTS item slots: a key and an item, by packed
+// position; the acc and whether the path lives, by slot (part-major: part *
+// window + column in chunk). 19 bytes a slot; with the mesh table and 1,024
+// columns a chunk, 147 KB: one block of 1,024 threads an SM.
+struct Layout {
+  int hit, sph, bnd, tiles, keys, acc, vals, lives, live, bytes;
+};
+
+__host__ __device__ inline Layout layout(int n_tri, int n_sph, int n_bnd,
+                                         int n_tiles, bool shared_table) {
+  constexpr int window = K3_WINDOW;
+  Layout l;
+  int at = 0;
+  l.hit = at;
+  if (shared_table) at += align16(n_tri * HIT_F * 4);
+  l.sph = at;
+  if (shared_table) at += align16(n_sph * SPH_F * 4);
+  l.bnd = at;
+  if (shared_table) at += align16(n_bnd * 4 * 4);
+  l.tiles = at;
+  if (shared_table) at += align16(n_tiles * TILE_F * 4);
+  const int slots = window * MAX_PARTS;
+  l.keys = at;
+  at += slots * 4;
+  l.acc = at;
+  at += slots * 12;
+  l.vals = at;
+  at += slots * 2;
+  l.lives = at;
+  at += slots;
+  l.live = at;
+  at += align16(window);
+  l.bytes = at;
+  return l;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: arm the mbarrier and copy `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory with TMA bulk
+// copies that complete on it
+__device__ __forceinline__ void stage_bulk(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1));
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+  const char* s = static_cast<const char*>(src);
+  const uint32_t d = smem_u32(dst);
+  for (uint32_t off = 0; off < bytes; off += BULK_PIECE) {
+    const uint32_t len = bytes - off < BULK_PIECE ? bytes - off : BULK_PIECE;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(d + off),
+        "l"(s + off), "r"(len), "r"(b)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void wait_bulk(uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t ok = 0;
+  while (!ok)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
+        "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(b), "r"(0)
+        : "memory");
+}
+
+// First row of a part's state: the active path's rows, or buffer j-1's
+__device__ __forceinline__ int part_base(int part) {
+  return part == 0 ? ROW_O : V3_BUF_BASE + (part - 1) * BUF_ROWS + BUF_O;
+}
+// Offsets from part_base: o, d, thr are at 0, 3, 6 in both layouts
+__device__ __forceinline__ int prev_row(int part) {
+  return part == 0 ? ROW_PREV : part_base(part) + BUF_PREV;
+}
+__device__ __forceinline__ int depth_row(int part) {
+  return part == 0 ? ROW_DEPTH : part_base(part) + BUF_DEPTH;
+}
+
+// The tiles (of the first KEY_TILES) whose AABB the ray's line enters
+template <class R>
+__device__ __forceinline__ uint32_t entry_key(const FullScene& sc,
+                                              const float o[3],
+                                              const float d[3]) {
+  float inv[3];
+  inv_dir(d, inv);
+  uint32_t key = 0u;
+  const int nt = sc.n_tiles < KEY_TILES ? sc.n_tiles : KEY_TILES;
+  for (int c = 0; c < nt; ++c) {
+    float t_en;
+    if (tile_slab<R>(sc.tiles + c * TILE_F, o, inv, t_en)) key |= 1u << c;
+  }
+  return key;
+}
+
 // One bounce of a live path. Returns whether it lives on; o, d, thr, acc,
 // prev and depth are updated in place.
+template <class R>
 __device__ __forceinline__ bool bounce(const FullScene& sc, float o[3],
                                        float d[3], float thr[3], float acc[3],
                                        float& prev, float& depth,
                                        const float u[4], int max_depth,
                                        int rr_start_depth) {
   Hit h;
-  isect_full(sc, o, d, prev, true, h);
+  isect_full<R>(sc, o, d, prev, true, h);
   const float new_depth = depth + 1.0f;
   bool alive_new = false;
   float dn[3], thr_new[3];
@@ -73,124 +241,351 @@ __device__ __forceinline__ bool bounce(const FullScene& sc, float o[3],
   return alive_new;
 }
 
-__global__ void __launch_bounds__(THREADS)
-resolve_pool_kernel(FullScene sc, const float* __restrict__ in,
+template <class R>
+__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
+resolve_pool_kernel(FullScene g, const float* __restrict__ in,
                     float* __restrict__ out, int n, int rows, int park_k,
                     int parts, uint32_t seed, int max_depth,
                     int rr_start_depth, const float* __restrict__ uniforms,
                     int* __restrict__ counts_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  constexpr int window = K3_WINDOW;
+  constexpr bool kShared = R::F == HIT_F;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t table_bar;
+  __shared__ int warp_sum[WARPS];
+  __shared__ int next_item;
+  __shared__ uint16_t group_order[K3_WINDOW * MAX_PARTS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Layout lay =
+      layout(g.n_tri, g.n_sph, g.n_bnd, g.n_tiles, kShared);
+  const int slots = window * MAX_PARTS;
+  uint32_t* keys = reinterpret_cast<uint32_t*>(smem + lay.keys);
+  float* acc_out = reinterpret_cast<float*>(smem + lay.acc);  // [3][slots]
+  uint16_t* vals = reinterpret_cast<uint16_t*>(smem + lay.vals);
+  uint8_t* lives = smem + lay.lives;
+  uint8_t* live = smem + lay.live;
+
+  FullScene sc = g;
+  if constexpr (kShared) {
+    float* s_hit = reinterpret_cast<float*>(smem + lay.hit);
+    float* s_sph = reinterpret_cast<float*>(smem + lay.sph);
+    float* s_bnd = reinterpret_cast<float*>(smem + lay.bnd);
+    float* s_tiles = reinterpret_cast<float*>(smem + lay.tiles);
+    if (tid == 0)
+      stage_bulk(s_hit, g.hit, static_cast<uint32_t>(g.n_tri * HIT_F * 4),
+                 &table_bar);
+    for (int i = tid; i < g.n_sph * SPH_F; i += K3_THREADS)
+      s_sph[i] = g.sph[i];
+    for (int i = tid; i < g.n_bnd * 4; i += K3_THREADS) s_bnd[i] = g.bnd[i];
+    for (int i = tid; i < g.n_tiles * TILE_F; i += K3_THREADS)
+      s_tiles[i] = g.tiles[i];
+    sc.hit = s_hit;
+    sc.sph = s_sph;
+    sc.bnd = s_bnd;
+    sc.tiles = s_tiles;
+  }
+  __syncthreads();
+  bool table_ready = !kShared;
+
   const size_t N = static_cast<size_t>(n);
-  auto at = [&](int r) { return in[r * N + i]; };
-  auto put = [&](int r, float v) { out[r * N + i] = v; };
   const int jax_rows = park_k ? V3_BUF_BASE + park_k * BUF_ROWS : V2_ROWS;
-  const uint32_t pkey = pixel_key(seed, static_cast<int>(at(V2_ROW_PIX)));
   const size_t u_stride = static_cast<size_t>(parts) * N;
+  const int n_chunks = (n + window - 1) / window;
 
-  auto uniforms4 = [&](int part, float sample, float depth, float u[4]) {
-    const uint32_t key =
-        mix32(pkey, static_cast<uint32_t>(static_cast<int>(sample)));
-    for (int k = 0; k < 4; ++k)
-      u[k] = uniforms != nullptr
-                 ? uniforms[k * u_stride + static_cast<size_t>(part) * N + i]
-                 : draw(nullptr, 0, 0, key, static_cast<int>(depth), k);
-  };
-
-  for (int r = 0; r < rows; ++r) put(r, at(r));  // rows no part writes
-
-  // part 0: the active path
-  float o[3], d[3], thr[3], acc[3];
-  for (int k = 0; k < 3; ++k) {
-    o[k] = at(ROW_O + k);
-    d[k] = at(ROW_D + k);
-    thr[k] = at(ROW_THR + k);
-    acc[k] = at(ROW_ACC + k);
-  }
-  float prev = at(ROW_PREV), depth = at(ROW_DEPTH);
-  float done = at(V2_ROW_DONE);
-  int counts = 0;
-  bool alive = false;
-  if (at(ROW_ALIVE) > 0.0f) {
-    float u[4];
-    uniforms4(0, at(jax_rows), depth, u);
-    alive = bounce(sc, o, d, thr, acc, prev, depth, u, max_depth,
-                   rr_start_depth);
-    counts += 1;
-    if (!alive) done += 1.0f;
-  } else {
-    for (int k = 0; k < 3; ++k) thr[k] = 0.0f;
-    prev = -1.0f;
-  }
-  for (int k = 0; k < 3; ++k) {
-    put(ROW_O + k, o[k]);
-    put(ROW_D + k, d[k]);
-    put(ROW_THR + k, thr[k]);
-  }
-  put(ROW_ALIVE, alive ? 1.0f : 0.0f);
-  put(ROW_PREV, prev);
-  put(ROW_DEPTH, depth);
-
-  // parts 1..: frozen parked paths, acc summed into the slot in part order
-  for (int j = 1; j < parts; ++j) {
-    const int b = V3_BUF_BASE + (j - 1) * BUF_ROWS;
-    const float ps = at(b + BUF_STATE);
-    if (!(ps > 0.5f && ps < 1.5f)) continue;
-    float bo[3], bd[3], bthr[3], bacc[3] = {0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < 3; ++k) {
-      bo[k] = at(b + BUF_O + k);
-      bd[k] = at(b + BUF_D + k);
-      bthr[k] = at(b + BUF_THR + k);
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int base = chunk * window;
+    if (tid == 0) next_item = 0;
+    // ---- 1. load: pack the live (column, part) items in column order ----
+    int total = 0;
+    for (int c0 = 0; c0 < window; c0 += K3_THREADS) {
+      const int cl = c0 + tid;
+      const int col = base + cl;
+      uint32_t mask = 0u;
+      if (cl < window && col < n) {
+        if (in[ROW_ALIVE * N + col] > 0.0f) mask = 1u;
+        for (int j = 1; j < parts; ++j) {
+          const float ps = in[(part_base(j) - BUF_O + BUF_STATE) * N + col];
+          if (ps > 0.5f && ps < 1.5f) mask |= 1u << j;
+        }
+      }
+      if (cl < window) live[cl] = static_cast<uint8_t>(mask);
+      const int cnt = __popc(mask);
+      int incl = cnt;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      if (lane == 31) warp_sum[warp] = incl;
+      __syncthreads();
+      int pos = total + incl - cnt;
+      for (int w = 0; w < WARPS; ++w) {
+        const int v = warp_sum[w];
+        if (w < warp) pos += v;
+        total += v;
+      }
+      for (int j = 0; j < parts; ++j) {
+        if (!((mask >> j) & 1u)) continue;
+        const int b = part_base(j);
+        float o[3], d[3];
+        for (int k = 0; k < 3; ++k) {
+          o[k] = in[(b + k) * N + col];
+          d[k] = in[(b + 3 + k) * N + col];
+        }
+        keys[pos] = entry_key<R>(sc, o, d);
+        vals[pos] = static_cast<uint16_t>((j << 14) | cl);
+        ++pos;
+      }
+      __syncthreads();  // warp_sum is read before the next round writes it
     }
-    float bprev = at(b + BUF_PREV), bdepth = at(b + BUF_DEPTH);
-    float u[4];
-    uniforms4(j, at(jax_rows + j), bdepth, u);
-    const bool balive = bounce(sc, bo, bd, bthr, bacc, bprev, bdepth, u,
-                               max_depth, rr_start_depth);
-    counts += 1;
-    for (int k = 0; k < 3; ++k) {
-      put(b + BUF_O + k, bo[k]);
-      put(b + BUF_D + k, bd[k]);
-      put(b + BUF_THR + k, bthr[k]);
-      acc[k] = acc[k] + bacc[k];
+
+    // ---- 2. sort the chunk's items by key (bitonic, padded to 2^k) ----
+    if (K3_SORT && total > 1 && g.n_tiles > 0) {
+      int len = 32;
+      while (len < total) len <<= 1;
+      for (int i = total + tid; i < len; i += K3_THREADS) keys[i] = 0xffffffffu;
+      __syncthreads();
+      for (int k = 2; k <= len; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int i = tid; i < len; i += K3_THREADS) {
+            const int ixj = i ^ j;
+            if (ixj > i) {
+              const uint32_t a = keys[i], b = keys[ixj];
+              if ((a > b) == ((i & k) == 0)) {
+                keys[i] = b;
+                keys[ixj] = a;
+                const uint16_t t = vals[i];
+                vals[i] = vals[ixj];
+                vals[ixj] = t;
+              }
+            }
+          }
+          __syncthreads();
+        }
+      }
     }
-    put(b + BUF_PREV, bprev);
-    put(b + BUF_DEPTH, bdepth);
-    put(b + BUF_STATE, balive ? 2.0f : 0.0f);
-    if (!balive) done += 1.0f;
+    // the groups of 32 sorted items, in the order warps take them: by the
+    // number of tiles the group's rays enter, most first, so that the
+    // chunk's last groups are short (a counting sort by warp 0)
+    const int groups = (total + 31) / 32;
+    if (K3_GROUP_ORDER && tid < 32) {
+      int start[33];
+      for (int c = 0; c <= 32; ++c) start[c] = 0;
+      for (int g = 0; g < groups; ++g) {
+        const int i = g * 32 + lane;
+        const uint32_t k = __reduce_or_sync(0xffffffffu,
+                                            i < total ? keys[i] : 0u);
+        if (lane == 0) ++start[32 - __popc(k)];
+      }
+      if (lane == 0) {
+        int at = 0;
+        for (int c = 0; c <= 32; ++c) {
+          const int cnt = start[c];
+          start[c] = at;
+          at += cnt;
+        }
+      }
+      for (int g = 0; g < groups; ++g) {
+        const int i = g * 32 + lane;
+        const uint32_t k = __reduce_or_sync(0xffffffffu,
+                                            i < total ? keys[i] : 0u);
+        if (lane == 0) group_order[start[32 - __popc(k)]++] = g;
+      }
+    }
+    if (!table_ready) {
+      wait_bulk(&table_bar);
+      table_ready = true;
+    }
+    __syncthreads();
+
+    // ---- 3. trace every item: a warp takes the next group of 32 until
+    // none are left, so warps that drew cheap groups take more ----
+    for (;;) {
+      int q = 0;
+      if (lane == 0) q = atomicAdd(&next_item, 1);
+      q = __shfl_sync(0xffffffffu, q, 0);
+      if (q >= groups) break;
+      const int i = (K3_GROUP_ORDER ? group_order[q] : q) * 32 + lane;
+      if (i >= total) continue;
+      const int v = vals[i];
+      const int cl = v & 0x3fff;
+      const int part = v >> 14;
+      const int slot = part * window + cl;
+      const int col = base + cl;
+      const int b = part_base(part);
+      float o[3], d[3], thr[3], acc[3];
+      for (int k = 0; k < 3; ++k) {
+        o[k] = in[(b + k) * N + col];
+        d[k] = in[(b + 3 + k) * N + col];
+        thr[k] = in[(b + 6 + k) * N + col];
+        acc[k] = part == 0 ? in[(ROW_ACC + k) * N + col] : 0.0f;
+      }
+      float prev = in[prev_row(part) * N + col];
+      float depth = in[depth_row(part) * N + col];
+      float u[4];
+      const uint32_t key = mix32(
+          pixel_key(seed, static_cast<int>(in[V2_ROW_PIX * N + col])),
+          static_cast<uint32_t>(
+              static_cast<int>(in[(jax_rows + part) * N + col])));
+      for (int k = 0; k < 4; ++k)
+        u[k] = uniforms != nullptr
+                   ? uniforms[k * u_stride + static_cast<size_t>(part) * N + col]
+                   : draw(nullptr, 0, 0, key, static_cast<int>(depth), k);
+      const bool alive = bounce<R>(sc, o, d, thr, acc, prev, depth, u,
+                                   max_depth, rr_start_depth);
+      for (int k = 0; k < 3; ++k) {
+        out[(b + k) * N + col] = o[k];
+        out[(b + 3 + k) * N + col] = d[k];
+        out[(b + 6 + k) * N + col] = thr[k];
+      }
+      out[prev_row(part) * N + col] = prev;
+      out[depth_row(part) * N + col] = depth;
+      if (part == 0)
+        out[ROW_ALIVE * N + col] = alive ? 1.0f : 0.0f;
+      else
+        out[(b - BUF_O + BUF_STATE) * N + col] = alive ? 2.0f : 0.0f;
+      for (int k = 0; k < 3; ++k) acc_out[k * slots + slot] = acc[k];
+      lives[slot] = alive ? 1 : 0;
+    }
+    __syncthreads();
+
+    // ---- 4. per column: acc in part order, done, and the other rows ----
+    for (int cl = tid; cl < window; cl += K3_THREADS) {
+      const int col = base + cl;
+      if (col >= n) continue;
+      const uint32_t mask = live[cl];
+      float acc[3];
+      for (int k = 0; k < 3; ++k) acc[k] = in[(ROW_ACC + k) * N + col];
+      float done = in[V2_ROW_DONE * N + col];
+      for (int j = 0; j < parts; ++j) {
+        if (!((mask >> j) & 1u)) continue;
+        const int slot = j * window + cl;
+        for (int k = 0; k < 3; ++k)
+          acc[k] = j == 0 ? acc_out[k * slots + slot]
+                          : acc[k] + acc_out[k * slots + slot];
+        if (!lives[slot]) done += 1.0f;
+      }
+      for (int r = 0; r < rows; ++r) {
+        float val;
+        if (r >= ROW_ACC && r < ROW_ACC + 3) {
+          val = acc[r - ROW_ACC];
+        } else if (r == V2_ROW_DONE) {
+          val = done;
+        } else if (r < V2_ROW_DONE) {  // the active path's rows
+          if (mask & 1u) continue;  // its item wrote them
+          const bool thr_row = r >= ROW_THR && r < ROW_THR + 3;
+          val = (thr_row || r == ROW_ALIVE) ? 0.0f
+                : r == ROW_PREV            ? -1.0f
+                                           : in[r * N + col];
+        } else {
+          const int j = r >= V3_BUF_BASE && r < jax_rows
+                            ? (r - V3_BUF_BASE) / BUF_ROWS + 1
+                            : 0;
+          if (j && j < parts && ((mask >> j) & 1u)) continue;
+          val = in[r * N + col];
+        }
+        out[r * N + col] = val;
+      }
+      counts_out[col] = __popc(mask);
+    }
+    __syncthreads();  // the next chunk overwrites the shared arrays
   }
-  for (int k = 0; k < 3; ++k) put(ROW_ACC + k, acc[k]);
-  put(V2_ROW_DONE, done);
-  counts_out[i] = counts;
+  if (!table_ready) wait_bulk(&table_bar);  // no copy outlives its block
+}
+
+template <class R>
+cudaError_t configure(size_t smem, int* blocks_per_sm) {
+  auto* fn = resolve_pool_kernel<R>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                    K3_THREADS, smem);
+  if (e == cudaSuccess && *blocks_per_sm < 1) e = cudaErrorInvalidConfiguration;
+  return e;
+}
+
+// Whether the compact table, the small tables and the chunk's arrays fit in
+// the shared memory one block may have on this card
+bool table_fits(int n_sph, int n_bnd, int n_tri, int n_tiles) {
+  int device = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, resolve_pool_kernel<SharedRows>) !=
+          cudaSuccess)
+    return false;
+  const Layout lay = layout(n_tri, n_sph, n_bnd, n_tiles, true);
+  return lay.bytes + static_cast<int>(fa.sharedSizeBytes) <= optin;
 }
 
 }  // namespace
 
+// The launch configuration for a scene: out[0] the dynamic shared memory a
+// block takes (bytes), out[1] resident blocks per SM, out[2] 1 where the
+// compact table is staged in shared memory (else its rows are read from
+// device memory: the scene's tables and the chunk's arrays do not fit in a
+// block's shared memory, or `has_hit` is 0), out[3] the pool columns a
+// chunk. Returns a CUDA error code (cudaErrorInvalidConfiguration: no block
+// fits on an SM).
+extern "C" int pt_resolve_pool_config(int n_sph, int n_bnd, int n_tri,
+                                      int n_tiles, int has_hit, int* out) {
+  const bool shared =
+      K3_SHARED_TABLE && has_hit && table_fits(n_sph, n_bnd, n_tri, n_tiles);
+  const Layout lay = layout(n_tri, n_sph, n_bnd, n_tiles, shared);
+  int blocks = 0;
+  const cudaError_t e =
+      shared ? configure<SharedRows>(lay.bytes, &blocks)
+             : configure<GlobalRows>(lay.bytes, &blocks);
+  out[0] = lay.bytes;
+  out[1] = blocks;
+  out[2] = shared ? 1 : 0;
+  out[3] = K3_WINDOW;
+  return static_cast<int>(e);
+}
+
 // Launch on `stream`. pool_in and pool_out are distinct [rows, n] float32
 // matrices in the port's layout for park_k; parts - 1 <= park_k buffers are
-// resolved. uniforms is NULL for the counter generator, else [4, parts*n].
-// Returns cudaGetLastError().
+// resolved. hit is KernelScene.hit ([n_tri, 20], 16-byte aligned) or NULL
+// for the read-only path. uniforms is NULL for the counter generator, else
+// [4, parts*n]. Returns cudaGetLastError(), or the error that refused the
+// configuration.
 extern "C" int pt_resolve_pool(const float* sph, int n_sph, const float* bnd,
                                int n_bnd, const float* tri, int n_tri,
-                               const float* tiles, int n_tiles, int tile_base,
+                               const float* hit, const float* tiles,
+                               int n_tiles, int tile_base,
                                const float* pool_in, float* pool_out, int n,
                                int park_k, int parts, uint32_t seed,
                                int max_depth, int rr_start_depth,
                                const float* uniforms, int* counts,
                                void* stream) {
   if (n <= 0) return 0;
-  const FullScene sc{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
-                     tile_base};
+  const FullScene sc{sph,   n_sph,   bnd,       n_bnd, tri,
+                     n_tri, tiles,   n_tiles,   tile_base, hit};
   if (!full_scene_ok(sc) || park_k < 0 || park_k > MAX_PARK_K || parts < 1 ||
-      parts > park_k + 1 || pool_in == pool_out)
+      parts > park_k + 1 || pool_in == pool_out ||
+      (hit != nullptr && (reinterpret_cast<uintptr_t>(hit) & 15u)))
     return static_cast<int>(cudaErrorInvalidValue);
+  int cfg[4];
+  const cudaError_t e = static_cast<cudaError_t>(pt_resolve_pool_config(
+      n_sph, n_bnd, n_tri, n_tiles, hit != nullptr, cfg));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int n_chunks = (n + K3_WINDOW - 1) / K3_WINDOW;
+  const int grid = n_chunks < cfg[1] * sms ? n_chunks : cfg[1] * sms;
   const int rows =
       (park_k ? V3_BUF_BASE + park_k * BUF_ROWS : V2_ROWS) + 1 + park_k;
-  const int blocks = (n + THREADS - 1) / THREADS;
-  resolve_pool_kernel<<<blocks, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      sc, pool_in, pool_out, n, rows, park_k, parts, seed, max_depth,
-      rr_start_depth, uniforms, counts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cfg[2])
+    resolve_pool_kernel<SharedRows><<<grid, K3_THREADS, cfg[0], st>>>(
+        sc, pool_in, pool_out, n, rows, park_k, parts, seed, max_depth,
+        rr_start_depth, uniforms, counts);
+  else
+    resolve_pool_kernel<GlobalRows><<<grid, K3_THREADS, cfg[0], st>>>(
+        sc, pool_in, pool_out, n, rows, park_k, parts, seed, max_depth,
+        rr_start_depth, uniforms, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,7 +35,8 @@ class Built:
     lib: ctypes.CDLL
     path: str
     seconds: float  # compile time, 0.0 when the library was already built
-    log: str  # nvcc's output (register and spill report from -Xptxas -v)
+    log: str  # nvcc's output (register and spill report from -Xptxas -v),
+    # kept beside the library as <library>.log
 
 
 def find_nvcc() -> str:
@@ -57,7 +58,7 @@ def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
             digest.update(fh.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
-    seconds, log = 0.0, ""
+    seconds = 0.0
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -70,8 +71,14 @@ def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) building {source}:\n{proc.stderr}")
-        log = proc.stdout + proc.stderr
+        with open(f"{tmp}.log", "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
+        os.replace(f"{tmp}.log", f"{out}.log")
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    log = ""
+    if os.path.exists(f"{out}.log"):
+        with open(f"{out}.log") as fh:
+            log = fh.read()
     return Built(ctypes.CDLL(out), out, seconds, log)
 
 

@@ -108,6 +108,7 @@ BLOCKED_GROUP = 128
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
+RESOLVE_SOURCE = os.path.join(CSRC_DIR, "portal_resolve.cu")
 
 
 def buf_row(j: int, r: int = 0) -> int:
@@ -534,6 +535,20 @@ def trace_cheap_blocked_plain(pc: PortalConsts, pool: torch.Tensor, *,
     return out, counts
 
 
+def live_items(pool: torch.Tensor, *, parts: int, park_k: int):
+    """The (column, part) items K3 bounces, in the order its load phase
+    packs them: column by column, parts in order within a column. Part 0
+    is live where ROW_ALIVE > 0, part j ≥ 1 where buffer j-1 is frozen
+    (BUF_STATE 1). Returns (columns, parts), two [L] int64 tensors."""
+    _check_pool(pool, park_k)
+    live = [pool[ROW_ALIVE] > 0.0]
+    for j in range(1, parts):
+        ps = pool[buf_row(j - 1, BUF_STATE)]
+        live.append((ps > 0.5) & (ps < 1.5))
+    cols, part = torch.nonzero(torch.stack(live, dim=1), as_tuple=True)
+    return cols, part
+
+
 def trace_resolve_pool_plain(ks: KernelScene, pool: torch.Tensor, *,
                              seed: int, parts: int, park_k: int,
                              max_depth: int = 12, rr_start_depth: int = 5,
@@ -647,20 +662,29 @@ def _cheap_library(fmad: bool = True):
 
 
 @functools.lru_cache(maxsize=2)
-def _resolve_library(fmad: bool = True):
-    built = load_kernel(os.path.join(CSRC_DIR, "portal_resolve.cu"), fmad)
+def resolve_library(fmad: bool = True):
+    """``csrc/portal_resolve.cu`` (K3) built and bound; ``fmad=False``
+    builds it without FMA contraction."""
+    return bind_resolve(load_kernel(RESOLVE_SOURCE, fmad))
+
+
+def bind_resolve(built):
+    """Declare the C interface of a build of ``csrc/portal_resolve.cu``."""
     fn = built.lib.pt_resolve_pool
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int,  # sph, S
         ctypes.c_void_p, ctypes.c_int,  # bnd, M
-        ctypes.c_void_p, ctypes.c_int,  # tri, T
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # tri, T, hit
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pool in, out, n
         ctypes.c_int, ctypes.c_int, ctypes.c_uint32,  # park_k, parts, seed
         ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts, stream
     ]
+    fn = built.lib.pt_resolve_pool_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return built
 
 
@@ -711,14 +735,34 @@ def trace_cheap_regen(pc: PortalConsts, cam: CameraConsts, pool: torch.Tensor,
 trace_cheap_regen.launches = 0
 
 
+def resolve_pool_config(ks: KernelScene, *, fmad: bool = True,
+                        library=None) -> dict:
+    """K3's launch configuration on the current card for ``ks``: the
+    dynamic shared memory of a block (bytes), resident blocks per SM,
+    whether the compact table is staged in shared memory (else the scene's
+    tables do not fit beside the chunk's arrays, and its rows are read
+    from device memory) and the pool columns a chunk. Raises if no block
+    fits. ``library``: another build's ``bind_resolve``."""
+    built = library or resolve_library(fmad)
+    out = (ctypes.c_int * 4)()
+    code = built.lib.pt_resolve_pool_config(
+        ks.sph.shape[0], ks.bnd.shape[0], ks.tri.shape[0], ks.tiles.shape[0],
+        1, out)
+    check_launch(built, code, "trace_resolve_pool")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1],
+            "shared_table": bool(out[2]), "window": out[3]}
+
+
 def trace_resolve_pool(ks: KernelScene, pool: torch.Tensor, *, seed: int,
                        parts: int, park_k: int, max_depth: int = 12,
                        rr_start_depth: int = 5,
                        uniforms: torch.Tensor | None = None,
-                       fmad: bool = True):
+                       fmad: bool = True, library=None):
     """K3 (see trace_resolve_pool_plain for the contract). CPU tensors run
     the plain version; CUDA tensors launch ``csrc/portal_resolve.cu`` or
-    raise. ``fmad=False`` builds the kernel without FMA contraction."""
+    raise. ``fmad=False`` builds the kernel without FMA contraction;
+    ``library`` launches another build's ``bind_resolve`` instead
+    (scripts/ablate_k3.py)."""
     dev = pool.device
     kw = dict(seed=seed, parts=parts, park_k=park_k, max_depth=max_depth,
               rr_start_depth=rr_start_depth, uniforms=uniforms)
@@ -731,20 +775,20 @@ def trace_resolve_pool(ks: KernelScene, pool: torch.Tensor, *, seed: int,
         raise ValueError(f"parts must be in 1..{park_k + 1}, got {parts}")
     n = pool.shape[1]
     _check_table(uniforms, 4, parts * n)
-    tensors = [ks.sph, ks.bnd, ks.tri, ks.tiles, pool]
+    tensors = [ks.sph, ks.bnd, ks.tri, ks.hit, ks.tiles, pool]
     _device_args(dev, tensors + ([uniforms] if uniforms is not None else []),
                  "scene, pool and uniforms")
     out = torch.empty_like(pool)
     counts = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out, counts
-    built = _resolve_library(fmad)
+    built = library or resolve_library(fmad)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = built.lib.pt_resolve_pool(
             ks.sph.data_ptr(), ks.sph.shape[0], _ptr(ks.bnd), ks.bnd.shape[0],
-            ks.tri.data_ptr(), ks.tri.shape[0], _ptr(ks.tiles),
-            ks.tiles.shape[0], ks.tile_base,
+            ks.tri.data_ptr(), ks.tri.shape[0], ks.hit.data_ptr(),
+            _ptr(ks.tiles), ks.tiles.shape[0], ks.tile_base,
             pool.data_ptr(), out.data_ptr(), n, park_k, parts,
             int(seed) & rng.MASK32, int(max_depth), int(rr_start_depth),
             _ptr(uniforms), counts.data_ptr(), stream)

@@ -10,7 +10,8 @@ Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
 - ``kernel_scene_buffers`` (host, numpy, byte-equal to the JAX tables) and
   ``KernelScene``, its device form: the table-driven scene of any size;
 - ``isect_full_plain``: the full-scene intersector (the JAX ``make_isect``)
-  that K3 and K4 share, ``csrc/isect_full.cuh`` on the card;
+  that K3 and K4 share, ``csrc/isect_full.cuh`` on the card, and
+  ``tile_entry_keys``, K3's sort key (its slab test without the cull);
 - K4 ``trace_regen_prim`` (``csrc/trace_regen_prim.cu``) and its plain
   version ``trace_regen_prim_plain``: the regenerative loop over the
   full scene, the JAX package's ``pallasr:`` route;
@@ -320,6 +321,12 @@ TRI_F = 32
 # T_GATE: -1 ungated; m >= 0 needs bounding sphere m; -2 never valid (a
 # gate-matrix column of zeros: padding rows under the pre-test)
 GATE_NONE, GATE_NEVER = -1.0, -2.0
+# The compact hit-test rows (KernelScene.hit [T, HIT_F]) that K3 stages into
+# shared memory: the 19 columns of a TRI_F row that the distance test reads
+# (n, e1, e2, e2×a, a×e1, a·n, then quad flag, packed id, gate) and a zero
+# pad to 80 bytes; csrc/isect_full.cuh H_* mirrors it
+HIT_COLS = tuple(range(T_N, T_NA + 1)) + (T_QUAD, T_PID, T_GATE)
+HIT_F = 20
 
 _SPH_KEYS = "sph_center sph_rad2 sph_color sph_emis sph_rtype sph_order".split()
 _BND_KEYS = "bnd_center bnd_rad2 gate".split()
@@ -560,7 +567,10 @@ class KernelScene:
       rows ``tile_base + c*TRI_TILE ..`` and rows below ``tile_base`` are
       the always-tested base set (``tile_base`` is 0 without tiles);
     - ``aabb_lo``, ``aabb_inv_span``: the scene box (host floats), which
-      K9's sort keys grid.
+      K9's sort keys grid;
+    - ``hit`` [T, HIT_F]: ``tri``'s HIT_COLS and a zero pad, the compact
+      rows K3 reads its distance tests from (built from ``tri`` when not
+      given).
     """
 
     sph: torch.Tensor
@@ -570,11 +580,20 @@ class KernelScene:
     tile_base: int
     aabb_lo: tuple = (0.0, 0.0, 0.0)
     aabb_inv_span: tuple = (1.0, 1.0, 1.0)
+    hit: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.hit is None:
+            hit = torch.zeros((self.tri.shape[0], HIT_F), dtype=F32,
+                              device=self.tri.device)
+            hit[:, :len(HIT_COLS)] = self.tri[:, list(HIT_COLS)]
+            object.__setattr__(self, "hit", hit)
 
     def to(self, device) -> "KernelScene":
         return KernelScene(self.sph.to(device), self.bnd.to(device),
                            self.tri.to(device), self.tiles.to(device),
-                           self.tile_base, self.aabb_lo, self.aabb_inv_span)
+                           self.tile_base, self.aabb_lo, self.aabb_inv_span,
+                           self.hit.to(device))
 
 
 def kernel_scene_from_jax(bufs: dict) -> KernelScene:
@@ -651,7 +670,42 @@ def _sphere_t(cen, rad2, o, d):
     return torch.where((det < 0.0) | (rad2 <= 0.0), BIG, t)
 
 
-def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None):
+def _inv_dir(d):
+    return [1.0 / torch.where(torch.abs(d[k]) < 1e-30, 1e-30, d[k])
+            for k in range(3)]
+
+
+def _tile_slab(box, o, inv):
+    """The slab test of one tile AABB ``box`` [6] (lo, hi): (entry distance
+    t_en [N], whether the ray's line enters the box ahead of it [N])."""
+    n = o[0].shape[0]
+    t_en = torch.zeros(n, dtype=F32, device=o[0].device)
+    t_ex = torch.full((n,), BIG, dtype=F32, device=o[0].device)
+    for k in range(3):
+        ta = (box[k] - o[k]) * inv[k]
+        tb = (box[3 + k] - o[k]) * inv[k]
+        t_en = torch.maximum(t_en, torch.minimum(ta, tb))
+        t_ex = torch.minimum(t_ex, torch.maximum(ta, tb))
+    return t_en, (t_ex >= t_en) & (t_ex >= 0.0)
+
+
+KEY_TILES = 32  # tiles a tile-entry key holds (csrc/portal_resolve.cu)
+
+
+def tile_entry_keys(ks: KernelScene, o, d) -> torch.Tensor:
+    """K3's sort key of each ray: bit c set where the ray enters tile c's
+    AABB (``isect_full_plain``'s slab test without the distance cull), for
+    the first KEY_TILES tiles. o, d: 3 lists of [N] f32 → [N] int64 (0
+    without tiles). Known before any triangle is tested."""
+    key = torch.zeros(o[0].shape[0], dtype=torch.int64, device=o[0].device)
+    inv = _inv_dir(d)
+    for c in range(min(ks.tiles.shape[0], KEY_TILES)):
+        key |= _tile_slab(ks.tiles[c], o, inv)[1].to(torch.int64) << c
+    return key
+
+
+def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
+                     tiles_out=None):
     """Closest hit against the whole table-driven scene: the plain torch
     version of ``trace_kernel.make_isect`` (JAX) and of
     ``csrc/isect_full.cuh``. o, d: 3 lists of [N] f32; prev [N] packed
@@ -674,9 +728,10 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None):
 
     ``work`` (a dict, optional) counts the tests that live lanes need:
     "sph" sphere tests, "tri" triangle rows, "slab" tile AABB tests.
+    ``tiles_out`` (a list, optional) receives each tile's [N] bool mask of
+    the lanes that test its rows.
     """
     n = o[0].shape[0]
-    dev = o[0].device
     prevf = prev.to(F32)
     oc = [x[:, None] for x in o]
     dc = [x[:, None] for x in d]
@@ -743,19 +798,13 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None):
         work["tri"] = work.get("tri", 0) + live * (ks.tile_base if n_tiles else T)
         work["slab"] = work.get("slab", 0) + live * n_tiles
     if n_tiles:
-        inv = [1.0 / torch.where(torch.abs(d[k]) < 1e-30, 1e-30, d[k])
-               for k in range(3)]
-        tiles = ks.tiles
+        inv = _inv_dir(d)
         for c in range(n_tiles):
-            t_en = torch.zeros(n, dtype=F32, device=dev)
-            t_ex = torch.full((n,), BIG, dtype=F32, device=dev)
-            for k in range(3):
-                ta = (tiles[c, k] - o[k]) * inv[k]
-                tb = (tiles[c, 3 + k] - o[k]) * inv[k]
-                t_en = torch.maximum(t_en, torch.minimum(ta, tb))
-                t_ex = torch.minimum(t_ex, torch.maximum(ta, tb))
+            t_en, enters = _tile_slab(ks.tiles[c], o, inv)
             bound = torch.minimum(d_t, d_s)
-            cand = (t_ex >= t_en) & (t_ex >= 0.0) & alive & (t_en < bound)
+            cand = enters & alive & (t_en < bound)
+            if tiles_out is not None:
+                tiles_out.append(cand)
             if work is not None:
                 work["tri"] += int(cand.sum()) * TRI_TILE
             if not bool(cand.any()):

@@ -8,7 +8,9 @@ it as
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Kernels: K1 trace_regen (cornell, three-spheres, a gated scene), K4
-trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh),
+trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
+K3 also on pools with every mix of live parts, with none, and on a scene
+whose table is too large for shared memory),
 K5 and K6 trace_stepped (cornell and mesh preview rays) and the progressive
 preview on the card; K7 trace_resolve, K8 trace_cheap_blocked and K9
 trace_sorted (mesh) and the v1 and glue portal routes.
@@ -21,6 +23,7 @@ operation, which parts a few long closed-box trajectories. A build with
 --fmad=false is held to bit equality.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -199,6 +202,98 @@ def test_cuda_portal_kernels_match_plain(cuda_device):
             assert agree >= 0.995, agree
             pool = p_pool
     assert float(pool[portal.V2_ROW_DONE].sum()) > 0
+
+
+def _k3_pool(dev, res=Resolution(96, 128), cycles=2):
+    """(KernelScene, a mesh park-3 pool at K3's input after ``cycles``
+    cycles) from the plain versions."""
+    prep = prepare_render(_scene("mesh"), res, dev)
+    pool = rportal.make_pool_v2(res.num_pixels, rportal._round_block(
+        res.num_pixels), 16, park_k=3, device=dev)
+    cheap = dict(seed=3, quota=16, sample_base=0, step_cap=64, park_k=3)
+    for cyc in range(cycles + 1):
+        pool = portal.trace_cheap_regen_plain(prep.portal, prep.cam, pool,
+                                              **cheap)[0]
+        if cyc < cycles:
+            pool = portal.trace_resolve_pool_plain(prep.kscene, pool, seed=3,
+                                                   parts=4, park_k=3)[0]
+    return prep.kscene, pool
+
+
+def _live_mask(pool, parts):
+    cols, part = portal.live_items(pool, parts=parts, park_k=3)
+    mask = torch.zeros(pool.shape[1], dtype=torch.int64, device=pool.device)
+    return mask.index_add_(0, cols, 1 << part)
+
+
+def _k3_equal(ks, pool, kw):
+    """K3 --fmad=false equals the plain version bit for bit; the default
+    build agrees on 99.5% of columns."""
+    plain = portal.trace_resolve_pool_plain(ks, pool, **kw)
+    exact = portal.trace_resolve_pool(ks, pool, fmad=False, **kw)
+    kern = portal.trace_resolve_pool(ks, pool, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(exact[0], plain[0]) and torch.equal(exact[1], plain[1])
+    agree = float(((kern[0] - plain[0]).abs().sum(dim=0) < 1e-3).float().mean())
+    assert agree >= 0.995, agree
+    assert torch.equal(kern[1], plain[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["counter", "table"])
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_cuda_k3_every_mix_of_live_parts(cuda_device, source, parts):
+    """The packed, sorted K3 on a pool whose columns hold every mix of live
+    parts (column i keeps the parts of i mod 16 that are live), of a width
+    that is no multiple of the kernel's chunk, under both uniform sources."""
+    ks, pool = _k3_pool(cuda_device)
+    pool = pool[:, :pool.shape[1] - 100].contiguous()
+    n = pool.shape[1]
+    want = torch.arange(n, device=cuda_device) % 16
+    pool[portal.ROW_ALIVE] = torch.where(want & 1 > 0, pool[portal.ROW_ALIVE], 0.0)
+    for j in range(1, 4):
+        r = portal.buf_row(j - 1, portal.BUF_STATE)
+        pool[r] = torch.where((want >> j) & 1 > 0, pool[r], 0.0)
+    assert n % portal.resolve_pool_config(ks)["window"]
+    assert set(_live_mask(pool, 4).tolist()) == set(range(16))
+    uni = None
+    if source == "table":
+        uni = torch.from_numpy(np.random.default_rng(2).random(
+            (4, parts * n), dtype=np.float32)).to(cuda_device)
+    _k3_equal(ks, pool, dict(seed=3, parts=parts, park_k=3, uniforms=uni))
+
+
+@pytest.mark.cuda
+def test_cuda_k3_pool_with_no_live_item(cuda_device):
+    ks, pool = _k3_pool(cuda_device)
+    pool[portal.ROW_ALIVE] = 0.0
+    for j in range(3):
+        pool[portal.buf_row(j, portal.BUF_STATE)] = 2.0 * (torch.arange(
+            pool.shape[1], device=cuda_device) % 2)
+    _k3_equal(ks, pool, dict(seed=3, parts=4, park_k=3))
+
+
+@pytest.mark.cuda
+def test_cuda_k3_large_table_reads_rows_from_device_memory(cuda_device):
+    """A scene whose compact table does not fit in a block's shared memory
+    beside K3's chunk (mesh's 13 tiles three times over: 2,504 rows, 200
+    KB) takes the read-only path and still equals the plain version; a
+    launch the kernel refuses (a table off its 16-byte alignment) raises."""
+    ks, pool = _k3_pool(cuda_device)
+    tiles = ks.tri[ks.tile_base:]
+    big = trace_kernel.KernelScene(
+        ks.sph, ks.bnd, torch.cat([ks.tri[:ks.tile_base]] + [tiles] * 3),
+        torch.cat([ks.tiles] * 3), ks.tile_base)
+    assert big.hit.numel() * 4 > 200 * 1000
+    assert not portal.resolve_pool_config(big)["shared_table"]
+    assert portal.resolve_pool_config(ks)["shared_table"]
+    _k3_equal(big, pool, dict(seed=3, parts=4, park_k=3))
+    shifted = torch.empty(ks.hit.numel() + 1, device=cuda_device)[1:]
+    bad = dataclasses.replace(ks, hit=shifted.view_as(ks.hit).copy_(ks.hit))
+    before = portal.trace_resolve_pool.launches
+    with pytest.raises(RuntimeError, match="trace_resolve_pool"):
+        portal.trace_resolve_pool(bad, pool, seed=3, parts=4, park_k=3)
+    assert portal.trace_resolve_pool.launches == before
 
 
 @pytest.mark.cuda

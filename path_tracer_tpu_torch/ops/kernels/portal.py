@@ -108,6 +108,7 @@ BLOCKED_GROUP = 128
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
+CHEAP_SOURCE = os.path.join(CSRC_DIR, "portal_cheap.cu")
 RESOLVE_SOURCE = os.path.join(CSRC_DIR, "portal_resolve.cu")
 
 
@@ -274,8 +275,10 @@ def trace_cheap_regen_plain(pc: PortalConsts, cam: CameraConsts,
     Uniforms: the counter generator, or ``uniforms`` [6, n], one row per
     slot of ``rng``, used at every step. ``work`` (a dict, optional) counts
     "scan" live lane-steps (a slab test and a cheap-scene scan each),
-    "shade" shaded hits and "regen" camera rays. Returns (pool', processed
-    segments per slot [n] int32)."""
+    "shade" shaded hits and "regen" camera rays, and holds "slot_steps"
+    ([n] int32): the steps each slot runs, those in which it was runnable,
+    which is what a thread that owns the slot executes. Returns (pool',
+    processed segments per slot [n] int32)."""
     _check_pool(pool, park_k)
     n = pool.shape[1]
     _check_table(uniforms, rng.N_SLOTS, n)
@@ -402,11 +405,13 @@ def trace_cheap_regen_plain(pc: PortalConsts, cam: CameraConsts,
             stalled = needs
         frozen = live & stalled
 
+    slot_steps = torch.zeros(n, dtype=torch.int32, device=pool.device)
     for _ in range(cheap_steps(quota, step_cap, max_depth)):
         can_start = (st["started"] if park_k else st["done"]) < qrow
         for pj in bufs:
             can_start = can_start | (pj["ps"] > 1.5)
         runnable = torch.where(st["alive"] > 0.0, ~frozen, can_start)
+        slot_steps += runnable.to(torch.int32)
         if not bool(runnable.any()):
             step()  # the scratch cleanup of lanes that just stopped
             break
@@ -433,6 +438,8 @@ def trace_cheap_regen_plain(pc: PortalConsts, cam: CameraConsts,
         pool[buf_row(j, BUF_DEPTH)] = pj["depth"]
         pool[buf_row(j, BUF_STATE)] = pj["ps"]
         pool[sample_row(park_k, j)] = pj["sample"]
+    if work is not None:
+        work["slot_steps"] = slot_steps
     return pool, counts
 
 
@@ -644,8 +651,14 @@ def _ptr(t):
 
 
 @functools.lru_cache(maxsize=2)
-def _cheap_library(fmad: bool = True):
-    built = load_kernel(os.path.join(CSRC_DIR, "portal_cheap.cu"), fmad)
+def cheap_library(fmad: bool = True):
+    """``csrc/portal_cheap.cu`` (K2) built and bound; ``fmad=False`` builds
+    it without FMA contraction."""
+    return bind_cheap(load_kernel(CHEAP_SOURCE, fmad))
+
+
+def bind_cheap(built):
+    """Declare the C interface of a build of ``csrc/portal_cheap.cu``."""
     fn = built.lib.pt_cheap_regen
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -656,9 +669,32 @@ def _cheap_library(fmad: bool = True):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pool in, out, n
         ctypes.c_int, ctypes.c_uint32, ctypes.c_int,  # park_k, seed, base
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # steps, depth, rr start
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts, stream
+        ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts
+        ctypes.c_void_p, ctypes.c_void_p,  # slot counter, stream
     ]
+    fn = built.lib.pt_cheap_regen_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return built
+
+
+def cheap_regen_config(pc: PortalConsts, park_k: int, *, fmad: bool = True,
+                       library=None) -> dict:
+    """K2's launch configuration on the current card for the cheap scene
+    of ``pc`` at park depth ``park_k``: the dynamic shared memory of a
+    block (bytes), resident blocks per SM, threads a block, the card's SMs,
+    the registers and local (spill) bytes of a thread, and the idle lanes
+    that make a warp take new slots. Its persistent grid holds
+    blocks_per_sm x sms blocks (fewer when the pool is narrower).
+    ``library``: another build's ``bind_cheap``."""
+    built = library or cheap_library(fmad)
+    out = (ctypes.c_int * 7)()
+    code = built.lib.pt_cheap_regen_config(
+        pc.scene.prims.shape[0], pc.scene.gates.shape[0], park_k, out)
+    check_launch(built, code, "trace_cheap_regen")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1], "threads": out[2],
+            "sms": out[3], "registers": out[4], "local_bytes": out[5],
+            "refill_min": out[6]}
 
 
 @functools.lru_cache(maxsize=2)
@@ -692,10 +728,13 @@ def trace_cheap_regen(pc: PortalConsts, cam: CameraConsts, pool: torch.Tensor,
                       *, seed: int, quota: int, sample_base: int,
                       step_cap: int = 0, park_k: int, max_depth: int = 12,
                       rr_start_depth: int = 5,
-                      uniforms: torch.Tensor | None = None, fmad: bool = True):
+                      uniforms: torch.Tensor | None = None, fmad: bool = True,
+                      library=None):
     """K2 (see trace_cheap_regen_plain for the contract). CPU tensors run
     the plain version; CUDA tensors launch ``csrc/portal_cheap.cu`` or
-    raise. ``fmad=False`` builds the kernel without FMA contraction."""
+    raise. ``fmad=False`` builds the kernel without FMA contraction;
+    ``library`` launches another build's ``bind_cheap`` instead
+    (scripts/ablate_k2.py)."""
     dev = pool.device
     kw = dict(seed=seed, quota=quota, sample_base=sample_base,
               step_cap=step_cap, park_k=park_k, max_depth=max_depth,
@@ -714,10 +753,12 @@ def trace_cheap_regen(pc: PortalConsts, cam: CameraConsts, pool: torch.Tensor,
     counts = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out, counts
-    built = _cheap_library(fmad)
+    built = library or cheap_library(fmad)
     cam_params = cam.params.to(F32).contiguous()  # host memory
     aabb = torch.tensor(pc.aabb(), dtype=F32)  # host memory
     with torch.cuda.device(dev):
+        # the kernel's slot counter: scratch, zero at launch
+        next_slot = torch.zeros(1, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = built.lib.pt_cheap_regen(
             pc.scene.prims.data_ptr(), pc.scene.prims.shape[0],
@@ -726,7 +767,8 @@ def trace_cheap_regen(pc: PortalConsts, cam: CameraConsts, pool: torch.Tensor,
             pool.data_ptr(), out.data_ptr(), n, park_k,
             int(seed) & rng.MASK32, int(sample_base),
             cheap_steps(quota, step_cap, max_depth), int(max_depth),
-            int(rr_start_depth), _ptr(uniforms), counts.data_ptr(), stream)
+            int(rr_start_depth), _ptr(uniforms), counts.data_ptr(),
+            next_slot.data_ptr(), stream)
     check_launch(built, code, "trace_cheap_regen")
     trace_cheap_regen.launches += 1
     return out, counts

@@ -318,7 +318,7 @@ def _with_cnt_base(rad_cnt, cnt_base):
     return rad, cnt
 
 
-def _retired_counts(stages, flush, *, out_rows: int, device="cpu"):
+def _retired_counts(stages, flush, *, out_rows: int, device):
     """Per-pixel retired counts of a drive's retired stages (not the live
     pool) plus the flush credits: the counts that a pause's merge-and-discard
     would otherwise lose."""
@@ -352,7 +352,7 @@ def _compact_tail_auto(pool, *, target: int):
 
 
 def make_pool_v2(npix: int, n_pad: int, k_pass: int, park_k: int | None = None,
-                 device="cpu"):
+                 *, device):
     """Fresh pixel-pinned pool: slot i owns pixel min(i, npix-1); padding
     slots (i ≥ npix) are born retired as done == quota == 0, so they never
     issue and count nothing."""
@@ -367,8 +367,7 @@ def make_pool_v2(npix: int, n_pad: int, k_pass: int, park_k: int | None = None,
     return pool
 
 
-def _pool_from_rows(pix, done, quota, *, n_pad: int, park_k: int,
-                    device="cpu"):
+def _pool_from_rows(pix, done, quota, *, n_pad: int, park_k: int, device):
     """Pool whose first len(pix) slots continue the given per-slot sample
     ranges [done, quota) (resume from a mid-pass checkpoint, thaw after a
     pause); the other slots are born retired (done == quota == 0, pix 0)."""
@@ -477,7 +476,7 @@ def merge_stages(accum, stages, flush):
 def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
                                seed: int, max_depth: int = 12,
                                rr_start_depth: int = 5, on_check=None,
-                               on_pause=None, device="cpu"):
+                               on_pause=None, device):
     """The portal pass runner: ``runner(accum, pass_idx, k_pass)`` gives
     every pixel slot a quota of k_pass samples (global indices pass_idx *
     k_full ..), cycles the pool until every slot retires its quota, adds the
@@ -662,7 +661,7 @@ def portal_cycle(pool, accum, counts, issued, *, limit: int, sample_base: int,
 
 def make_portal_pass_runner(pc, cam, ks, *, npix: int, k_full: int,
                             seed: int, max_depth: int = 12,
-                            rr_start_depth: int = 5, device="cpu"):
+                            rr_start_depth: int = 5, device):
     """The v1 portal pass runner (the JAX package's
     ``make_portal_pass_runner``, ``render/portal.py:165-221``):
     ``runner(accum, pass_idx, k_pass)`` pushes npix * k_pass fresh samples

@@ -9,8 +9,12 @@ it as
 
 Kernels: K1 trace_regen (cornell, three-spheres, a gated scene), K4
 trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
-K3 also on pools with every mix of live parts, with none, and on a scene
-whose table is too large for shared memory),
+K2 also at park depths 0-3, on pools wider than one wave of resident
+threads and narrower, of a width no multiple of the block, with every slot
+stalled at entry, with slots that reach the step budget and on a scene of
+128 cheap primitives, the most it takes; K3 also on
+pools with every mix of live parts, with none, and on a scene whose table
+is too large for shared memory),
 K5 and K6 trace_stepped (cornell and mesh preview rays) and the progressive
 preview on the card; K7 trace_resolve, K8 trace_cheap_blocked and K9
 trace_sorted (mesh) and the v1 and glue portal routes.
@@ -24,6 +28,7 @@ operation, which parts a few long closed-box trajectories. A build with
 """
 
 import dataclasses
+import importlib.util
 import os
 
 import numpy as np
@@ -294,6 +299,145 @@ def test_cuda_k3_large_table_reads_rows_from_device_memory(cuda_device):
     with pytest.raises(RuntimeError, match="trace_resolve_pool"):
         portal.trace_resolve_pool(bad, pool, seed=3, parts=4, park_k=3)
     assert portal.trace_resolve_pool.launches == before
+
+
+def _k2_pool(dev, park_k, res=Resolution(96, 128), cycles=2, scene=None):
+    """(prep, a pool of ``scene`` (mesh) at K2's input after ``cycles``
+    cycles of the plain versions at park depth ``park_k``)."""
+    prep = prepare_render(scene or _scene("mesh"), res, dev)
+    pool = rportal.make_pool_v2(res.num_pixels, rportal._round_block(
+        res.num_pixels), 16, park_k=park_k, device=dev)
+    cheap = dict(seed=3, quota=16, sample_base=0, step_cap=64, park_k=park_k)
+    for _ in range(cycles):
+        pool = portal.trace_cheap_regen_plain(prep.portal, prep.cam, pool,
+                                              **cheap)[0]
+        pool = portal.trace_resolve_pool_plain(prep.kscene, pool, seed=3,
+                                               parts=park_k + 1,
+                                               park_k=park_k)[0]
+    return prep, pool
+
+
+def _widen(pool, width):
+    """The pool's columns tiled or cut to ``width`` (slots are independent,
+    so a repeated slot is one more slot)."""
+    return pool.repeat(1, -(-width // pool.shape[1]))[:, :width].contiguous()
+
+
+def _resident(prep, park_k):
+    cfg = portal.cheap_regen_config(prep.portal, park_k)
+    return cfg["blocks_per_sm"] * cfg["threads"] * cfg["sms"]
+
+
+def _k2_equal(prep, pool, kw, seg_tol=0.005):
+    """K2 --fmad=false equals the plain version bit for bit; the default
+    build agrees on 99.5% of slots, with processed-segment totals within
+    ``seg_tol``; every launch counts once. Returns the plain version's slot
+    steps."""
+    work: dict = {}
+    plain = portal.trace_cheap_regen_plain(prep.portal, prep.cam, pool,
+                                           work=work, **kw)
+    before = portal.trace_cheap_regen.launches
+    exact = portal.trace_cheap_regen(prep.portal, prep.cam, pool, fmad=False,
+                                     **kw)
+    kern = portal.trace_cheap_regen(prep.portal, prep.cam, pool, **kw)
+    torch.cuda.synchronize()
+    assert portal.trace_cheap_regen.launches == before + 2
+    assert torch.equal(exact[0], plain[0]) and torch.equal(exact[1], plain[1])
+    agree = float(((kern[0] - plain[0]).abs().sum(dim=0) < 1e-3).float().mean())
+    assert agree >= 0.995, agree
+    assert abs(int(kern[1].sum()) - int(plain[1].sum())) <= seg_tol * int(
+        plain[1].sum()) + 1
+    return work["slot_steps"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["counter", "table"])
+@pytest.mark.parametrize("park_k", [0, 1, 2, 3])
+def test_cuda_k2_park_depths(cuda_device, park_k, source):
+    """The persistent K2 at every park depth under both uniform sources, on
+    a pool wider than one wave of resident threads, so warps take slots
+    from the counter."""
+    prep, pool = _k2_pool(cuda_device, park_k)
+    width = _resident(prep, park_k) * 3 // 2 + pool.shape[1]
+    pool = _widen(pool, width)
+    uni = None
+    if source == "table":
+        uni = torch.from_numpy(np.random.default_rng(2).random(
+            (6, width), dtype=np.float32)).to(cuda_device)
+    steps = _k2_equal(prep, pool, dict(seed=3, quota=16, sample_base=0,
+                                       step_cap=64, park_k=park_k,
+                                       uniforms=uni))
+    assert int(steps.max()) > 1 and int((steps == 1).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "narrow"])
+def test_cuda_k2_pool_widths(cuda_device, case):
+    """A pool width that is no multiple of the block (and beyond one wave),
+    and a pool narrower than one wave: one slot a thread."""
+    prep, pool = _k2_pool(cuda_device, 3)
+    resident = _resident(prep, 3)
+    width = resident * 2 + 77 if case == "ragged" else 1000
+    assert (width < resident) == (case == "narrow")
+    pool = _widen(pool, width)
+    _k2_equal(prep, pool, dict(seed=3, quota=16, sample_base=0, step_cap=64,
+                               park_k=3))
+
+
+@pytest.mark.cuda
+def test_cuda_k2_every_slot_stalled_at_entry(cuda_device):
+    """No slot can advance at entry (dead, every sample started, no ready
+    buffer): each takes no step and only has its scratch cleaned."""
+    prep, pool = _k2_pool(cuda_device, 3)
+    pool = _widen(pool, _resident(prep, 3) + 4096)
+    pool[portal.ROW_ALIVE] = 0.0
+    pool[portal.V3_ROW_STARTED] = pool[portal.V2_ROW_QUOTA]
+    for j in range(3):
+        r = portal.buf_row(j, portal.BUF_STATE)
+        pool[r] = torch.where(pool[r] > 1.5, 1.0, pool[r])
+    steps = _k2_equal(prep, pool, dict(seed=3, quota=16, sample_base=0,
+                                       step_cap=64, park_k=3))
+    assert int(steps.sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_k2_slots_reach_the_step_budget(cuda_device):
+    """A budget of 8 steps: many slots stop on the budget, not by stalling,
+    and keep their live paths and scratch as they are."""
+    prep, pool = _k2_pool(cuda_device, 3)
+    pool = _widen(pool, _resident(prep, 3) + 4096)
+    steps = _k2_equal(prep, pool, dict(seed=3, quota=16, sample_base=0,
+                                       step_cap=8, park_k=3))
+    assert int((steps == 8).sum()) > pool.shape[1] // 10
+
+
+@pytest.mark.cuda
+def test_cuda_k2_largest_cheap_scene(cuda_device):
+    """A random portal scene's heavy mesh with 128 spheres around it: 128
+    cheap primitives, the most K2 takes, so its shared memory is largest
+    and the occupancy query's grid smallest; the launch goes through and K2
+    equals its plain version."""
+    spec = importlib.util.spec_from_file_location(
+        "portal_fuzz_scenes", os.path.join(ROOT, "scripts",
+                                           "portal_fuzz_scenes.py"))
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    base = scenes.fuzz_scene(0)
+    g = np.random.default_rng(6)
+    lamp = tpt.Material(np.full(3, 0.5, np.float32), np.full(3, 2.0, np.float32),
+                        tpt.ReflectType.DIFFUSE)
+    scene = dataclasses.replace(base, objects=[base.objects[0]] + [
+        tpt.SceneObject.sphere(g.uniform(-6, 6, 3).astype(np.float32), 0.3,
+                               lamp) for _ in range(128)])
+    prep, pool = _k2_pool(cuda_device, 3, scene=scene)
+    assert prep.portal.scene.prims.shape[0] == 128
+    pool = _widen(pool, _resident(prep, 3) + 4096)
+    # The slots that FMA contraction parts among 128 small lights keep
+    # bouncing differently for up to 64 steps, so the default build's
+    # segment totals are not held here: only the --fmad=false build's, bit
+    # for bit, and the share of agreeing slots
+    _k2_equal(prep, pool, dict(seed=3, quota=16, sample_base=0, step_cap=64,
+                               park_k=3), seg_tol=1.0)
 
 
 @pytest.mark.cuda

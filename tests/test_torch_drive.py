@@ -181,7 +181,7 @@ def test_pools_match_jax(park_k):
     np.testing.assert_array_equal(t_pipeline.morton_pixel_order(w, h)[0],
                                   j_rp.morton_pixel_order(w, h))
     jp = np.asarray(j_rp.make_pool_v2(npix, n_pad, 7, park_k=park_k))
-    tp = t_rp.make_pool_v2(npix, n_pad, 7, park_k=park_k)
+    tp = t_rp.make_pool_v2(npix, n_pad, 7, park_k=park_k, device="cpu")
     np.testing.assert_array_equal(_jax_rows(tp, park_k), jp)
     assert tp.shape[0] == t_pm.port_rows(park_k) and not tp[jp.shape[0]:].any()
     g = np.random.default_rng(2)
@@ -191,7 +191,8 @@ def test_pools_match_jax(park_k):
     jp = np.asarray(j_rp._pool_from_rows(jnp.asarray(pix), jnp.asarray(done),
                                          jnp.asarray(quota), n_pad=2048,
                                          park_k=park_k))
-    tp = t_rp._pool_from_rows(pix, done, quota, n_pad=2048, park_k=park_k)
+    tp = t_rp._pool_from_rows(pix, done, quota, n_pad=2048, park_k=park_k,
+                              device="cpu")
     np.testing.assert_array_equal(_jax_rows(tp, park_k), jp)
     if park_k:  # the active path's sample row starts at done
         assert torch.equal(tp[t_pm.V3_ROW_STARTED], tp[t_pm.V2_ROW_DONE])
@@ -281,7 +282,8 @@ def test_snapshots_and_counts_match_jax():
                                atol=1e-6)
     np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
     ret_j = j_rp._retired_counts(tuple(stages_j), jnp.asarray(flush), out_rows=80)
-    ret_t = t_rp._retired_counts(stages_t, torch.from_numpy(flush), out_rows=80)
+    ret_t = t_rp._retired_counts(stages_t, torch.from_numpy(flush), out_rows=80,
+                                 device="cpu")
     np.testing.assert_array_equal(ret_t.numpy(), np.asarray(ret_j))
     fs_j = np.asarray(j_rp._flush_stage(jnp.asarray(flush)))
     np.testing.assert_array_equal(t_rp._flush_stage(torch.from_numpy(flush)).numpy(),
@@ -333,7 +335,8 @@ def _scripted_runner(monkeypatch, results):
 
     monkeypatch.setattr(t_rp, "drive_pool_v2", fake_drive)
     runner = t_rp.make_portal_pass_runner_v2(None, None, None, npix=8,
-                                             k_full=4, seed=0, max_depth=1)
+                                             k_full=4, seed=0, max_depth=1,
+                                             device="cpu")
     return runner, seen
 
 

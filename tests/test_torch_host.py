@@ -7,6 +7,7 @@ scene through them.
 """
 
 import faulthandler
+import functools
 import json
 import os
 import signal
@@ -14,6 +15,7 @@ import sys
 import threading
 from datetime import datetime
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -46,26 +48,40 @@ from path_tracer_tpu_torch.render import raygen as t_raygen
 torch.set_num_threads(1)
 
 # The Pallas interpreter (jax 0.9) runs parts of a kernel as io_callbacks,
-# which receive their arguments as JAX arrays. Every such callback turns its
-# device id into an int first except _update_clocks_for_device_barrier,
-# which multiplies the array: a JAX dispatch from the runtime's callback
-# thread. When the main thread of an unjitted driver dispatches its next
-# operation meanwhile (JAX on the CPU dispatches asynchronously), the two
-# deadlock for good: tests/test_pallas.py's
-# test_sorted_trace_is_a_permutation (trace_pallas_sorted.__wrapped__ in
-# interpret mode) hung so and stalled whole Tier-1 runs until the line's
-# time limit, with the main thread in dispatch.apply_primitive under
-# ray_sort_keys and the callback thread in update_clocks_for_device_barrier.
-# The callback is given the int here. Every worker imports every test module
-# before it runs a test, so this holds for all of them.
-_barrier_clocks = _interp._update_clocks_for_device_barrier
+# which receive their arguments as JAX arrays. Some callbacks compute on
+# them: _update_clocks_for_device_barrier multiplies its device id, and get,
+# store and _check_for_revisiting iterate their block and loop indices
+# (`tuple(int(x) for x in idx)`, which unstacks the array). Each is a JAX
+# dispatch from the runtime's callback thread. When the main thread of an
+# unjitted driver dispatches its next operation meanwhile (JAX on the CPU
+# dispatches asynchronously), the two deadlock for good:
+# tests/test_pallas.py's test_sorted_trace_is_a_permutation
+# (trace_pallas_sorted.__wrapped__ in interpret mode) hung so and stalled
+# whole Tier-1 runs until the line's time limit, with the main thread in
+# dispatch.apply_primitive under ray_sort_keys and the callback thread in
+# update_clocks_for_device_barrier, and again in get's index iteration.
+# Every callback the interpreter hands to io_callback gets its array
+# arguments as numpy arrays here (a copy to the host, no dispatch), so no
+# callback dispatches. The interpreter looks them up by name when it
+# interprets a kernel, and every worker imports every test module before it
+# runs a test, so this holds for all of them.
+def _host_args(fn):
+    def on_host(*args, **kwargs):
+        def to_host(x):
+            return np.asarray(x) if isinstance(x, jax.Array) else x
+
+        return fn(*jax.tree.map(to_host, args), **jax.tree.map(to_host, kwargs))
+
+    return functools.wraps(fn)(on_host)
 
 
-def _update_clocks_for_device_barrier(device_id):
-    _barrier_clocks(int(device_id))
-
-
-_interp._update_clocks_for_device_barrier = _update_clocks_for_device_barrier
+for _name in ("_initialize_shared_memory", "_update_clocks_for_device_barrier",
+              "_barrier", "_clean_up_shared_memory", "_check_for_revisiting",
+              "_validate", "_allocate_buffer", "_deallocate_buffer",
+              "_allocate_semaphores", "get_barrier_semaphore", "get", "store",
+              "swap", "dma_start", "dma_wait", "semaphore_signal",
+              "semaphore_wait"):
+    setattr(_interp, _name, _host_args(getattr(_interp, _name)))
 
 # Each port test module that renders imports this fixture, so that a test
 # that hangs fails on its own instead of stalling the whole Tier-1 run until

@@ -8,8 +8,13 @@ import sys
 
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
+# The child pins torch to one intra-op thread, as tests/test_torch_host.py
+# pins every Tier-1 worker: with a thread a core it competed with the six
+# workers and took 71 s of its 120 s limit at the end of a Tier-1 run.
 CODE = """
 import sys
+import torch
+torch.set_num_threads(1)
 import path_tracer_tpu_torch as pt
 from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 scene = pt.load_scene("cornell", "scenes", "meshes")

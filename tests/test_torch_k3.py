@@ -163,7 +163,7 @@ def test_live_items_are_each_live_item_once(k3_pool, parts):
 
 
 def test_live_items_of_a_retired_pool_is_empty():
-    pool = rp.make_pool_v2(100, 2048, 4, park_k=3)
+    pool = rp.make_pool_v2(100, 2048, 4, park_k=3, device="cpu")
     pool[pk.ROW_ALIVE] = 0.0
     cols, part = pk.live_items(pool, parts=4, park_k=3)
     assert cols.numel() == 0 and part.numel() == 0
@@ -193,7 +193,7 @@ def test_k3_input_pool_matches_a_drive_cycle():
     ks, pool = COHERENCE.k3_input_pool(scene, res, torch.device("cpu"), cycle=0)
     prep = prepare_render(scene, res, torch.device("cpu"))
     fresh = rp.make_pool_v2(res.num_pixels, rp._round_block(res.num_pixels),
-                            256, park_k=3)
+                            256, park_k=3, device="cpu")
     want = pk.trace_cheap_regen_plain(
         prep.portal, prep.cam, fresh, seed=7, quota=256, sample_base=0,
         step_cap=64, park_k=3, max_depth=12)[0]

@@ -124,7 +124,7 @@ def _check_sample_rows(pool, park_k, sample_base):
 def test_k2_plain_matches_jax_zero_stub(park_k):
     pc, cam, _, npix, n = _synth_port()
     spp, depth = GOLDENS.SHAPES[park_k]
-    pool = t_rp.make_pool_v2(npix, n, spp, park_k=park_k)
+    pool = t_rp.make_pool_v2(npix, n, spp, park_k=park_k, device="cpu")
     jrows = t_pm.pool_rows(park_k)
     in_flight = 0
     for call, seed in enumerate(GOLDENS.CHEAP_SEEDS, start=1):
@@ -179,7 +179,7 @@ def test_slots_are_independent():
     loop lane by lane): the pool run whole equals it run in two halves."""
     pc, cam, ks, npix, n = _synth_port()
     park_k, spp, depth = 3, 6, 5
-    pool = t_rp.make_pool_v2(npix, n, spp, park_k=park_k)
+    pool = t_rp.make_pool_v2(npix, n, spp, park_k=park_k, device="cpu")
     kw = dict(seed=9, quota=spp, sample_base=12, step_cap=8, park_k=park_k,
               max_depth=depth)
     for _ in range(2):
@@ -205,7 +205,7 @@ def test_k2_step_budget():
     assert t_pm.cheap_steps(256, 64, 12) == 64
     assert t_pm.cheap_steps(2, 0, 3) == 16
     pc, cam, _, npix, n = _synth_port()
-    pool = t_rp.make_pool_v2(npix, n, 4, park_k=1)
+    pool = t_rp.make_pool_v2(npix, n, 4, park_k=1, device="cpu")
     out, counts = t_pm.trace_cheap_regen_plain(
         pc, cam, pool, seed=1, quota=4, sample_base=0, step_cap=8, park_k=1,
         max_depth=3)
@@ -224,7 +224,7 @@ def test_k2_step_budget():
 
 def test_wrappers_on_cpu_are_the_plain_versions():
     pc, cam, ks, npix, n = _synth_port()
-    pool = t_rp.make_pool_v2(npix, n, 3, park_k=2)
+    pool = t_rp.make_pool_v2(npix, n, 3, park_k=2, device="cpu")
     kw = dict(seed=2, quota=3, sample_base=0, step_cap=8, park_k=2, max_depth=4)
     before = (t_pm.trace_cheap_regen.launches, t_pm.trace_resolve_pool.launches)
     a = t_pm.trace_cheap_regen(pc, cam, pool, **kw)
@@ -236,13 +236,14 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     assert all(torch.equal(x, y) for x, y in zip(a, c))
     assert (t_pm.trace_cheap_regen.launches,
             t_pm.trace_resolve_pool.launches) == before
-    assert torch.equal(pool, t_rp.make_pool_v2(npix, n, 3, park_k=2))  # unchanged
+    assert torch.equal(pool, t_rp.make_pool_v2(npix, n, 3, park_k=2,
+                                              device="cpu"))  # unchanged
 
 
 @pytest.mark.parametrize("bad", ["rows", "park_k", "parts", "uniforms"])
 def test_portal_kernels_reject_bad_arguments(bad):
     pc, cam, ks, npix, n = _synth_port()
-    pool = t_rp.make_pool_v2(npix, n, 3, park_k=1)
+    pool = t_rp.make_pool_v2(npix, n, 3, park_k=1, device="cpu")
     kw = dict(seed=2, quota=3, sample_base=0, park_k=1)
     rkw = dict(seed=2, parts=2, park_k=1)
     if bad == "rows":

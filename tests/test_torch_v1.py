@@ -193,7 +193,7 @@ def _mid_drive_pool(ts, park_k=3):
     ks = t_tk.build_kernel_scene(packed)
     npix = 36 * 24
     n = t_rp._round_block(npix)
-    pool = t_rp.make_pool_v2(npix, n, 6, park_k=park_k)
+    pool = t_rp.make_pool_v2(npix, n, 6, park_k=park_k, device="cpu")
     kw = dict(seed=4, quota=6, sample_base=12, step_cap=4, park_k=park_k,
               max_depth=12)
     pool, _ = t_pm.trace_cheap_regen_plain(pc, cam, pool, **kw)

@@ -66,7 +66,8 @@ def test_v1_runner_counts_every_pixel_exactly(mesh):
     prep = t_pipeline.prepare_render(mesh, RES, "cpu")
     npix, k = RES.num_pixels, 3
     runner = t_rp.make_portal_pass_runner(
-        prep.portal, prep.cam, prep.kscene, npix=npix, k_full=k, seed=2)
+        prep.portal, prep.cam, prep.kscene, npix=npix, k_full=k, seed=2,
+        device="cpu")
     assert runner.pool_width == t_rp._round_block(npix * 3)
     assert runner.resolve_width == t_rp._round_resolve(runner.pool_width // 2)
     accum = torch.zeros((npix, 3))
@@ -79,7 +80,8 @@ def test_v1_runner_counts_every_pixel_exactly(mesh):
     # the same 2k samples in one pass give the same image, up to the order
     # of the adds
     one = t_rp.make_portal_pass_runner(
-        prep.portal, prep.cam, prep.kscene, npix=npix, k_full=2 * k, seed=2)
+        prep.portal, prep.cam, prep.kscene, npix=npix, k_full=2 * k, seed=2,
+        device="cpu")
     acc1, rays = one(torch.zeros((npix, 3)), 0, 2 * k)
     np.testing.assert_allclose(acc1.numpy(), accum.numpy(), atol=1e-5)
     assert int(rays) == int(rays0) + int(rays1)
@@ -96,7 +98,7 @@ def test_v1_runner_stall_raises(mesh, monkeypatch):
     monkeypatch.setattr(t_rp, "trace_resolve", immortal)
     runner = t_rp.make_portal_pass_runner(
         prep.portal, prep.cam, prep.kscene, npix=24, k_full=1, seed=0,
-        max_depth=2)
+        max_depth=2, device="cpu")
     with pytest.raises(RuntimeError, match="stalled"):
         runner(torch.zeros((24, 3)), 0, 1)
 

@@ -29,7 +29,12 @@ line):
      blocks per SM and the shares of scripts/k2_coherence.py's and
      scripts/k3_coherence.py's models on their input pools. K5 on
      cornell and K6 on mesh: one preview frame's rays at 450x300 x 2 spp,
-     both uniform sources, in calls of 12 and of 5 steps. K8 on a fresh
+     both uniform sources, in calls of 12 and of 5 steps, given rays and
+     from the camera entries (the rays made in the kernel, held against
+     camera_rays and the plain trace); K6 also on the frame of a random
+     portal scene and of a scene whose table exceeds its shared budget
+     (the read-only path), and its design line: registers, blocks per SM,
+     shared bytes, scripts/k6_coherence.py's shares. K8 on a fresh
      1,048,576-lane v1 pool of mesh primary rays at 1024x768, K7 on its
      first 524,288 lanes after K8 and the partition (the v1 shape) and on
      the 4 x 786,432 lanes of a mid-drive park-3 pool (the glue shape),
@@ -50,7 +55,8 @@ line):
      (the reference GUI's size) on cornell (K5) and mesh (K6) at 1, 2 and 4
      spp a frame, the launch counts set to 0 just before each and read just
      after: warm frame times (2nd best of 8) of step and step_u8, fps, the
-     restart latency (move_camera and the first frame); step_u8 byte-equal
+     restart latency (move_camera and the first frame), device operations
+     a frame (torch.profiler over 5 frames); step_u8 byte-equal
      to quantize_np of the accumulator; 8 frames of 2 spp against a 16-spp
      render() of the same seed;
   7. the viewer app (viewer.app.make_server on 127.0.0.1, an ephemeral
@@ -578,8 +584,7 @@ def preview_rays(scene, res, spp, dev):
     ``spp`` samples a pixel: (o, d, pixel_idx, sample_idx)."""
     import torch
 
-    from path_tracer_tpu_torch.render.integrator import camera_rays
-    from path_tracer_tpu_torch.render.raygen import camera_arrays
+    from path_tracer_tpu_torch.render.raygen import camera_arrays, camera_rays
 
     npix = res.num_pixels
     pix = torch.arange(npix, dtype=torch.int32, device=dev).repeat_interleave(spp)
@@ -591,13 +596,16 @@ def preview_rays(scene, res, spp, dev):
 
 def check_stepped(scenes, dev, card):
     """K5 (cornell) and K6 (mesh) against their plain versions on one
-    preview frame's rays at 450x300 x 2 spp; returns their kernels-line
+    preview frame's rays at 450x300 x 2 spp, given rays and from their
+    camera entries; K6 also on a random portal scene's frame and on a scene
+    whose table exceeds its shared budget. Returns their kernels-line
     numbers."""
     import numpy as np
     import torch
 
     from path_tracer_tpu_torch.models.scene import pack_scene
     from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
+    from path_tracer_tpu_torch.render.raygen import camera_arrays
     from path_tracer_tpu_torch.utils.config import Resolution
 
     res, spp, max_depth = Resolution(*PREVIEW), 2, 12
@@ -606,11 +614,15 @@ def check_stepped(scenes, dev, card):
         packed = pack_scene(scenes[sid])
         if name == "K5":
             fn, plain = trace_v2.trace_stepped, trace_v2.trace_stepped_plain
+            cam_fn, cam_plain = trace_v2.trace_camera, trace_v2.trace_camera_plain
             scene = trace_v2.build_scene_consts(packed).to(dev)
         else:
             fn, plain = trace_kernel.trace_stepped, trace_kernel.trace_stepped_plain
+            cam_fn = trace_kernel.trace_camera
+            cam_plain = trace_kernel.trace_camera_plain
             scene = trace_kernel.build_kernel_scene(packed).to(dev)
         o, d, pix, smp = preview_rays(scenes[sid], res, spp, dev)
+        cam = camera_arrays(scenes[sid].camera)
         n = o.shape[0]
         table = torch.from_numpy(np.random.default_rng(5).random(
             (max_depth * 4, n), dtype=np.float32)).to(dev)
@@ -620,44 +632,148 @@ def check_stepped(scenes, dev, card):
                 tag = f"{name} {sid} {res.width}x{res.height}x{spp}/{source}/{steps} steps"
                 kw = dict(seed=7, pixel_idx=pix, sample_idx=smp, uniforms=uni,
                           max_depth=max_depth, steps_per_call=steps)
-                work: dict = {}
                 rad_k, rays_k = fn(scene, o, d, **kw)
                 t0 = time.perf_counter()
-                rad_p, rays_p = (plain(scene, o, d, work=work, **kw) if name == "K6"
-                                 else plain(scene, o, d, **kw))
+                rad_p, rays_p = plain(scene, o, d, **kw)
                 torch.cuda.synchronize()
                 plain_s = time.perf_counter() - t0
-                if not bool(torch.isfinite(rad_k).all()):
-                    fail(f"{tag}: non-finite kernel radiance")
-                frac = lane_share(rad_k, rad_p)
-                err = float((rad_k - rad_p).abs().max())
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                ratio = int(rays_k) / max(int(rays_p), 1)
-                print(f"phase 3 {tag}: {frac:.5f} of rays within {LANE_TOL} "
-                      f"(need {LANE_FRAC}); max |err| {err:.3g}; rays "
-                      f"kernel/plain {ratio:.5f}; plain {plain_s:.2f} s", flush=True)
-                if frac < LANE_FRAC or abs(ratio - 1.0) > SEG_TOL:
-                    fail(f"{tag}: kernel disagrees with its plain version")
-                exact = fn(scene, o, d, fmad=False, **kw)
-                if not (torch.equal(exact[0], rad_p) and torch.equal(exact[1], rays_p)):
-                    fail(f"{tag}: the --fmad=false kernel is not bit-exact with "
-                         "its plain version")
+                stepped_compare(tag, (rad_k, rays_k), fn(scene, o, d, fmad=False, **kw),
+                                (rad_p, rays_p), rec, f"plain {plain_s:.2f} s")
+                ckw = dict(kw, width=res.width, height=res.height)
+                work: dict = {}
+                t0 = time.perf_counter()
+                cam_p = (cam_plain(scene, cam, work=work, **ckw) if name == "K6"
+                         else cam_plain(scene, cam, **ckw))
+                torch.cuda.synchronize()
+                cam_plain_s = time.perf_counter() - t0
+                stepped_compare(f"{tag}/camera entry", cam_fn(scene, cam, **ckw),
+                                cam_fn(scene, cam, fmad=False, **ckw), cam_p, rec)
                 if source == "counter" and steps == max_depth:
+                    # the preview's launch, the camera entry, on the kernels
+                    # line; the given-ray call beside it
                     kw_t = dict(kw)
-                    rec["ms"] = cuda_ms(lambda: fn(scene, o, d, **kw_t), 10)
-                    rec["plain_ms"] = plain_s * 1e3
-                    segs = int(rays_p)
-                    flops = (segs * FLOPS_K5_SEGMENT if name == "K5"
-                             else isect_flops(work, segs))
-                    # each ray reads o, d, pixel and sample index once and
-                    # writes its radiance once
+                    rec["given_ms"] = cuda_ms(lambda: fn(scene, o, d, **kw_t), 10)
+                    rec["ms"] = cuda_ms(lambda: cam_fn(scene, cam, **ckw), 10)
+                    rec["plain_ms"] = cam_plain_s * 1e3
+                    segs = int(cam_p[1])
+                    flops = n * FLOPS_RAYGEN + (
+                        segs * FLOPS_K5_SEGMENT if name == "K5"
+                        else isect_flops(work, segs))
+                    # each ray reads its pixel and sample index once and
+                    # writes its 14 state rows and its count once
                     rec["bound_ms"], rec["bound_by"] = bound_ms(
-                        n * (24 + 8 + 12), flops)
-        print(f"phase 3 {name} {sid} {res.width}x{res.height}x{spp}: kernel "
-              f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, bound "
-              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}) ({card})", flush=True)
+                        n * (8 + 56 + 4), flops)
+        print(f"phase 3 {name} {sid} {res.width}x{res.height}x{spp}: camera "
+              f"entry {rec['ms']:.3f} ms (given rays {rec['given_ms']:.3f} ms), "
+              f"plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.3f} ms "
+              f"({rec['bound_by']}) ({card})", flush=True)
         out[name] = rec
+    check_k6_scenes(scenes["mesh"], dev, out["K6"])
+    k6_design(scenes["mesh"], dev, card)
     return out["K5"], out["K6"]
+
+
+def stepped_compare(tag, kern, exact, plain, rec, note="",
+                    frac=LANE_FRAC) -> None:
+    """(radiance, rays traced) of a stepped kernel, its --fmad=false build
+    and its plain version: the second must equal the third bit for bit, the
+    first agree on ``frac`` of the rays, with ray totals within SEG_TOL;
+    rec["max_abs_err"] grows."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not (torch.equal(exact[0], plain[0]) and torch.equal(exact[1], plain[1])):
+        fail(f"{tag}: the --fmad=false kernel is not bit-exact with its plain "
+             "version")
+    if not bool(torch.isfinite(kern[0]).all()):
+        fail(f"{tag}: non-finite kernel radiance")
+    share = lane_share(kern[0], plain[0])
+    err = float((kern[0] - plain[0]).abs().max())
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    ratio = int(kern[1]) / max(int(plain[1]), 1)
+    print(f"phase 3 {tag}: {share:.5f} of rays within {LANE_TOL} (need "
+          f"{frac}); max |err| {err:.3g}; rays kernel/plain {ratio:.5f}"
+          + (f"; {note}" if note else ""), flush=True)
+    if share < frac or abs(ratio - 1.0) > SEG_TOL:
+        fail(f"{tag}: kernel disagrees with its plain version")
+
+
+def check_k6_scenes(mesh, dev, rec):
+    """K6 beyond the mesh frame, given rays (12 steps) and from the camera
+    entry: a 450x300 x 2 spp frame of a random portal-eligible scene
+    (scripts/portal_fuzz_scenes.py) and of mesh with its tiles four times
+    over, whose tables exceed the shared budget and take the read-only
+    path."""
+    import torch
+
+    from path_tracer_tpu_torch.models.scene import pack_scene
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk
+    from path_tracer_tpu_torch.render.raygen import camera_arrays
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    res = Resolution(*PREVIEW)
+    fuzz = script_module("portal_fuzz_scenes").fuzz_scene(3)
+    ks = tk.build_kernel_scene(pack_scene(mesh)).to(dev)
+    tiles = ks.tri[ks.tile_base:]
+    big = tk.KernelScene(ks.sph, ks.bnd,
+                         torch.cat([ks.tri[:ks.tile_base]] + [tiles] * 4),
+                         torch.cat([ks.tiles] * 4), ks.tile_base)
+    for sid, scene, tables, frac in (
+            ("fuzz3", fuzz, tk.build_kernel_scene(pack_scene(fuzz)).to(dev),
+             FUZZ_LANE_FRAC),
+            ("mesh, tiles x4", mesh, big, LANE_FRAC)):
+        shared = tk.k6_shared_table(tables)
+        if sid.startswith("mesh") and shared:
+            fail("K6: a table above the shared budget was staged")
+        o, d, pix, smp = preview_rays(scene, res, 2, dev)
+        kw = dict(seed=7, pixel_idx=pix, sample_idx=smp)
+        tag = (f"K6 {sid} {res.width}x{res.height}x2 ({tk.k6_table_bytes(tables)} "
+               f"table bytes, shared memory {shared})")
+        stepped_compare(tag, tk.trace_stepped(tables, o, d, **kw),
+                        tk.trace_stepped(tables, o, d, fmad=False, **kw),
+                        tk.trace_stepped_plain(tables, o, d, **kw), rec, frac=frac)
+        ckw = dict(kw, width=res.width, height=res.height)
+        cam = camera_arrays(scene.camera)
+        stepped_compare(f"{tag}/camera entry", tk.trace_camera(tables, cam, **ckw),
+                        tk.trace_camera(tables, cam, fmad=False, **ckw),
+                        tk.trace_camera_plain(tables, cam, **ckw), rec, frac=frac)
+
+
+def k6_design(mesh, dev, card):
+    """K6's registers, resident blocks, shared bytes and the coherence
+    model's shares on the preview frame, on lines of their own."""
+    from path_tracer_tpu_torch.models.scene import pack_scene
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    regs = ptxas_registers(BUILT["trace_stepped.cu fmad=True"].log)
+    ks = tk.build_kernel_scene(pack_scene(mesh)).to(dev)
+    cfg = tk.stepped_prim_config(ks, camera=True)
+    print(f"phase 3 K6 design: ptxas {' | '.join(regs)}; camera entry "
+          f"{cfg['registers']} registers, {cfg['local_bytes']} local bytes a "
+          f"thread, {cfg['blocks_per_sm']} blocks of {cfg['threads']} threads "
+          f"an SM, {cfg['smem_bytes']} dynamic + {cfg['static_smem_bytes']} "
+          f"static shared bytes a block, table in shared memory "
+          f"{cfg['shared_table']}, chunk sort {cfg['sort']} in chunks of "
+          f"{cfg['window']} rays ({card})", flush=True)
+    coh = script_module("k6_coherence")
+    res = Resolution(*PREVIEW)
+    ks, cam, pix, smp = coh.frame(mesh, res, dev)
+    steps, tiles, keys, live, _ = coh.trace_record(ks, cam, pix, smp, res.width,
+                                                   res.height)
+    resident = cfg["blocks_per_sm"] * cfg["threads"] * cfg["sms"]
+    m = coh.coherence(ks, steps, tiles, keys, live, resident, refill_mins=(4,),
+                      windows=(cfg["window"],))
+    w = cfg["window"]
+    print(f"phase 3 K6 coherence (scripts/k6_coherence.py) on the frame: "
+          f"{m['rays']} rays, {m['steps']} steps, path lengths "
+          f"{m['path_length_p10_25_50_75_90']} (10/25/50/75/90th); one thread "
+          f"a ray: lane-steps {m['thread_per_ray']['lane_share']:.4f}, useful "
+          f"rows {m['thread_per_ray']['useful_row_share']:.4f}; persistent, "
+          f"refill at 4: lane-steps {m['persistent_refill_4']['lane_share']:.4f}; "
+          f"chunks of {w} packed / sorted: useful rows "
+          f"{m[f'chunks_of_{w}_packed']['useful_row_share']:.4f} / "
+          f"{m[f'chunks_of_{w}_sorted']['useful_row_share']:.4f}", flush=True)
 
 
 def k7_call(fn, ks, state, pix, smp, **kw):
@@ -852,6 +968,25 @@ def check_sorted(mesh, dev, card):
     return rec
 
 
+OPS_FRAMES = 5  # frames of step_u8 under torch.profiler, phase 6
+
+
+def device_ops_per_frame(step) -> float:
+    """Device operations (kernels, copies, fills: torch.profiler's CUDA
+    events, as scripts/profile_torch_preview.py counts them) a frame of
+    ``step``, over OPS_FRAMES frames."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(OPS_FRAMES):
+            step()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / OPS_FRAMES
+
+
 def check_preview(scenes, dev, card, counters):
     """Phase 6: the progressive preview on the card. Returns the launches
     of K5 and K6 over its runs."""
@@ -883,6 +1018,7 @@ def check_preview(scenes, dev, card, counters):
                     fn()  # both end in a device-to-host copy
                     ts.append(time.perf_counter() - t0)
                 times[name] = sorted(ts)[1]
+            ops = device_ops_per_frame(r.step_u8)
             frame = r.step_u8()
             fin = integrator.finalize(r._accum, r.samples_done).cpu().numpy()
             if not np.array_equal(frame, tonemap.quantize_np(fin)):
@@ -898,7 +1034,7 @@ def check_preview(scenes, dev, card, counters):
                 restarts.append(time.perf_counter() - t0)
             counts = {c.__module__.rsplit(".", 1)[-1] + "." + c.__name__: c.launches
                       for c in counters}
-            frames = 1 + 8 + 8 + 1 + 3
+            frames = 1 + 8 + 8 + OPS_FRAMES + 1 + 3
             others = [k for c, (k, v) in zip(counters, counts.items())
                       if c is not want[sid] and v]
             if want[sid].launches != frames or others:
@@ -910,6 +1046,7 @@ def check_preview(scenes, dev, card, counters):
                   f"step_u8 {times['step_u8'] * 1e3:.2f} ms "
                   f"({1 / times['step_u8']:.1f} fps), restart "
                   f"{sorted(restarts)[1] * 1e3:.2f} ms (2nd best of 3); "
+                  f"{ops:.1f} device operations a frame (torch.profiler); "
                   f"launches {counts} ({card})", flush=True)
         # 8 frames at 2 spp against a 16-spp render of the same seed
         r = ProgressiveRenderer(scenes[sid], res, spp_per_frame=2, device=dev)

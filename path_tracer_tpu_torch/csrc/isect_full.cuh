@@ -9,18 +9,18 @@
 // Where the rows live is a template parameter of the scan:
 //  - GlobalRows: the KernelScene tables (spheres [S, 12], bounding spheres
 //    [M, 4], triangle rows [T, 32], tile AABBs [C, 6]) in device memory,
-//    read through the read-only cache (__ldg). K4, K6 and K7 use it (the
-//    default), and K3 for a scene whose compact table is too large for
-//    shared memory.
+//    read through the read-only cache (__ldg). K4 and K7 use it (the
+//    default), and K3 and K6 for a scene whose compact table is too large
+//    for shared memory.
 //  - SharedRows: the compact hit-test rows (KernelScene.hit [T, 20]: the 19
 //    floats the distance test reads) and the small tables, staged by the
-//    kernel into shared memory. K3 uses it: with its lanes sorted by the
-//    tiles they enter, a warp's lanes read one row at a time, a broadcast.
-//    Measured on the H100 (PERF.md; scripts/ablate_k3.py): the
-//    shared table cuts K3's time by a quarter on sorted lanes and by a
-//    third on unsorted ones. K4, K6 and K7 are not redesigned yet and keep
-//    the read-only path, which compiles for them as it did before the
-//    template.
+//    kernel into shared memory (stage_scene). K3 and K6 use it: with K3's
+//    lanes sorted by the tiles they enter, a warp's lanes read one row at a
+//    time, a broadcast. Measured on the H100 (PERF.md; scripts/ablate_k3.py,
+//    scripts/ablate_k6.py): the shared table cuts K3's time by a quarter on
+//    sorted lanes and by a third on unsorted ones. K4 and K7 are not
+//    redesigned yet and keep the read-only path, which compiles for them as
+//    it did before the template.
 // The shading fields of the winning row (normal, colour, emission, type,
 // order, id) are read from the 32-float rows in device memory after the
 // scan, for that row only.
@@ -85,6 +85,51 @@ struct SharedRows {
   }
   static __device__ __forceinline__ float ld(const float* p) { return *p; }
 };
+
+// ---- staging SharedRows' tables into a block's dynamic shared memory ----
+constexpr uint32_t BULK_PIECE = 32768;  // bytes a TMA bulk copy
+
+__host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: arm the mbarrier and copy `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory with TMA bulk
+// copies that complete on it
+__device__ __forceinline__ void stage_bulk(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1));
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+  const char* s = static_cast<const char*>(src);
+  const uint32_t d = smem_u32(dst);
+  for (uint32_t off = 0; off < bytes; off += BULK_PIECE) {
+    const uint32_t len = bytes - off < BULK_PIECE ? bytes - off : BULK_PIECE;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(d + off),
+        "l"(s + off), "r"(len), "r"(b)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void wait_bulk(uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t ok = 0;
+  while (!ok)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
+        "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(b), "r"(0)
+        : "memory");
+}
 
 struct Hit {
   bool found;
@@ -181,6 +226,26 @@ __device__ __forceinline__ void inv_dir(const float d[3], float inv[3]) {
     inv[k] = 1.0f / (fabsf(d[k]) < TINY ? TINY : d[k]);
 }
 
+// K3's and K6's sort key: the tiles (of the first KEY_TILES) whose AABB the
+// ray's line enters (tile_slab without the distance cull), known before
+// any triangle is tested; trace_kernel.py tile_entry_keys
+constexpr int KEY_TILES = 32;
+
+template <class R>
+__device__ __forceinline__ uint32_t entry_key(const FullScene& sc,
+                                              const float o[3],
+                                              const float d[3]) {
+  float inv[3];
+  inv_dir(d, inv);
+  uint32_t key = 0u;
+  const int nt = sc.n_tiles < KEY_TILES ? sc.n_tiles : KEY_TILES;
+  for (int c = 0; c < nt; ++c) {
+    float t_en;
+    if (tile_slab<R>(sc.tiles + c * TILE_F, o, inv, t_en)) key |= 1u << c;
+  }
+  return key;
+}
+
 // The scan keeps the best sphere (d_s, i_s) and the best triangle row (d_t,
 // r_t) only; the surface of the winner is read after it: spheres through R,
 // a triangle's shading fields from its 32-float row in device memory.
@@ -260,6 +325,52 @@ __device__ __forceinline__ void isect_full(const FullScene& sc,
     h.rtype = __ldg(trow + T_RTYPE);
   }
   h.new_prev = (h.found && !sph_wins) ? __ldg(trow + T_PID) : -1.0f;
+}
+
+// Where SharedRows' tables sit in a block's dynamic shared memory (bytes
+// from its start): the compact rows, spheres, bounding spheres and tile
+// AABBs, each 16-byte aligned. K6 stages exactly these; K3 puts its chunk's
+// arrays after the same four.
+struct SceneLayout {
+  int hit, sph, bnd, tiles, bytes;
+};
+
+__host__ __device__ inline SceneLayout scene_layout(int n_tri, int n_sph,
+                                                    int n_bnd, int n_tiles) {
+  SceneLayout l;
+  l.hit = 0;
+  l.sph = l.hit + align16(n_tri * HIT_F * 4);
+  l.bnd = l.sph + align16(n_sph * SPH_F * 4);
+  l.tiles = l.bnd + align16(n_bnd * 4 * 4);
+  l.bytes = l.tiles + align16(n_tiles * TILE_F * 4);
+  return l;
+}
+
+// Every thread of the block: start the compact table's TMA copy (thread 0;
+// completes on `bar`), copy the small tables, and return the scene that
+// reads them from shared memory. The caller syncs the block before any
+// thread waits on `bar`, and waits on it before its first scan.
+__device__ __forceinline__ FullScene stage_scene(const FullScene& g,
+                                                 unsigned char* smem,
+                                                 uint64_t* bar) {
+  const SceneLayout lay = scene_layout(g.n_tri, g.n_sph, g.n_bnd, g.n_tiles);
+  FullScene sc = g;
+  float* hit = reinterpret_cast<float*>(smem + lay.hit);
+  float* sph = reinterpret_cast<float*>(smem + lay.sph);
+  float* bnd = reinterpret_cast<float*>(smem + lay.bnd);
+  float* tiles = reinterpret_cast<float*>(smem + lay.tiles);
+  if (threadIdx.x == 0)
+    stage_bulk(hit, g.hit, static_cast<uint32_t>(g.n_tri * HIT_F * 4), bar);
+  for (int i = threadIdx.x; i < g.n_sph * SPH_F; i += blockDim.x)
+    sph[i] = g.sph[i];
+  for (int i = threadIdx.x; i < g.n_bnd * 4; i += blockDim.x) bnd[i] = g.bnd[i];
+  for (int i = threadIdx.x; i < g.n_tiles * TILE_F; i += blockDim.x)
+    tiles[i] = g.tiles[i];
+  sc.hit = hit;
+  sc.sph = sph;
+  sc.bnd = bnd;
+  sc.tiles = tiles;
+  return sc;
 }
 
 // Launch-time checks shared by the kernels that take a FullScene

@@ -97,15 +97,11 @@ constexpr int ROW_O = 0, ROW_D = 3, ROW_THR = 6, ROW_ACC = 9, ROW_ALIVE = 12,
 #endif
 constexpr int WARPS = K3_THREADS / 32;
 constexpr int MAX_PARTS = MAX_PARK_K + 1;  // an item is (part << 14) | column
-constexpr int KEY_TILES = 32;
 constexpr int MAX_WINDOW = 4096;  // columns a chunk (14 bits of an item)
 static_assert(K3_WINDOW >= 32 && K3_WINDOW <= MAX_WINDOW &&
                   (K3_WINDOW & (K3_WINDOW - 1)) == 0,
               "K3_WINDOW: a power of two, 32 .. 4096");
 static_assert(K3_THREADS % 32 == 0 && K3_THREADS <= 1024, "K3_THREADS");
-constexpr uint32_t BULK_PIECE = 32768;  // bytes a TMA bulk copy
-
-__host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
 
 // Dynamic shared memory of a block, in bytes from its start. For each of
 // the chunk's window * MAX_PARTS item slots: a key and an item, by packed
@@ -144,46 +140,6 @@ __host__ __device__ inline Layout layout(int n_tri, int n_sph, int n_bnd,
   return l;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One thread: arm the mbarrier and copy `bytes` (a multiple of 16, both
-// addresses 16-byte aligned) from global to shared memory with TMA bulk
-// copies that complete on it
-__device__ __forceinline__ void stage_bulk(void* dst, const void* src,
-                                           uint32_t bytes, uint64_t* bar) {
-  const uint32_t b = smem_u32(bar);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1));
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-               "r"(bytes)
-               : "memory");
-  const char* s = static_cast<const char*>(src);
-  const uint32_t d = smem_u32(dst);
-  for (uint32_t off = 0; off < bytes; off += BULK_PIECE) {
-    const uint32_t len = bytes - off < BULK_PIECE ? bytes - off : BULK_PIECE;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(d + off),
-        "l"(s + off), "r"(len), "r"(b)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void wait_bulk(uint64_t* bar) {
-  const uint32_t b = smem_u32(bar);
-  uint32_t ok = 0;
-  while (!ok)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
-        "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(ok)
-        : "r"(b), "r"(0)
-        : "memory");
-}
-
 // First row of a part's state: the active path's rows, or buffer j-1's
 __device__ __forceinline__ int part_base(int part) {
   return part == 0 ? ROW_O : V3_BUF_BASE + (part - 1) * BUF_ROWS + BUF_O;
@@ -194,22 +150,6 @@ __device__ __forceinline__ int prev_row(int part) {
 }
 __device__ __forceinline__ int depth_row(int part) {
   return part == 0 ? ROW_DEPTH : part_base(part) + BUF_DEPTH;
-}
-
-// The tiles (of the first KEY_TILES) whose AABB the ray's line enters
-template <class R>
-__device__ __forceinline__ uint32_t entry_key(const FullScene& sc,
-                                              const float o[3],
-                                              const float d[3]) {
-  float inv[3];
-  inv_dir(d, inv);
-  uint32_t key = 0u;
-  const int nt = sc.n_tiles < KEY_TILES ? sc.n_tiles : KEY_TILES;
-  for (int c = 0; c < nt; ++c) {
-    float t_en;
-    if (tile_slab<R>(sc.tiles + c * TILE_F, o, inv, t_en)) key |= 1u << c;
-  }
-  return key;
 }
 
 // One bounce of a live path. Returns whether it lives on; o, d, thr, acc,

@@ -1,9 +1,9 @@
-// K5, K6 and K7: stepped path tracing of given rays, for Hopper (sm_90a).
+// K5, K6 and K7: stepped path tracing, for Hopper (sm_90a).
 //
-// Replaces three TPU kernels. Two trace camera rays made outside the kernel,
-// `steps` bounces per call, over a state that rides device memory between
-// calls (the interactive preview's kernels; K9, trace_pallas_sorted, is K6
-// with a sort of the rays in torch between calls):
+// Replaces three TPU kernels. Two trace the interactive preview's camera
+// rays, `steps` bounces per call, over a state that rides device memory
+// between calls (K9, trace_pallas_sorted, is K6 with a sort of the rays in
+// torch between calls):
 //  - K5 pt_trace_stepped_static: path_tracer_tpu/ops/pallas/trace_v2.py
 //    trace_pallas_v2 (body _make_kernel_v2), over the baked scene of at most
 //    128 primitives. Plain torch version:
@@ -20,42 +20,131 @@
 //    a dead ray's thr and prev cleaned. Plain torch version:
 //    trace_kernel.py:trace_resolve_plain.
 //
-// What one call computes: thread i owns ray i and runs up to n_steps
-// bounces at segment depths depth0, depth0 + 1, ..: closest hit (K5 the
-// baked scan of K1, K6 the full-scene intersector of K3 and K4), then
-// Russian roulette, emission and BSDF sampling (common.cuh shade) with the
-// unconditional max-depth cut. The ray's state rows (ops/kernels/
-// trace_kernel.py ROW_*: origin, direction, throughput, radiance, alive,
-// departed triangle) are read once into registers and written back once, so
-// calls with steps < max_depth chain as the JAX calls do. counts[i] gains
-// one for every step that ray i starts alive.
+// What one call of K5 or K6 computes, per ray i: up to n_steps bounces at
+// segment depths depth0, depth0 + 1, ..: closest hit (K5 the baked scan of
+// K1, K6 the full-scene intersector of K3 and K4), then Russian roulette,
+// emission and BSDF sampling (common.cuh shade) with the unconditional
+// max-depth cut. The ray's state rows (ops/kernels/trace_kernel.py ROW_*:
+// origin, direction, throughput, radiance, alive, departed triangle) are
+// read once into registers and written back once, so calls with steps <
+// max_depth chain as the JAX calls do. counts[i] gains one for every step
+// that ray i starts alive.
+//
+// The camera entry (a camera given): the call starts the rays itself. Ray i
+// is sample sample_idx[i] of pixel pixel_idx[i], made as the preview's
+// render/raygen.py camera_rays makes it (preview_ray: the two raygen
+// uniforms at depth 0, slots 4 and 5, and generate_rays' arithmetic), traced
+// from depth 0; every state row and counts[i] are written, as a call on
+// those rays would leave them, so later calls chain on. Its plain version
+// is camera_rays followed by the plain trace.
 //
 // The JAX kernel skips a block whose lanes are all dead (trace_kernel.py
-// _make_kernel's all-dead block skip). Here a dead thread leaves its loop
-// at once, which is that skip lane by lane. INVARIANT (as in the JAX
-// kernel): a ray keeps the prev and thr it had at death; a step that ran
-// over a dead lane would have reset prev to -1 and thr to 0. Dead rays
-// never come back to life in a stepped trace, so nothing reads them, and
-// comparisons of the state rows hold only for live rays.
+// _make_kernel's all-dead block skip). Here a ray dead on entry is not
+// traced and not written, which is that skip ray by ray. INVARIANT (as in
+// the JAX kernel): a ray keeps the prev and thr it had at death; a step
+// that ran over a dead lane would have reset prev to -1 and thr to 0. Dead
+// rays never come back to life in a stepped trace, so nothing reads them,
+// and comparisons of the state rows hold only for live rays.
 //
 // Random numbers: the counter generator keyed by (seed, pixel_idx[i],
 // sample_idx[i], depth, slot 0-3), the draws K1 makes for the same sample,
 // or an injected table uniforms[(depth * 4 + slot) * n + i] (the JAX
-// layout [max_depth * 4, n]).
+// layout [max_depth * 4, n]). Every draw and row uses the ray's index i,
+// never the thread's, so a ray computes the same on any thread: built with
+// --fmad=false, K5 and K6 equal their plain versions bit for bit.
 //
-// What bounds it on this card: per-thread FP32 work and divergence, as for
-// K1 and K4. A ray moves 14 state floats in and out per call and does
-// hundreds of flops per segment; one thread per ray keeps the path in
-// registers between its steps, K5 copies its scene into shared memory per
-// block (every lane of a warp reads the same primitive: a broadcast), and
-// K6 reads its tables through the read-only cache and culls tiles per lane.
-// Built with --fmad=false both equal their plain versions bit for bit.
+// What bounds them on this card: per-thread FP32 work and divergence. A ray
+// moves 14 state floats in and out per call and does hundreds of flops per
+// segment. K5 (one thread a ray) copies its scene into shared memory per
+// block; every lane of a warp reads the same primitive, a broadcast.
+//
+// K6's design. The parent kernel ran one thread a ray for the whole call,
+// so a warp ran until its longest path (6 to 12 bounces on mesh) ended,
+// read its rows through the read-only cache, and lanes that walked
+// different tiles made the warp execute the union of their rows: on the
+// mesh preview frame 7% of the triangle rows executed were needed by a lane
+// and 77% of lane-steps did work (scripts/k6_coherence.py). Here:
+//  (a) the compact hit table (KernelScene.hit, 67,200 bytes for mesh) and
+//      the small tables are staged into each resident block's dynamic
+//      shared memory once (stage_scene: a TMA bulk copy on an mbarrier that
+//      the block waits on before its first scan) and the scan reads them
+//      there (SharedRows). A scene whose tables exceed the budget the
+//      wrapper states (trace_kernel.K6_SHARED_BUDGET) reads its rows through
+//      the read-only path (GlobalRows), chosen from the table's size before
+//      the launch, never on failure;
+//  (c) the production schedule (K6_SORT 1): a grid of the resident blocks
+//      (2 of 256 threads an SM) takes chunks of up to K6_WINDOW (1,024)
+//      consecutive rays (chunk_window: smaller when a frame has fewer
+//      chunks than the card has blocks). Before each step a block packs the chunk's live
+//      rays with their tile-entry keys (entry_key: the tiles the ray's line
+//      enters) and bitonic-sorts them in shared memory, so a warp's 32 rays
+//      enter the same tiles: 38% of the rows executed are needed. The warps
+//      then take groups of 32 sorted rays, those whose keys hold the most
+//      tiles first, read their state, give each one bounce and write it
+//      back; the chunk's state stays in L2 between steps. A ray's index
+//      travels with it: its draws and rows use it.
+//  (b) the alternative schedule (K6_SORT 0): a persistent grid whose warps
+//      keep one ray a lane for the whole call and, once K6_REFILL_MIN of a
+//      warp's lanes stopped, write their rays out and take as many new ones
+//      from a global counter (scratch the wrapper zeroes) with one warp-
+//      aggregated atomicAdd. It lifts lane-steps doing work from 77% to 79%
+//      only: paths are 6 to 12 bounces long, so little tail is left.
+// Measured on the H100 (scripts/ablate_k6.py, PERF.md): the chunk sort with
+// the shared table and the group order 1.70 ms at the preview frame,
+// without the group order 1.96 ms, the refill kernel 3.1 ms, the parent
+// 4.05-4.12 ms.
 
 #include "isect_full.cuh"
 
 using namespace pt;
 
 namespace {
+
+// K6's design choices, fixed at build time; scripts/ablate_k6.py builds the
+// kernel with others (-D...) to time each part
+#ifndef K6_THREADS
+#define K6_THREADS 256  // threads a block
+#endif
+#ifndef K6_MIN_BLOCKS
+#define K6_MIN_BLOCKS 1  // resident blocks an SM the registers must allow
+#endif
+#ifndef K6_REFILL_MIN
+#define K6_REFILL_MIN 4  // stopped lanes of a warp that make it take new rays
+#endif
+#ifndef K6_PERSISTENT
+#define K6_PERSISTENT 1  // 0: one thread a ray, a block per K6_THREADS rays
+#endif
+#ifndef K6_SHARED_TABLE
+#define K6_SHARED_TABLE 1  // 0: every scene reads its rows from device memory
+#endif
+#ifndef K6_SORT
+// 1: a block takes chunks of K6_WINDOW rays and, before each step, packs
+// the chunk's live rays and sorts them by tile-entry key (K3's chunk sort,
+// step by step); its warps trace the sorted rays, one bounce each, through
+// the state in device memory. 0: the persistent refill kernel
+#define K6_SORT 1
+#endif
+#ifndef K6_WINDOW
+#define K6_WINDOW 1024  // the most rays a chunk under K6_SORT (a power of two)
+#endif
+#ifndef K6_SORT_BY_KEY
+#define K6_SORT_BY_KEY 1  // 0: K6_SORT packs the live rays without sorting
+#endif
+#ifndef K6_GROUP_ORDER
+// 1: under K6_SORT, warps take the groups of 32 sorted rays whose keys
+// hold the most tiles first (K3's group order), so a step's last groups
+// are short
+#define K6_GROUP_ORDER 1
+#endif
+static_assert(K6_THREADS % 32 == 0 && K6_THREADS <= 1024, "K6_THREADS");
+static_assert(K6_WINDOW >= 128 && K6_WINDOW <= 8192 &&
+                  (K6_WINDOW & (K6_WINDOW - 1)) == 0,
+              "K6_WINDOW: a power of two, 128 .. 8192");
+constexpr int MIN_WINDOW = 128;
+static_assert(K6_REFILL_MIN >= 1 && K6_REFILL_MIN <= 32,
+              "K6_REFILL_MIN: 1 .. 32");
+
+constexpr unsigned FULL = 0xffffffffu;
 
 // Row offsets of the state [STATE_ROWS, n] (trace_kernel.py ROW_*)
 constexpr int ROW_O = 0, ROW_D = 3, ROW_THR = 6, ROW_ACC = 9, ROW_ALIVE = 12,
@@ -92,6 +181,65 @@ __device__ __forceinline__ void store_ray(float* st, int n, int i,
   }
   st[ROW_ALIVE * n + i] = r.alive ? 1.0f : 0.0f;
   st[ROW_PREV * n + i] = r.prev;
+}
+
+// The preview's camera (render/raygen.py camera_arrays): sensor origin, the
+// two sensor vectors, the lens center, and the image size
+struct PreviewCam {
+  float so[3], su[3], sv[3], lc[3];
+  int width, height;
+};
+
+// cam_host: 12 host floats (so, su, sv, lc), or NULL: no camera
+PreviewCam make_preview_cam(const float* cam_host, int width, int height) {
+  PreviewCam cam{};
+  for (int k = 0; k < 3 && cam_host != nullptr; ++k) {
+    cam.so[k] = cam_host[k];
+    cam.su[k] = cam_host[3 + k];
+    cam.sv[k] = cam_host[6 + k];
+    cam.lc[k] = cam_host[9 + k];
+  }
+  cam.width = width;
+  cam.height = height;
+  return cam;
+}
+
+// A fresh ray of sample s of pixel pix (both >= 0) under the path key: the
+// preview's camera_rays, in generate_rays' operation order. It divides by
+// W and H where K1's camera_ray (common.cuh) multiplies by 1/W and 1/H, a
+// different rounding.
+__device__ __forceinline__ void preview_ray(const PreviewCam& cam, int pix,
+                                            int s, uint32_t key, Ray& r) {
+  const int row = pix / cam.width;
+  const float y = static_cast<float>(cam.height - 1 - row);
+  const float x = static_cast<float>(pix - row * cam.width);
+  const float ysub = static_cast<float>((s >> 1) & 1);
+  const float xsub = static_cast<float>(s & 1);
+  const float xf = tent(to_uniform(mix32(key, 4u)));  // depth 0, slot 4
+  const float yf = tent(to_uniform(mix32(key, 5u)));  // depth 0, slot 5
+  const float sx =
+      (x + 0.5f * (0.5f + xsub + xf)) / static_cast<float>(cam.width) - 0.5f;
+  const float sy =
+      (y + 0.5f * (0.5f + ysub + yf)) / static_cast<float>(cam.height) - 0.5f;
+  float dd[3];
+  for (int k = 0; k < 3; ++k)
+    dd[k] = cam.lc[k] - (cam.so[k] + cam.su[k] * sx + cam.sv[k] * sy);
+  const float dl = rsqrtf(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]);
+  for (int k = 0; k < 3; ++k) {
+    r.o[k] = cam.lc[k];
+    r.d[k] = dd[k] * dl;
+    r.thr[k] = 1.0f;
+    r.acc[k] = 0.0f;
+  }
+  r.alive = true;
+  r.prev = -1.0f;
+}
+
+__device__ __forceinline__ uint32_t ray_key(uint32_t seed,
+                                            const int* pixel_idx,
+                                            const int* sample_idx, int i) {
+  return mix32(pixel_key(seed, pixel_idx[i]),
+               static_cast<uint32_t>(sample_idx[i]));
 }
 
 // Shading uniform `slot` of segment `depth`: the table row depth * 4 + slot,
@@ -135,16 +283,50 @@ __device__ __forceinline__ void bounce(Ray& r, bool found,
   r.alive = alive_new;
 }
 
+// What a stepped call is given, besides the scene
+struct StepArgs {
+  PreviewCam cam;  // the camera entry's
+  const int* pixel_idx;
+  const int* sample_idx;
+  int n;
+  uint32_t seed;
+  int depth0, n_steps, max_depth, rr_start_depth;
+  const float* uniforms;
+  float* state;
+  int* counts;
+  int* next;  // K6's ray counter, zero at launch
+  int window;  // K6_SORT's rays a chunk (chunk_window)
+};
+
+// Ray i at the start of a call: made by the camera entry, else read from
+// the state. Returns whether it is alive, and its path key if so.
+template <bool kCamera>
+__device__ __forceinline__ bool start_ray(const StepArgs& a, int i, Ray& r,
+                                          uint32_t& key) {
+  if constexpr (kCamera) {
+    key = ray_key(a.seed, a.pixel_idx, a.sample_idx, i);
+    preview_ray(a.cam, a.pixel_idx[i], a.sample_idx[i], key, r);
+    return true;
+  } else {
+    r = load_ray(a.state, a.n, i);
+    if (r.alive) key = ray_key(a.seed, a.pixel_idx, a.sample_idx, i);
+    return r.alive;
+  }
+}
+
+// Ray i at the end of a call, after `steps` steps
+template <bool kCamera>
+__device__ __forceinline__ void finish_ray(const StepArgs& a, int i,
+                                           const Ray& r, int steps) {
+  store_ray(a.state, a.n, i, r);
+  a.counts[i] = kCamera ? steps : a.counts[i] + steps;
+}
+
+template <bool kCamera>
 __global__ void __launch_bounds__(THREADS)
 trace_stepped_static_kernel(const float* __restrict__ prims_g, int n_prims,
                             const float* __restrict__ gates_g, int n_gates,
-                            const int* __restrict__ pixel_idx,
-                            const int* __restrict__ sample_idx, int n,
-                            uint32_t seed, int depth0, int n_steps,
-                            int max_depth, int rr_start_depth,
-                            const float* __restrict__ uniforms,
-                            float* __restrict__ state,
-                            int* __restrict__ counts) {
+                            const StepArgs a) {
   extern __shared__ float smem[];
   float* prims = smem;
   float* gates = smem + n_prims * PRIM_F;
@@ -155,18 +337,17 @@ trace_stepped_static_kernel(const float* __restrict__ prims_g, int n_prims,
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(state, n, i);
-  if (!r.alive) return;  // dead: nothing to trace and nothing to write
-  const uint32_t key = mix32(pixel_key(seed, pixel_idx[i]),
-                             static_cast<uint32_t>(sample_idx[i]));
+  if (i >= a.n) return;
+  Ray r;
+  uint32_t key = 0u;
+  if (!start_ray<kCamera>(a, i, r, key)) return;  // dead: nothing to write
   int steps = 0;
-  for (int s = 0; s < n_steps && r.alive; ++s) {
+  for (int s = 0; s < a.n_steps && r.alive; ++s) {
     ++steps;
-    const int depth = depth0 + s;
+    const int depth = a.depth0 + s;
     float u[4];
     for (int k = 0; k < 4; ++k)
-      u[k] = step_uniform(uniforms, n, i, key, depth, k);
+      u[k] = step_uniform(a.uniforms, a.n, i, key, depth, k);
     float tmin;
     const int best = prim_scan(prims, n_prims, gates, r.o, r.d,
                                static_cast<int>(r.prev), tmin);
@@ -175,40 +356,254 @@ trace_stepped_static_kernel(const float* __restrict__ prims_g, int n_prims,
     if (best >= 0) prim_surface(row, r.o, r.d, tmin, point, nrm);
     bounce(r, best >= 0, point, nrm, row + COL_COLOR, row + COL_EMIS,
            row[COL_RTYPE], best >= 0 ? row[COL_PREVID] : -1.0f, u, depth + 1,
-           max_depth, rr_start_depth);
+           a.max_depth, a.rr_start_depth);
   }
-  store_ray(state, n, i, r);
-  counts[i] += steps;
+  finish_ray<kCamera>(a, i, r, steps);
 }
 
-__global__ void __launch_bounds__(THREADS)
-trace_stepped_prim_kernel(FullScene sc, const int* __restrict__ pixel_idx,
-                          const int* __restrict__ sample_idx, int n,
-                          uint32_t seed, int depth0, int n_steps,
-                          int max_depth, int rr_start_depth,
-                          const float* __restrict__ uniforms,
-                          float* __restrict__ state,
-                          int* __restrict__ counts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(state, n, i);
-  if (!r.alive) return;
-  const uint32_t key = mix32(pixel_key(seed, pixel_idx[i]),
-                             static_cast<uint32_t>(sample_idx[i]));
-  int steps = 0;
-  for (int s = 0; s < n_steps && r.alive; ++s) {
-    ++steps;
-    const int depth = depth0 + s;
-    float u[4];
-    for (int k = 0; k < 4; ++k)
-      u[k] = step_uniform(uniforms, n, i, key, depth, k);
-    Hit h;
-    isect_full(sc, r.o, r.d, r.prev, true, h);
-    bounce(r, h.found, h.point, h.nrm, h.color, h.emis, h.rtype, h.new_prev,
-           u, depth + 1, max_depth, rr_start_depth);
+// K6: a lane's ray, its index, path key and the steps it took in this call
+struct Lane {
+  Ray r;
+  int i;
+  uint32_t key;
+  int steps;
+};
+
+template <class R, bool kCamera>
+__global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS)
+trace_stepped_prim_kernel(const FullScene g, const StepArgs a) {
+  constexpr bool kShared = R::F == HIT_F;
+  extern __shared__ __align__(16) unsigned char table_smem[];
+  __shared__ uint64_t table_bar;
+  FullScene sc = g;
+  if constexpr (kShared) sc = stage_scene(g, table_smem, &table_bar);
+  __syncthreads();  // the only barrier: after it, warps go their own way
+  bool table_ready = !kShared;
+
+  const int lane = threadIdx.x & 31;
+  const int wave = gridDim.x * K6_THREADS;
+  // A lane holds a ray that runs (has), or one that stopped and waits to be
+  // written out with its warp's next refill, so that one divergent branch
+  // stores and loads for all the lanes it refills (pending)
+  Lane l;
+  bool has = false, pending = false;
+  const int first = blockIdx.x * K6_THREADS + threadIdx.x;
+  if (first < a.n) {
+    l.i = first;
+    l.steps = 0;
+    has = start_ray<kCamera>(a, first, l.r, l.key);
   }
-  store_ray(state, n, i, r);
-  counts[i] += steps;
+  bool more = K6_PERSISTENT && wave < a.n;  // warp-uniform
+  while (true) {
+    const unsigned idle = __ballot_sync(FULL, !has);
+    if (pending && !more) {  // no refill will come
+      finish_ray<kCamera>(a, l.i, l.r, l.steps);
+      pending = false;
+    }
+    if (more && __popc(idle) >= K6_REFILL_MIN) {
+      const int k = __popc(idle);
+      const int leader = __ffs(idle) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(a.next, k);
+      base = wave + __shfl_sync(FULL, base, leader);
+      if (base + k >= a.n) more = false;
+      if (!has) {
+        if (pending) {
+          finish_ray<kCamera>(a, l.i, l.r, l.steps);
+          pending = false;
+        }
+        const int i = base + __popc(idle & ((1u << lane) - 1u));
+        if (i < a.n) {
+          l.i = i;
+          l.steps = 0;
+          has = start_ray<kCamera>(a, i, l.r, l.key);
+        }
+      }
+      continue;  // rays dead on entry leave their lanes idle: refill again
+    }
+    if (__ballot_sync(FULL, has) == 0) {
+      if (!more) break;
+      continue;
+    }
+    if (!table_ready) {
+      wait_bulk(&table_bar);
+      table_ready = true;
+    }
+    if (has) {
+      const int depth = a.depth0 + l.steps;
+      ++l.steps;
+      float u[4];
+      for (int k = 0; k < 4; ++k)
+        u[k] = step_uniform(a.uniforms, a.n, l.i, l.key, depth, k);
+      Hit h;
+      isect_full<R>(sc, l.r.o, l.r.d, l.r.prev, true, h);
+      bounce(l.r, h.found, h.point, h.nrm, h.color, h.emis, h.rtype,
+             h.new_prev, u, depth + 1, a.max_depth, a.rr_start_depth);
+      if (!l.r.alive || l.steps == a.n_steps) {
+        has = false;
+        pending = true;
+      }
+    }
+  }
+  if (!table_ready) wait_bulk(&table_bar);  // no copy outlives its block
+}
+
+// K6 under K6_SORT: chunks of a.window consecutive rays, a block a chunk
+// at a time. Before each step the block packs the chunk's live rays (a
+// warp scan and a block scan, in ray order) with their tile-entry keys and
+// bitonic-sorts them by key in shared memory; then each warp takes the next
+// group of 32 sorted rays until none is left, reads their state, gives each
+// one bounce and writes it back. A ray's arithmetic is the refill kernel's,
+// so the result does not depend on the schedule.
+template <class R, bool kCamera>
+__global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS)
+trace_stepped_prim_sorted_kernel(const FullScene g, const StepArgs a) {
+  constexpr bool kShared = R::F == HIT_F;
+  constexpr int kWarps = K6_THREADS / 32;
+  extern __shared__ __align__(16) unsigned char table_smem[];
+  __shared__ uint64_t table_bar;
+  __shared__ uint32_t keys[K6_WINDOW];
+  __shared__ uint16_t vals[K6_WINDOW];  // the ray's place in its chunk
+  __shared__ int warp_sum[kWarps];
+  __shared__ int next_group;
+  __shared__ uint16_t group_order[K6_GROUP_ORDER ? K6_WINDOW / 32 : 1];
+  FullScene sc = g;
+  if constexpr (kShared) sc = stage_scene(g, table_smem, &table_bar);
+  __syncthreads();
+  bool table_ready = !kShared;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int window = a.window;
+  const int n_chunks = (a.n + window - 1) / window;
+
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int base = chunk * window;
+    for (int s = 0; s < a.n_steps; ++s) {
+      const bool fresh = kCamera && s == 0;  // the camera entry's rays
+      // ---- pack: the chunk's live rays in ray order, with their keys ----
+      if (tid == 0) next_group = 0;
+      int total = 0;
+      for (int c0 = 0; c0 < window; c0 += K6_THREADS) {
+        const int cl = c0 + tid;
+        const int i = base + cl;
+        Ray r;
+        uint32_t key = 0u;
+        bool live = false;
+        if (cl < window && i < a.n) {
+          if (fresh) {
+            live = start_ray<true>(a, i, r, key);
+          } else if (a.state[ROW_ALIVE * a.n + i] > 0.0f) {
+            live = true;
+            for (int k = 0; k < 3; ++k) {
+              r.o[k] = a.state[(ROW_O + k) * a.n + i];
+              r.d[k] = a.state[(ROW_D + k) * a.n + i];
+            }
+          }
+        }
+        int incl = live ? 1 : 0;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int v = __shfl_up_sync(FULL, incl, off);
+          if (lane >= off) incl += v;
+        }
+        if (lane == 31) warp_sum[warp] = incl;
+        __syncthreads();
+        int pos = total + incl - (live ? 1 : 0);
+        for (int w = 0; w < kWarps; ++w) {
+          const int v = warp_sum[w];
+          if (w < warp) pos += v;
+          total += v;
+        }
+        if (live) {
+          keys[pos] = entry_key<R>(sc, r.o, r.d);
+          vals[pos] = static_cast<uint16_t>(cl);
+        }
+        __syncthreads();  // warp_sum is read before the next round writes it
+      }
+      if (total == 0) break;  // block-uniform: the chunk's rays are all dead
+      // ---- sort the live rays by key (bitonic, padded to 2^k) ----
+      if (K6_SORT_BY_KEY && sc.n_tiles > 0 && total > 1) {
+        int len = 32;
+        while (len < total) len <<= 1;
+        for (int i = total + tid; i < len; i += K6_THREADS) keys[i] = 0xffffffffu;
+        __syncthreads();
+        for (int k = 2; k <= len; k <<= 1) {
+          for (int j = k >> 1; j > 0; j >>= 1) {
+            for (int i = tid; i < len; i += K6_THREADS) {
+              const int ixj = i ^ j;
+              if (ixj > i) {
+                const uint32_t x = keys[i], y = keys[ixj];
+                if ((x > y) == ((i & k) == 0)) {
+                  keys[i] = y;
+                  keys[ixj] = x;
+                  const uint16_t t = vals[i];
+                  vals[i] = vals[ixj];
+                  vals[ixj] = t;
+                }
+              }
+            }
+            __syncthreads();
+          }
+        }
+      }
+      if (!table_ready) {
+        wait_bulk(&table_bar);
+        table_ready = true;
+      }
+      // ---- trace: a warp takes the next group of 32 sorted rays ----
+      const int groups = (total + 31) / 32;
+      if (K6_GROUP_ORDER && warp == 0) {  // a counting sort by key tiles
+        int start = 0;  // lane c counts the groups of 32 - c tiles (31: 0-1)
+        for (int q = 0; q < groups; ++q) {
+          const int it = q * 32 + lane;
+          const int c = min(32 - __popc(__reduce_or_sync(
+                                     FULL, it < total ? keys[it] : 0u)), 31);
+          if (lane == c) start += 1;
+        }
+        int incl = start;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int v = __shfl_up_sync(FULL, incl, off);
+          if (lane >= off) incl += v;
+        }
+        int at = incl - start;
+        for (int q = 0; q < groups; ++q) {
+          const int it = q * 32 + lane;
+          const int c = min(32 - __popc(__reduce_or_sync(
+                                     FULL, it < total ? keys[it] : 0u)), 31);
+          if (lane == c) group_order[at++] = static_cast<uint16_t>(q);
+        }
+        __syncwarp();
+      }
+      if (K6_GROUP_ORDER) __syncthreads();
+      for (;;) {
+        int q = 0;
+        if (lane == 0) q = atomicAdd(&next_group, 1);
+        q = __shfl_sync(FULL, q, 0);
+        if (q >= groups) break;
+        const int it = (K6_GROUP_ORDER ? group_order[q] : q) * 32 + lane;
+        if (it >= total) continue;
+        const int i = base + vals[it];
+        Ray r;
+        uint32_t key = 0u;
+        if (fresh) {
+          start_ray<true>(a, i, r, key);
+        } else {
+          r = load_ray(a.state, a.n, i);
+          key = ray_key(a.seed, a.pixel_idx, a.sample_idx, i);
+        }
+        const int depth = a.depth0 + s;
+        float u[4];
+        for (int k = 0; k < 4; ++k)
+          u[k] = step_uniform(a.uniforms, a.n, i, key, depth, k);
+        Hit h;
+        isect_full<R>(sc, r.o, r.d, r.prev, true, h);
+        bounce(r, h.found, h.point, h.nrm, h.color, h.emis, h.rtype,
+               h.new_prev, u, depth + 1, a.max_depth, a.rr_start_depth);
+        store_ray(a.state, a.n, i, r);
+        a.counts[i] = fresh ? 1 : a.counts[i] + 1;
+      }
+      __syncthreads();  // the next step reads the rays this one wrote
+    }
+  }
+  if (!table_ready) wait_bulk(&table_bar);  // no copy outlives its block
 }
 
 // K7: one bounce at each ray's own depth. `in` and `out` are [16, n]: the
@@ -248,52 +643,193 @@ trace_resolve_kernel(FullScene sc, const float* __restrict__ in,
   out[ROW_COUNT * n + i] = alive_f;
 }
 
-bool stepped_args_ok(int n, int depth0, int n_steps, int max_depth) {
-  return n > 0 && depth0 >= 0 && n_steps > 0 && max_depth > 0;
+// Checks of a stepped call's arguments; a camera entry starts at depth 0
+bool stepped_args_ok(const StepArgs& a, bool camera) {
+  return a.n > 0 && a.depth0 >= 0 && a.n_steps > 0 && a.max_depth > 0 &&
+         (!camera || (a.depth0 == 0 && a.cam.width > 0 && a.cam.height > 0));
+}
+
+StepArgs step_args(const float* cam, int width, int height,
+                   const int* pixel_idx, const int* sample_idx, int n,
+                   uint32_t seed, int depth0, int n_steps, int max_depth,
+                   int rr_start_depth, const float* uniforms, float* state,
+                   int* counts, int* next) {
+  return StepArgs{make_preview_cam(cam, width, height),
+                  pixel_idx, sample_idx, n, seed, depth0, n_steps, max_depth,
+                  rr_start_depth, uniforms, state, counts, next, K6_WINDOW};
+}
+
+// K6_SORT's rays a chunk for n rays on `resident` blocks: the smallest power
+// of two down from K6_WINDOW (to MIN_WINDOW) that takes no more waves of the
+// resident blocks than K6_WINDOW itself. A chunk of half the rays takes
+// about four fifths of the time (PERF.md), so a frame of fewer chunks than
+// blocks runs in smaller chunks on more of them.
+int chunk_window(int n, int resident) {
+  const auto waves = [&](int w) {
+    return ((n + w - 1) / w + resident - 1) / resident;
+  };
+  int w = K6_WINDOW;
+  while (w > MIN_WINDOW && waves(w / 2) <= waves(K6_WINDOW)) w /= 2;
+  return w;
+}
+
+// K6's kernel for a table path and entry
+using PrimKernel = void (*)(const FullScene, const StepArgs);
+
+PrimKernel prim_kernel_for(bool shared, bool camera) {
+#if K6_SORT
+  if (shared)
+    return camera ? trace_stepped_prim_sorted_kernel<SharedRows, true>
+                  : trace_stepped_prim_sorted_kernel<SharedRows, false>;
+  return camera ? trace_stepped_prim_sorted_kernel<GlobalRows, true>
+                : trace_stepped_prim_sorted_kernel<GlobalRows, false>;
+#else
+  if (shared)
+    return camera ? trace_stepped_prim_kernel<SharedRows, true>
+                  : trace_stepped_prim_kernel<SharedRows, false>;
+  return camera ? trace_stepped_prim_kernel<GlobalRows, true>
+                : trace_stepped_prim_kernel<GlobalRows, false>;
+#endif
+}
+
+// K6's launch configuration for a table path and entry on the current card:
+// out[0] the dynamic shared memory a block takes (bytes), out[1] resident
+// blocks per SM, out[2] threads a block, out[3] SMs, out[4] registers a
+// thread, out[5] local (spill) bytes a thread, out[6] K6_REFILL_MIN, out[7]
+// K6_PERSISTENT, out[8] the shared memory a block may opt in to (bytes),
+// out[9] K6_SORT, out[10] K6_WINDOW (the most rays a chunk), out[11] the
+// static shared memory a block takes (bytes)
+cudaError_t prim_config(const FullScene& sc, bool shared, bool camera,
+                        int* out) {
+  const PrimKernel fn = prim_kernel_for(shared, camera);
+  const int smem =
+      shared ? scene_layout(sc.n_tri, sc.n_sph, sc.n_bnd, sc.n_tiles).bytes : 0;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[8], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], fn, K6_THREADS,
+                                                      smem);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return e;
+  out[0] = smem;
+  out[2] = K6_THREADS;
+  out[4] = fa.numRegs;
+  out[5] = static_cast<int>(fa.localSizeBytes);
+  out[6] = K6_REFILL_MIN;
+  out[7] = K6_PERSISTENT;
+  out[9] = K6_SORT;
+  out[10] = K6_WINDOW;
+  out[11] = static_cast<int>(fa.sharedSizeBytes);
+  return out[1] < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+FullScene full_scene(const float* sph, int n_sph, const float* bnd, int n_bnd,
+                     const float* tri, int n_tri, const float* hit,
+                     const float* tiles, int n_tiles, int tile_base) {
+  return FullScene{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
+                   tile_base, hit};
 }
 
 }  // namespace
 
 // K5 on `stream`: one call of n_steps bounces over the state [14, n]
-// (updated in place) and counts [n] (added to). uniforms is NULL for the
-// counter generator, else the whole [max_depth * 4, n] table. Returns
+// (updated in place) and counts [n] (added to); with a camera (cam: 12 host
+// floats so, su, sv, lc, and the image's width and height; NULL: none) the
+// call is the camera entry, which starts the rays at depth0 0 and writes
+// every state row and the counts. uniforms is NULL for the counter
+// generator, else the whole [max_depth * 4, n] table. Returns
 // cudaGetLastError() after the launch.
 extern "C" int pt_trace_stepped_static(
     const float* prims, int n_prims, const float* gates, int n_gates,
-    const int* pixel_idx, const int* sample_idx, int n, uint32_t seed,
-    int depth0, int n_steps, int max_depth, int rr_start_depth,
-    const float* uniforms, float* state, int* counts, void* stream) {
+    const float* cam, int width, int height, const int* pixel_idx,
+    const int* sample_idx, int n, uint32_t seed, int depth0, int n_steps,
+    int max_depth, int rr_start_depth, const float* uniforms, float* state,
+    int* counts, void* stream) {
   if (n <= 0) return 0;
-  if (!stepped_args_ok(n, depth0, n_steps, max_depth) || n_prims <= 0 ||
+  const StepArgs a =
+      step_args(cam, width, height, pixel_idx, sample_idx, n, seed, depth0,
+                n_steps, max_depth, rr_start_depth, uniforms, state, counts,
+                nullptr);
+  if (!stepped_args_ok(a, cam != nullptr) || n_prims <= 0 ||
       n_prims > MAX_PRIMS || n_gates < 0 || n_gates > MAX_PRIMS)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       static_cast<size_t>(n_prims * PRIM_F + n_gates * GATE_F) * sizeof(float);
   const int blocks = (n + THREADS - 1) / THREADS;
-  trace_stepped_static_kernel<<<blocks, THREADS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      prims, n_prims, gates, n_gates, pixel_idx, sample_idx, n, seed, depth0,
-      n_steps, max_depth, rr_start_depth, uniforms, state, counts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cam != nullptr)
+    trace_stepped_static_kernel<true><<<blocks, THREADS, smem, st>>>(
+        prims, n_prims, gates, n_gates, a);
+  else
+    trace_stepped_static_kernel<false><<<blocks, THREADS, smem, st>>>(
+        prims, n_prims, gates, n_gates, a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6's launch configuration (prim_config's out[0..11]) for a scene of these
+// table sizes: shared 1 for the table in shared memory, camera 1 for the
+// camera entry. Returns a CUDA error code (cudaErrorInvalidConfiguration:
+// no block fits on an SM).
+extern "C" int pt_trace_stepped_prim_config(int n_sph, int n_bnd, int n_tri,
+                                            int n_tiles, int shared,
+                                            int camera, int* out) {
+  const FullScene sc = full_scene(nullptr, n_sph, nullptr, n_bnd, nullptr,
+                                  n_tri, nullptr, nullptr, n_tiles, 0);
+  return static_cast<int>(prim_config(sc, shared != 0 && K6_SHARED_TABLE,
+                                      camera != 0, out));
+}
+
+// Whether K6 runs the chunk sort (K6_SORT), whose launch takes no ray
+// counter
+extern "C" {
+int pt_trace_stepped_prim_sort = K6_SORT;
+}
+
 // K6 on `stream`: as pt_trace_stepped_static over the table-driven scene.
+// hit is KernelScene.hit ([n_tri, 20], 16-byte aligned), whose rows the
+// scan reads from shared memory, or NULL for the read-only path. next: one
+// int on the device, zero at launch (the refill kernel's ray counter; NULL
+// under K6_SORT).
 extern "C" int pt_trace_stepped_prim(
     const float* sph, int n_sph, const float* bnd, int n_bnd,
-    const float* tri, int n_tri, const float* tiles, int n_tiles,
-    int tile_base, const int* pixel_idx, const int* sample_idx, int n,
-    uint32_t seed, int depth0, int n_steps, int max_depth, int rr_start_depth,
-    const float* uniforms, float* state, int* counts, void* stream) {
+    const float* tri, int n_tri, const float* hit, const float* tiles,
+    int n_tiles, int tile_base, const float* cam, int width, int height,
+    const int* pixel_idx, const int* sample_idx, int n, uint32_t seed,
+    int depth0, int n_steps, int max_depth, int rr_start_depth,
+    const float* uniforms, float* state, int* counts, int* next,
+    void* stream) {
   if (n <= 0) return 0;
-  const FullScene sc{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
-                     tile_base};
-  if (!stepped_args_ok(n, depth0, n_steps, max_depth) || !full_scene_ok(sc))
+  const FullScene sc = full_scene(sph, n_sph, bnd, n_bnd, tri, n_tri, hit,
+                                  tiles, n_tiles, tile_base);
+  StepArgs a = step_args(cam, width, height, pixel_idx, sample_idx, n, seed,
+                         depth0, n_steps, max_depth, rr_start_depth, uniforms,
+                         state, counts, next);
+  const bool shared = hit != nullptr && K6_SHARED_TABLE;
+  if (!stepped_args_ok(a, cam != nullptr) || !full_scene_ok(sc) ||
+      (!K6_SORT && next == nullptr) ||
+      (shared && (reinterpret_cast<uintptr_t>(hit) & 15u)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + THREADS - 1) / THREADS;
-  trace_stepped_prim_kernel<<<blocks, THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      sc, pixel_idx, sample_idx, n, seed, depth0, n_steps, max_depth,
-      rr_start_depth, uniforms, state, counts);
+  int cfg[12];
+  const cudaError_t e = prim_config(sc, shared, cam != nullptr, cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int resident = cfg[1] * cfg[3];
+  a.window = chunk_window(n, resident);
+  const int blocks = K6_SORT ? (n + a.window - 1) / a.window
+                             : (n + K6_THREADS - 1) / K6_THREADS;
+  const int grid =
+      (K6_PERSISTENT || K6_SORT) && blocks > resident ? resident : blocks;
+  const PrimKernel kernel = prim_kernel_for(shared, cam != nullptr);
+  kernel<<<grid, K6_THREADS, cfg[0], static_cast<cudaStream_t>(stream)>>>(sc,
+                                                                          a);
   return static_cast<int>(cudaGetLastError());
 }
 

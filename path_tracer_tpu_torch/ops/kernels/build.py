@@ -83,10 +83,14 @@ def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
 
 
 @functools.lru_cache(maxsize=None)
-def load_kernel(source: str, fmad: bool = True) -> Built:
+def load_kernel(source: str, fmad: bool = True,
+                defines: tuple[str, ...] = ()) -> Built:
     """Build (once per source hash and flags) and load a kernel library;
-    ``fmad=False`` builds it with ``--fmad=false`` (no FMA contraction)."""
-    built = build(source, () if fmad else ("--fmad=false",))
+    ``fmad=False`` builds it with ``--fmad=false`` (no FMA contraction);
+    ``defines`` ("NAME=VALUE", ...) become -D flags, a source's build-time
+    design choices."""
+    built = build(source, tuple(f"-D{d}" for d in defines)
+                  + (() if fmad else ("--fmad=false",)))
     err = built.lib.pt_cuda_error_string
     err.restype = ctypes.c_char_p
     err.argtypes = [ctypes.c_int]

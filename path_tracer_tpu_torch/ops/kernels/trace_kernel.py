@@ -18,7 +18,10 @@ Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
 - K6 ``trace_stepped`` (``csrc/trace_stepped.cu``) and its plain version
   ``trace_stepped_plain``: the stepped trace of given rays over the full
   scene (the JAX ``trace_pallas``), with the state, call loop and draws it
-  shares with K5 (``trace_v2.trace_stepped``);
+  shares with K5 (``trace_v2.trace_stepped``); ``trace_camera`` and
+  ``trace_camera_plain``: its camera entry, which makes the preview's
+  camera rays in the kernel; ``K6_SHARED_BUDGET``, the size rule that
+  stages a scene's tables in shared memory;
 - K7 ``trace_resolve`` (``pt_trace_resolve`` of ``csrc/trace_stepped.cu``)
   and ``trace_resolve_plain``: one full-scene bounce at each ray's own depth
   (the JAX ``trace_pallas_resolve``), the portal schedulers' resolve;
@@ -52,7 +55,9 @@ import torch
 from path_tracer_tpu_torch.models.scene import ScenePacked
 from path_tracer_tpu_torch.ops import rng
 from path_tracer_tpu_torch.ops.kernels.build import check_launch, load_kernel
-from path_tracer_tpu_torch.render.raygen import tent_filter
+from path_tracer_tpu_torch.render.raygen import (
+    camera_rays, preview_cam_params, tent_filter,
+)
 
 F32 = torch.float32
 
@@ -969,12 +974,8 @@ CSRC_STEPPED = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "csrc", "trace_stepped.cu")
 
 
-def check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
-                       uniforms):
-    """Argument checks shared by K5 and K6 and their plain versions."""
-    n = o.shape[0]
-    if o.shape != (n, 3) or d.shape != (n, 3) or o.dtype != F32 or d.dtype != F32:
-        raise ValueError("o and d must be [N, 3] float32")
+def _check_ray_args(n, pixel_idx, sample_idx, max_depth, steps_per_call,
+                    uniforms):
     for name, t in (("pixel_idx", pixel_idx), ("sample_idx", sample_idx)):
         if t.shape != (n,) or t.dtype != torch.int32:
             raise ValueError(f"{name} must be a [N] int32 tensor")
@@ -987,6 +988,27 @@ def check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
         if max_depth % min(steps_per_call, max_depth):
             raise ValueError(f"with injected uniforms, steps_per_call="
                              f"{steps_per_call} must divide max_depth={max_depth}")
+
+
+def check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
+                       uniforms):
+    """Argument checks shared by K5 and K6 and their plain versions."""
+    n = o.shape[0]
+    if o.shape != (n, 3) or d.shape != (n, 3) or o.dtype != F32 or d.dtype != F32:
+        raise ValueError("o and d must be [N, 3] float32")
+    _check_ray_args(n, pixel_idx, sample_idx, max_depth, steps_per_call,
+                    uniforms)
+
+
+def check_camera_args(pixel_idx, sample_idx, width, height, max_depth,
+                      steps_per_call, uniforms):
+    """Argument checks of K5's and K6's camera entries."""
+    if pixel_idx.dim() != 1:
+        raise ValueError("pixel_idx must be a [N] int32 tensor")
+    if width < 1 or height < 1:
+        raise ValueError(f"need an image of at least 1x1 (got {width}x{height})")
+    _check_ray_args(pixel_idx.shape[0], pixel_idx, sample_idx, max_depth,
+                    steps_per_call, uniforms)
 
 
 def stepped_draw(seed, pixel_idx, sample_idx, uniforms):
@@ -1046,25 +1068,40 @@ def stepped_call_plain(isect, draw, state, counts, *, depth0, n_steps,
     state[ROW_PREV] = prev
 
 
-def stepped_trace(run_call, o, d, max_depth, steps_per_call):
+def call_loop(start, run_call, n, dev, max_depth, steps_per_call):
     """The JAX wrappers' call loop: ``ceil(max_depth / steps)`` calls of
     ``steps = min(steps_per_call, max_depth)`` bounces, call c starting at
-    depth ``c * steps``, over a fresh state (thr 1, radiance 0, alive, prev
-    -1). run_call(state, counts, depth0, steps) runs one call. Returns
-    (radiance [N,3] f32, rays traced as an int64 scalar tensor)."""
-    n = o.shape[0]
+    depth ``c * steps``. start(state, counts, steps) makes the first call and
+    fills every row of the state [STATE_ROWS, n] and the counts [n] it is
+    given uninitialised; run_call(state, counts, depth0, steps) makes each
+    later one. Returns (radiance [N,3] f32, rays traced as an int64 scalar
+    tensor)."""
     steps = min(steps_per_call, max_depth)
-    state = torch.empty((STATE_ROWS, n), dtype=F32, device=o.device)
-    state[ROW_O:ROW_O + 3] = o.T
-    state[ROW_D:ROW_D + 3] = d.T
-    state[ROW_THR:ROW_THR + 3] = 1.0
-    state[ROW_ACC:ROW_ACC + 3] = 0.0
-    state[ROW_ALIVE] = 1.0
-    state[ROW_PREV] = -1.0
-    counts = torch.zeros(n, dtype=torch.int32, device=o.device)
-    for c in range(-(-max_depth // steps)):
+    state = torch.empty((STATE_ROWS, n), dtype=F32, device=dev)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    start(state, counts, steps)
+    for c in range(1, -(-max_depth // steps)):
         run_call(state, counts, c * steps, steps)
     return state[ROW_ACC:ROW_ACC + 3].T.contiguous(), counts.sum(dtype=torch.int64)
+
+
+def stepped_trace(run_call, o, d, max_depth, steps_per_call):
+    """``call_loop`` over the rays o, d [N,3]: a fresh state (thr 1, radiance
+    0, alive, prev -1) and zero counts, then run_call(state, counts, depth0,
+    steps) for every call, the first included."""
+
+    def start(state, counts, steps):
+        state[ROW_O:ROW_O + 3] = o.T
+        state[ROW_D:ROW_D + 3] = d.T
+        state[ROW_THR:ROW_THR + 3] = 1.0
+        state[ROW_ACC:ROW_ACC + 3] = 0.0
+        state[ROW_ALIVE] = 1.0
+        state[ROW_PREV] = -1.0
+        counts.zero_()
+        run_call(state, counts, 0, steps)
+
+    return call_loop(start, run_call, o.shape[0], o.device, max_depth,
+                     steps_per_call)
 
 
 def trace_stepped_plain(ks: KernelScene, o, d, *, seed: int, pixel_idx,
@@ -1091,34 +1128,61 @@ def trace_stepped_plain(ks: KernelScene, o, d, *, seed: int, pixel_idx,
     return stepped_trace(run_call, o, d, max_depth, steps_per_call)
 
 
-@functools.lru_cache(maxsize=2)
-def stepped_library(fmad: bool = True):
-    """``csrc/trace_stepped.cu`` (K5 and K6) built and bound; ``fmad=False``
-    builds it without FMA contraction."""
-    built = load_kernel(CSRC_STEPPED, fmad)
-    tail = [
+def trace_camera_plain(ks: KernelScene, cam: dict, *, width: int, height: int,
+                       seed: int, pixel_idx, sample_idx, max_depth: int = 12,
+                       rr_start_depth: int = 5, steps_per_call: int = 12,
+                       uniforms=None, work=None):
+    """Plain torch version of K6's camera entry: the preview's camera rays
+    of the (pixel, sample) pairs pixel_idx, sample_idx ([N] int32) at
+    ``width`` x ``height`` (``raygen.camera_rays``; cam: ``camera_arrays``),
+    traced by ``trace_stepped_plain``. Returns (radiance [N,3] f32, rays
+    traced)."""
+    check_camera_args(pixel_idx, sample_idx, width, height, max_depth,
+                      steps_per_call, uniforms)
+    o, d = camera_rays(cam, pixel_idx, sample_idx, seed=seed, width=width,
+                       height=height)
+    return trace_stepped_plain(ks, o, d, seed=seed, pixel_idx=pixel_idx,
+                               sample_idx=sample_idx, max_depth=max_depth,
+                               rr_start_depth=rr_start_depth,
+                               steps_per_call=steps_per_call,
+                               uniforms=uniforms, work=work)
+
+
+@functools.lru_cache(maxsize=None)
+def stepped_library(fmad: bool = True, defines: tuple[str, ...] = ()):
+    """``csrc/trace_stepped.cu`` (K5, K6 and K7) built and bound;
+    ``fmad=False`` builds it without FMA contraction, ``defines`` with other
+    design choices for K6 (its ``K6_*`` -D defines)."""
+    built = load_kernel(CSRC_STEPPED, fmad, defines)
+    cam = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # cam or NULL, W, H
+    rays = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pixel, sample, n
         ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, depth0, n_steps
         ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
         ctypes.c_void_p,  # uniforms [max_depth * 4, n] or NULL
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # state, counts, stream
+        ctypes.c_void_p, ctypes.c_void_p,  # state, counts
     ]
     fn = built.lib.pt_trace_stepped_static
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int,  # prims, n_prims
-                   ctypes.c_void_p, ctypes.c_int] + tail  # gates, n_gates
+                   ctypes.c_void_p, ctypes.c_int,  # gates, n_gates
+                   *cam, *rays, ctypes.c_void_p]  # stream
     scene = [
         ctypes.c_void_p, ctypes.c_int,  # sph, S
         ctypes.c_void_p, ctypes.c_int,  # bnd, M
         ctypes.c_void_p, ctypes.c_int,  # tri, T
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
     ]
+    tiles = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # tiles, C, tile_base
     fn = built.lib.pt_trace_stepped_prim
     fn.restype = ctypes.c_int
-    fn.argtypes = scene + tail
+    fn.argtypes = [*scene, ctypes.c_void_p, *tiles,  # hit [T, HIT_F] or NULL
+                   *cam, *rays, ctypes.c_void_p, ctypes.c_void_p]  # next, stream
+    fn = built.lib.pt_trace_stepped_prim_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn = built.lib.pt_trace_resolve
     fn.restype = ctypes.c_int
-    fn.argtypes = scene + [
+    fn.argtypes = scene + tiles + [
         ctypes.c_void_p, ctypes.c_void_p,  # in, out [RESOLVE_ROWS, n]
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pixel, sample, n
         ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, depth, rr start
@@ -1148,59 +1212,134 @@ def _scene_args(ks: KernelScene):
             ks.tiles.shape[0], ks.tile_base)
 
 
-def stepped_launcher(name: str, entry: str, scene_args, *, seed, max_depth,
-                     rr_start_depth, fmad, counter):
-    """launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms):
-    one launch of K5's or K6's ``entry`` over the state [STATE_ROWS, N] on
-    the state's device (one call of ``stepped_call_plain``); each adds one
-    to ``counter.launches``."""
-    built = stepped_library(fmad)
-    fn = getattr(built.lib, entry)
+# K6 stages a scene's tables in a block's shared memory when they take at
+# most this many bytes (an H100 block may opt in to 227 KB, 232,448 bytes;
+# the rest is left to the kernel's static shared memory); a larger scene
+# reads its rows through the read-only path
+K6_SHARED_BUDGET = 216 * 1024
 
-    def launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms):
+
+def k6_table_bytes(ks: KernelScene) -> int:
+    """The shared memory K6 stages ``ks``'s tables in (``csrc/isect_full.cuh``
+    scene_layout): the compact rows, spheres, bounding spheres and tile
+    AABBs, each 16-byte aligned."""
+    return sum(-(-t.numel() * 4 // 16) * 16
+               for t in (ks.hit, ks.sph, ks.bnd, ks.tiles))
+
+
+def k6_shared_table(ks: KernelScene) -> bool:
+    """Whether K6 scans ``ks`` from shared memory: its tables fit
+    K6_SHARED_BUDGET. Decided from the table's size before a launch."""
+    return k6_table_bytes(ks) <= K6_SHARED_BUDGET
+
+
+def _prim_scene_args(ks: KernelScene):
+    hit = ks.hit.data_ptr() if k6_shared_table(ks) else None
+    return (ks.sph.data_ptr(), ks.sph.shape[0], _ptr(ks.bnd), ks.bnd.shape[0],
+            ks.tri.data_ptr(), ks.tri.shape[0], hit, _ptr(ks.tiles),
+            ks.tiles.shape[0], ks.tile_base)
+
+
+def stepped_prim_config(ks: KernelScene, *, camera: bool = False,
+                        fmad: bool = True, library=None) -> dict:
+    """K6's launch configuration for ``ks`` on the current card: dynamic
+    shared memory a block takes (bytes), resident blocks per SM, threads a
+    block, SMs, registers and local (spill) bytes a thread, the refill
+    threshold, whether the refill grid is persistent, the shared memory a
+    block may opt in to, whether the chunk sort runs and its rays a chunk,
+    the static shared memory a block takes, and whether the table is in
+    shared memory. ``camera`` asks for the camera entry's kernel."""
+    built = library or stepped_library(fmad)
+    out = (ctypes.c_int * 12)()
+    shared = k6_shared_table(ks)
+    code = built.lib.pt_trace_stepped_prim_config(
+        ks.sph.shape[0], ks.bnd.shape[0], ks.tri.shape[0], ks.tiles.shape[0],
+        int(shared), int(camera), out)
+    check_launch(built, code, "trace_stepped (K6) configuration")
+    keys = ("smem_bytes", "blocks_per_sm", "threads", "sms", "registers",
+            "local_bytes", "refill_min", "persistent", "smem_optin", "sort",
+            "window", "static_smem_bytes")
+    return dict(zip(keys, out), shared_table=shared)
+
+
+def stepped_launcher(name: str, entry: str, scene_args, *, seed, max_depth,
+                     rr_start_depth, fmad, counter, cam=None, library=None):
+    """launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms,
+    camera=False): one launch of K5's or K6's ``entry`` over the state
+    [STATE_ROWS, N] on the state's device (one call of
+    ``stepped_call_plain``), or with ``camera`` its camera entry, which
+    starts the rays from ``cam`` (12 host floats, ``preview_cam_params``;
+    width; height); each adds one to ``counter.launches``. K6's refill
+    schedule gets a zeroed ray counter a launch."""
+    built = library or stepped_library(fmad)
+    fn = getattr(built.lib, entry)
+    prim = entry == "pt_trace_stepped_prim"
+    counter_arg = prim and not ctypes.c_int.in_dll(
+        built.lib, "pt_trace_stepped_prim_sort").value
+
+    def launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms,
+               camera=False):
         dev = state.device
+        cam_args = (cam[0].data_ptr(), cam[1], cam[2]) if camera else (None, 0, 0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = fn(*scene_args, pixel_idx.data_ptr(), sample_idx.data_ptr(),
-                      state.shape[1], int(seed) & rng.MASK32, depth0, steps,
-                      max_depth, rr_start_depth, _ptr(uniforms),
-                      state.data_ptr(), counts.data_ptr(), stream)
+            nxt = torch.zeros(1, dtype=torch.int32, device=dev) if counter_arg else None
+            code = fn(*scene_args, *cam_args, pixel_idx.data_ptr(),
+                      sample_idx.data_ptr(), state.shape[1],
+                      int(seed) & rng.MASK32, depth0, steps, max_depth,
+                      rr_start_depth, _ptr(uniforms), state.data_ptr(),
+                      counts.data_ptr(), *([_ptr(nxt)] if prim else []), stream)
         check_launch(built, code, name)
         counter.launches += 1
 
     return launch
 
 
-def launch_stepped(name: str, entry: str, scene_args, tables, o, d, *, seed,
+def launch_stepped(name: str, entry: str, scene_args, tables, *, seed,
                    pixel_idx, sample_idx, max_depth, rr_start_depth,
-                   steps_per_call, uniforms, fmad, counter):
+                   steps_per_call, uniforms, fmad, counter, o=None, d=None,
+                   cam=None, width=0, height=0, library=None):
     """K5's or K6's call loop on the card: checks, then one launch of
-    ``entry`` per call over the state (``stepped_trace``); each launch adds
-    one to ``counter.launches``."""
-    dev = o.device
-    _check_on(name, dev, [*tables, o, d] + (
+    ``entry`` per call, over the rays o, d (``stepped_trace``) or, with a
+    camera ``cam`` (``camera_arrays``) at ``width`` x ``height``, from the
+    camera entry on (``call_loop``); each launch adds one to
+    ``counter.launches``."""
+    dev = pixel_idx.device
+    rays = [o, d] if cam is None else []
+    _check_on(name, dev, [*tables, *rays] + (
         [uniforms] if uniforms is not None else []), (pixel_idx, sample_idx))
-    if o.shape[0] == 0:
+    n = pixel_idx.shape[0]
+    if n == 0:
         return (torch.empty((0, 3), dtype=F32, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
+    host_cam = None if cam is None else (preview_cam_params(cam), width, height)
     launch = stepped_launcher(name, entry, scene_args, seed=seed,
                               max_depth=max_depth,
                               rr_start_depth=rr_start_depth, fmad=fmad,
-                              counter=counter)
+                              counter=counter, cam=host_cam, library=library)
 
     def run_call(state, counts, depth0, steps):
         launch(state, counts, depth0, steps, pixel_idx, sample_idx, uniforms)
 
-    return stepped_trace(run_call, o, d, max_depth, steps_per_call)
+    if cam is None:
+        return stepped_trace(run_call, o, d, max_depth, steps_per_call)
+
+    def start(state, counts, steps):
+        launch(state, counts, 0, steps, pixel_idx, sample_idx, uniforms,
+               camera=True)
+
+    return call_loop(start, run_call, n, dev, max_depth, steps_per_call)
 
 
 def trace_stepped(ks: KernelScene, o, d, *, seed: int, pixel_idx, sample_idx,
                   max_depth: int = 12, rr_start_depth: int = 5,
-                  steps_per_call: int = 12, uniforms=None, fmad: bool = True):
+                  steps_per_call: int = 12, uniforms=None, fmad: bool = True,
+                  library=None):
     """K6 (see trace_stepped_plain for the contract). CPU tensors run the
     plain version; CUDA tensors launch ``pt_trace_stepped_prim`` of
     ``csrc/trace_stepped.cu`` once per call, or raise. ``fmad=False`` builds
-    the kernel without FMA contraction."""
+    the kernel without FMA contraction; ``library`` is another build of the
+    source (``stepped_library``)."""
     dev = o.device
     kw = dict(seed=seed, pixel_idx=pixel_idx, sample_idx=sample_idx,
               max_depth=max_depth, rr_start_depth=rr_start_depth,
@@ -1212,12 +1351,37 @@ def trace_stepped(ks: KernelScene, o, d, *, seed: int, pixel_idx, sample_idx,
     check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, steps_per_call,
                        uniforms)
     return launch_stepped(
-        "trace_stepped (K6)", "pt_trace_stepped_prim", _scene_args(ks),
-        (ks.sph, ks.bnd, ks.tri, ks.tiles), o, d, fmad=fmad,
-        counter=trace_stepped, **kw)
+        "trace_stepped (K6)", "pt_trace_stepped_prim", _prim_scene_args(ks),
+        (ks.sph, ks.bnd, ks.tri, ks.hit, ks.tiles), o=o, d=d, fmad=fmad,
+        counter=trace_stepped, library=library, **kw)
 
 
 trace_stepped.launches = 0
+
+
+def trace_camera(ks: KernelScene, cam: dict, *, width: int, height: int,
+                 seed: int, pixel_idx, sample_idx, max_depth: int = 12,
+                 rr_start_depth: int = 5, steps_per_call: int = 12,
+                 uniforms=None, fmad: bool = True, library=None):
+    """K6's camera entry (see trace_camera_plain for the contract): the
+    first call makes the rays in the kernel. CPU tensors run the plain
+    version; CUDA tensors launch ``pt_trace_stepped_prim`` once per call,
+    counted on ``trace_stepped.launches``, or raise."""
+    kw = dict(seed=seed, pixel_idx=pixel_idx, sample_idx=sample_idx,
+              max_depth=max_depth, rr_start_depth=rr_start_depth,
+              steps_per_call=steps_per_call, uniforms=uniforms)
+    dev = pixel_idx.device
+    if dev.type == "cpu":
+        return trace_camera_plain(ks, cam, width=width, height=height, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_camera runs on cpu or cuda, not {dev}")
+    check_camera_args(pixel_idx, sample_idx, width, height, max_depth,
+                      steps_per_call, uniforms)
+    return launch_stepped(
+        "trace_camera (K6)", "pt_trace_stepped_prim", _prim_scene_args(ks),
+        (ks.sph, ks.bnd, ks.tri, ks.hit, ks.tiles), cam=cam, width=width,
+        height=height, fmad=fmad, counter=trace_stepped, library=library,
+        **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -1440,12 +1604,12 @@ def trace_sorted(ks: KernelScene, o, d, *, seed: int, pixel_idx, sample_idx,
     check_stepped_args(o, d, pixel_idx, sample_idx, max_depth, sort_every,
                        uniforms)
     name = "trace_sorted (K9)"
-    _check_on(name, dev, [ks.sph, ks.bnd, ks.tri, ks.tiles, o, d] + (
+    _check_on(name, dev, [ks.sph, ks.bnd, ks.tri, ks.hit, ks.tiles, o, d] + (
         [uniforms] if uniforms is not None else []), (pixel_idx, sample_idx))
     if o.shape[0] == 0:
         return (torch.empty((0, 3), dtype=F32, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
-    launch = stepped_launcher(name, "pt_trace_stepped_prim", _scene_args(ks),
+    launch = stepped_launcher(name, "pt_trace_stepped_prim", _prim_scene_args(ks),
                               seed=seed, max_depth=max_depth,
                               rr_start_depth=rr_start_depth, fmad=fmad,
                               counter=trace_sorted)

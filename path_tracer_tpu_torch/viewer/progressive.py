@@ -7,9 +7,11 @@ a camera move restarts the accumulation.
 
 The scene is prepared with ``regen=False``, as the JAX package's preview
 does, so the routes are camera-free (``pipeline.prepare_render``): scenes
-of at most 128 primitives trace through K5 (``trace_v2.trace_stepped``),
-every other scene through K6 (``trace_kernel.trace_stepped``), over rays
-made by ``raygen.generate_rays``. A camera move re-uploads nothing.
+of at most 128 primitives trace through K5, every other scene through K6,
+whose camera entries (``trace_v2.trace_camera``, ``trace_kernel.
+trace_camera``) make the frame's camera rays in the kernel. A camera move
+re-uploads nothing. The frame's pixel and sample indices are made once
+(``integrator.pass_rays``); a frame adds its sample base.
 
 Frame f traces the global samples ``f * spp_per_frame ..``, each drawing
 the counter generator's numbers for its (seed, pixel, sample), the numbers
@@ -66,6 +68,7 @@ class ProgressiveRenderer:
         self.prep = prepare_render(scene, resolution, self.device, regen=False)
         self._pixels = torch.arange(
             resolution.num_pixels, dtype=torch.int32, device=self.device)
+        self._rays = integrator.pass_rays(self._pixels, spp_per_frame)
         self.reset()
 
     def reset(self) -> None:
@@ -110,7 +113,7 @@ class ProgressiveRenderer:
             # equal-sized frames: frame index * per-frame spp
             sample_base=self._frame * self.spp_per_frame,
             quota=self.spp_per_frame, max_depth=self.max_depth,
-            cam=self._cam, width=res.width, height=res.height)
+            cam=self._cam, width=res.width, height=res.height, rays=self._rays)
         self._frame += 1
 
     def move_camera(self, camera) -> None:

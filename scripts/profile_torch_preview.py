@@ -5,11 +5,12 @@ For cornell (K5) and mesh (K6), ProgressiveRenderer(device="cuda") at
 450x300 (the reference GUI's preview size) and 2 spp a frame, warm:
   - step_u8's frame time (host clock; the frame ends in its device-to-host
     copy), 2nd best and median of --frames frames;
-  - the frame's stages one by one, each ended by a synchronize: raygen
-    (counter draws and generate_rays), the trace kernel, and the rest
-    (accumulate, finalize, quantize, fetch);
-  - device time by kernel name and the device's idle share over --frames
-    frames, from torch.profiler;
+  - the frame's stages one by one, each ended by a synchronize: the trace
+    (K5's or K6's camera entry, which makes the camera rays in the kernel:
+    integrator.render_samples) and the rest (accumulate, finalize,
+    quantize, fetch);
+  - device time by kernel name, device operations a frame and the device's
+    idle share over --frames frames, from torch.profiler;
   - the card's name and power limit, and its SM clock and power draw after
     the run.
 
@@ -51,25 +52,13 @@ def synced(fn):
 
 def stages(r: ProgressiveRenderer) -> dict:
     """One frame of r split into its stages, each timed to a synchronize."""
-    res, spp, dev = r.resolution, r.spp_per_frame, r.device
+    res, spp = r.resolution, r.spp_per_frame
     npix = res.num_pixels
     base = r.samples_done
-
-    def raygen():
-        pix = r._pixels.repeat_interleave(spp)
-        smp = torch.arange(base, base + spp, dtype=torch.int32,
-                           device=dev).repeat(npix)
-        return (*integrator.camera_rays(r._cam, pix, smp, seed=r.seed,
-                                        width=res.width, height=res.height),
-                pix, smp)
-
-    (o, d, pix, smp), t_raygen = synced(raygen)
-    kw = dict(seed=r.seed, pixel_idx=pix, sample_idx=smp, max_depth=r.max_depth)
-    if r.prep.route == "stepped":
-        trace = lambda: integrator.trace_with_kernel_v2(o, d, r.prep.scene, **kw)  # noqa: E731
-    else:
-        trace = lambda: integrator.trace_with_kernel(o, d, r.prep.kscene, **kw)  # noqa: E731
-    result, t_trace = synced(trace)
+    pix, smp = r._rays
+    result, t_trace = synced(lambda: integrator.render_samples(
+        r.prep, r._cam, pix, smp + base, seed=r.seed, width=res.width,
+        height=res.height, max_depth=r.max_depth))
 
     def rest():
         r._accum += result.radiance.reshape(npix, spp, 3).sum(dim=1)
@@ -78,7 +67,7 @@ def stages(r: ProgressiveRenderer) -> dict:
 
     _, t_rest = synced(rest)
     r._frame += 1
-    return {"raygen": t_raygen, "trace": t_trace, "rest": t_rest}
+    return {"trace": t_trace, "rest": t_rest}
 
 
 def main() -> int:
@@ -131,10 +120,11 @@ def main() -> int:
             rows.append((dev_us, evt.key, evt.count))
         busy_us = sum(row[0] for row in rows)
         rows.sort(reverse=True)
+        ops = sum(row[2] for row in rows)
         print(f"  profiled {args.frames} frames (profiler on): wall "
               f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.2f} ms, idle "
-              f"share {1 - busy_us / 1e6 / wall:.3f}, {sum(row[2] for row in rows)} "
-              f"device ops")
+              f"share {1 - busy_us / 1e6 / wall:.3f}, {ops} device ops, "
+              f"{ops / args.frames:.1f} a frame")
         for dev_us, key, count in rows[:6]:
             print(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:80]}")
     print(f"after the run: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")

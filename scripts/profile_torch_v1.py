@@ -34,7 +34,7 @@ sys.path.insert(0, ROOT)
 import path_tracer_tpu_torch as pt  # noqa: E402
 from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk  # noqa: E402
 from path_tracer_tpu_torch.render import portal as rportal  # noqa: E402
-from path_tracer_tpu_torch.render.integrator import camera_rays  # noqa: E402
+from path_tracer_tpu_torch.render.raygen import camera_rays  # noqa: E402
 from path_tracer_tpu_torch.render.raygen import camera_arrays  # noqa: E402
 from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution  # noqa: E402
 

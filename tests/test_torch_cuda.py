@@ -15,9 +15,13 @@ stalled at entry, with slots that reach the step budget and on a scene of
 128 cheap primitives, the most it takes; K3 also on
 pools with every mix of live parts, with none, and on a scene whose table
 is too large for shared memory),
-K5 and K6 trace_stepped (cornell and mesh preview rays) and the progressive
-preview on the card; K7 trace_resolve, K8 trace_cheap_blocked and K9
-trace_sorted (mesh) and the v1 and glue portal routes.
+K5 and K6 trace_stepped (cornell and mesh preview rays), K6's design
+variants (the -D choices of csrc/trace_stepped.cu) on a full preview frame,
+the camera entries of K5 and K6 (trace_camera) against camera_rays and the
+plain trace, K6 on a scene whose table exceeds its shared-memory budget,
+and the progressive preview on the card; K7 trace_resolve, K8
+trace_cheap_blocked and K9 trace_sorted (mesh) and the v1 and glue portal
+routes.
 
 Tolerance of the default build: at least 99.5% of pixels (K2, K3: pool
 columns) within |Δ|₁ < 1e-3, channel means within rtol 1e-3 and atol 1e-3,
@@ -43,7 +47,7 @@ from path_tracer_tpu_torch.render import portal as rportal
 from path_tracer_tpu_torch.render.pipeline import (
     morton_pixel_order, prepare_render, prepare_scene,
 )
-from path_tracer_tpu_torch.render.raygen import camera_arrays
+from path_tracer_tpu_torch.render.raygen import camera_arrays, camera_rays
 from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 from path_tracer_tpu_torch.viewer.progressive import ProgressiveRenderer
 
@@ -470,8 +474,8 @@ def _preview_rays(scene, res, spp, dev):
     npix = res.num_pixels
     pix = torch.arange(npix, dtype=torch.int32, device=dev).repeat_interleave(spp)
     smp = torch.arange(spp, dtype=torch.int32, device=dev).repeat(npix)
-    o, d = integrator.camera_rays(camera_arrays(scene.camera), pix, smp, seed=0,
-                                  width=res.width, height=res.height)
+    o, d = camera_rays(camera_arrays(scene.camera), pix, smp, seed=0,
+                       width=res.width, height=res.height)
     return o, d, pix, smp
 
 
@@ -540,6 +544,132 @@ def test_cuda_preview_launches_its_kernel(cuda_device, sid):
         a, b = cpu.step().pixels, cpu1.step().pixels
     same = np.abs(fin - a).mean()
     assert same <= 0.25 * np.abs(a - b).mean(), same
+
+
+# K6's build-time design choices (csrc/trace_stepped.cu), each a build
+K6_VARIANTS = ["", "K6_SHARED_TABLE=0", "K6_SORT_BY_KEY=0", "K6_GROUP_ORDER=0",
+               "K6_SORT=0", "K6_SORT=0,K6_REFILL_MIN=1", "K6_SORT=0,K6_PERSISTENT=0",
+               "K6_SORT=0,K6_SHARED_TABLE=0"]
+
+
+def _k6_frame(dev, res=Resolution(300, 450), spp=2):
+    """mesh's KernelScene, camera arrays and one preview frame's pixel and
+    sample indices at 450x300 x 2 spp: 270,000 rays, more than one wave of
+    K6's persistent grid."""
+    scene = _scene("mesh")
+    ks = trace_kernel.build_kernel_scene(tpt.pack_scene(scene)).to(dev)
+    pix, smp = integrator.pass_rays(
+        torch.arange(res.num_pixels, dtype=torch.int32, device=dev), spp)
+    return ks, camera_arrays(scene.camera), pix, smp, res
+
+
+def _agree(k, p):
+    return float(((k[0] - p[0]).abs().sum(dim=1) < 1e-3).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("defines", K6_VARIANTS)
+def test_cuda_k6_variants_match_plain(cuda_device, defines):
+    """Each K6 build on a full mesh preview frame, given rays in calls of 12
+    and of 5 steps and from the camera entry: the --fmad=false build equals
+    the plain version bit for bit, the default build agrees on 99.5% of
+    rays."""
+    ks, cam, pix, smp, res = _k6_frame(cuda_device)
+    d = tuple(x for x in defines.split(",") if x)
+    libs = {f: trace_kernel.stepped_library(f, d) for f in (True, False)}
+    o, dirs = camera_rays(cam, pix, smp, seed=0, width=res.width,
+                          height=res.height)
+    kw = dict(seed=5, pixel_idx=pix, sample_idx=smp)
+    for steps in (12, 5):
+        p = trace_kernel.trace_stepped_plain(ks, o, dirs, steps_per_call=steps, **kw)
+        e = trace_kernel.trace_stepped(ks, o, dirs, steps_per_call=steps,
+                                       library=libs[False], **kw)
+        k = trace_kernel.trace_stepped(ks, o, dirs, steps_per_call=steps,
+                                       library=libs[True], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(e[0], p[0]) and torch.equal(e[1], p[1]), steps
+        assert _agree(k, p) >= 0.995
+    ckw = dict(kw, width=res.width, height=res.height)
+    p = trace_kernel.trace_camera_plain(ks, cam, **ckw)
+    e = trace_kernel.trace_camera(ks, cam, library=libs[False], **ckw)
+    torch.cuda.synchronize()
+    assert torch.equal(e[0], p[0]) and torch.equal(e[1], p[1])
+    assert _agree(trace_kernel.trace_camera(ks, cam, library=libs[True], **ckw),
+                  p) >= 0.995
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sid", ["cornell", "mesh"])
+@pytest.mark.parametrize("source", ["counter", "table"])
+def test_cuda_camera_entries_match_camera_rays(cuda_device, sid, source):
+    """K5's (cornell) and K6's (mesh) camera entries on a preview frame, in
+    calls of 12 steps and of 5 (6 with a table: it must divide 12): the
+    --fmad=false build equals camera_rays followed by the plain trace bit
+    for bit, the default build agrees on 99.5% of rays; one launch a call."""
+    res = Resolution(96, 128)
+    scene = _scene(sid)
+    prep = prepare_render(scene, res, cuda_device, regen=False)
+    if sid == "cornell":
+        fn, plain, tables = trace_v2.trace_camera, trace_v2.trace_camera_plain, prep.scene
+        counter = trace_v2.trace_stepped
+    else:
+        fn, plain, tables = (trace_kernel.trace_camera,
+                             trace_kernel.trace_camera_plain, prep.kscene)
+        counter = trace_kernel.trace_stepped
+    pix, smp = integrator.pass_rays(
+        torch.arange(res.num_pixels, dtype=torch.int32, device=cuda_device), 2)
+    smp = smp + 4
+    uni = None
+    if source == "table":
+        uni = torch.from_numpy(np.random.default_rng(1).random(
+            (48, pix.shape[0]), dtype=np.float32)).to(cuda_device)
+    cam = camera_arrays(scene.camera)
+    for steps in (12, 6) if source == "table" else (12, 5):
+        kw = dict(width=res.width, height=res.height, seed=9, pixel_idx=pix,
+                  sample_idx=smp, uniforms=uni, steps_per_call=steps)
+        before = counter.launches
+        k = fn(tables, cam, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches == before + -(-12 // steps)
+        p = plain(tables, cam, **kw)  # camera_rays, then the plain trace
+        assert _agree(k, p) >= 0.995
+        e = fn(tables, cam, fmad=False, **kw)
+        assert torch.equal(e[0], p[0]) and torch.equal(e[1], p[1])
+        assert float(p[0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_k6_large_table_reads_rows_from_device_memory(cuda_device):
+    """A scene whose tables exceed K6_SHARED_BUDGET (mesh's tiles four times
+    over: 3,336 rows, 267 KB) takes the read-only path, chosen from its size,
+    and still equals the plain version; the preview renders it through the
+    same path."""
+    ks, cam, pix, smp, res = _k6_frame(cuda_device, Resolution(96, 128))
+    tiles = ks.tri[ks.tile_base:]
+    big = trace_kernel.KernelScene(
+        ks.sph, ks.bnd, torch.cat([ks.tri[:ks.tile_base]] + [tiles] * 4),
+        torch.cat([ks.tiles] * 4), ks.tile_base)
+    assert trace_kernel.k6_table_bytes(big) > trace_kernel.K6_SHARED_BUDGET
+    cfg = trace_kernel.stepped_prim_config(big, camera=True)
+    assert not cfg["shared_table"] and cfg["smem_bytes"] == 0
+    assert trace_kernel.stepped_prim_config(ks)["shared_table"]
+    kw = dict(width=res.width, height=res.height, seed=2, pixel_idx=pix,
+              sample_idx=smp)
+    p = trace_kernel.trace_camera_plain(big, cam, **kw)
+    e = trace_kernel.trace_camera(big, cam, fmad=False, **kw)
+    assert torch.equal(e[0], p[0]) and torch.equal(e[1], p[1])
+    prep = prepare_render(_scene("mesh"), res, cuda_device, regen=False)
+    prep_big = dataclasses.replace(prep, kscene=big)
+    acc = torch.zeros((res.num_pixels, 3), device=cuda_device)
+    before = trace_kernel.trace_stepped.launches
+    integrator.render_pass(prep_big, acc, pix[::2].contiguous(), seed=2,
+                           sample_base=0, quota=2, cam=cam, width=res.width,
+                           height=res.height)
+    torch.cuda.synchronize()
+    assert trace_kernel.trace_stepped.launches == before + 1
+    want = trace_kernel.trace_camera_plain(big, cam, **kw)[0]
+    assert float(((acc - want.reshape(-1, 2, 3).sum(dim=1)).abs().sum(dim=1)
+                  < 1e-3).float().mean()) >= 0.995
 
 
 def _v1_pool(prep, res, dev):

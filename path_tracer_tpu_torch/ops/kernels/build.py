@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 
@@ -47,9 +48,19 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def _lock(path: str) -> threading.Lock:
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(path, threading.Lock())
+
+
 def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
     """Compile ``source`` (with ``extra_flags`` after NVCC_FLAGS) unless its
-    hash-keyed library exists; load it."""
+    hash-keyed library exists; load it. Threads that ask for the same
+    library wait for one compile."""
     flags = NVCC_FLAGS + tuple(extra_flags)
     digest = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(glob.glob(os.path.join(os.path.dirname(source), "*.cuh")))
@@ -59,27 +70,35 @@ def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
     stem = os.path.splitext(os.path.basename(source))[0]
     out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
     seconds = 0.0
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [find_nvcc(), *flags, "-o", tmp, source],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {source}:\n{proc.stderr}")
-        with open(f"{tmp}.log", "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        os.replace(f"{tmp}.log", f"{out}.log")
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    with _lock(out):
+        if not os.path.exists(out):
+            seconds = _compile(source, flags, out)
     log = ""
     if os.path.exists(f"{out}.log"):
         with open(f"{out}.log") as fh:
             log = fh.read()
     return Built(ctypes.CDLL(out), out, seconds, log)
+
+
+def _compile(source: str, flags: tuple[str, ...], out: str) -> float:
+    """nvcc ``source`` into ``out`` (and its report into ``out``.log);
+    returns the seconds it took."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [find_nvcc(), *flags, "-o", tmp, source],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {source}:\n{proc.stderr}")
+    with open(f"{tmp}.log", "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    os.replace(f"{tmp}.log", f"{out}.log")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return seconds
 
 
 @functools.lru_cache(maxsize=None)

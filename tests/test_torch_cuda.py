@@ -7,7 +7,10 @@ it as
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Kernels: K1 trace_regen (cornell, three-spheres, a gated scene), K4
+Kernels: K1 trace_regen (cornell, three-spheres, a gated scene; also on
+single-sphere and a scene of 128 primitives, the most a static scene
+holds, with the other kernels' SASS held to the commit's before K1's
+redesign), K4
 trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
 K2 also at park depths 0-3, on pools wider than one wave of resident
 threads and narrower, of a width no multiple of the block, with every slot
@@ -33,6 +36,7 @@ operation, which parts a few long closed-box trajectories. A build with
 
 import dataclasses
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -138,6 +142,142 @@ def test_cuda_kernel_without_fma_is_bit_exact(cuda_device, sid, source):
     for k, p in zip(k_out, p_out):
         assert torch.equal(k, p)
     assert float(k_out[0].sum()) > 0
+
+
+def ceiling_scene(pkg=tpt, far: bool = False):
+    """A scene of exactly 128 primitives, the most the static route takes,
+    in ``pkg`` (either package): two triangles of _gated_scene's mesh,
+    moved apart so that they form no quad, whose buggy bounding sphere
+    gates them, 100 spheres of all three reflect types on a grid, two of
+    them lights, and 26 loose triangles that pair with nothing. (A quad
+    counts two triangles against the static route's 128, so a scene of 128
+    rows has none.) The spheres stay within about 8 units of the camera;
+    ``far`` puts the camera 17 units from them, where the rounding of a
+    first hit can reach the 1e-4 self-hit epsilon."""
+    g = np.random.default_rng(12)
+    mat = [pkg.ReflectType.DIFFUSE, pkg.ReflectType.SPECULAR,
+           pkg.ReflectType.REFRACT]
+    objs = [pkg.SceneObject.from_mesh(
+        np.zeros(3, np.float32), pkg.Mesh.from_triangles(np.array(
+            [[[4, -10, 0], [10, -10, 0], [4, 2, 0]],
+             [[10, -10, 0], [10, 2, 0], [4.5, 2, 0]]], np.float32)),
+        pkg.Material(np.full(3, 0.8, np.float32), np.zeros(3),
+                     pkg.ReflectType.DIFFUSE))]
+    for k in range(100):
+        c = np.array([k % 10 - 4.5, k // 10 - 4.5, -0.5 * (k % 3)], np.float32)
+        light = k in (33, 66)
+        objs.append(pkg.SceneObject.sphere(
+            c, 0.4, pkg.Material(
+                g.uniform(0.3, 0.95, 3).astype(np.float32),
+                np.full(3, 5.0 if light else 0.0, np.float32),
+                pkg.ReflectType.DIFFUSE if light else mat[k % 3])))
+    tris = g.uniform(-5, 5, (26, 3, 3)).astype(np.float32)
+    tris[:, :, 2] = g.uniform(-4, -2, (26, 3))
+    objs.append(pkg.SceneObject.from_mesh(
+        np.zeros(3, np.float32), pkg.Mesh.from_triangles(tris),
+        pkg.Material(np.full(3, 0.7, np.float32), np.zeros(3),
+                     pkg.ReflectType.DIFFUSE)))
+    return pkg.SceneDescriptor(id="ceiling", objects=objs,
+                               camera=pkg.Camera.looking(
+                                   [0.0, 0.0, 17.0 if far else 7.0],
+                                   [0.0, 0.0, -1.0]))
+
+
+def huge_scene(pkg=tpt):
+    """A triangle 2e15 units across, whose normal's |n.x| + |n.y| + |n.z|
+    (4e30) exceeds 2^100, so that K1's split scan keeps CUDA's
+    range-checked reciprocal, with a light sphere in view."""
+    tri = np.array([[[0.0, 0.0, -5.0], [2e15, 0.0, -5.0],
+                     [0.0, 2e15, -5.0]]], np.float32)
+    return pkg.SceneDescriptor(id="huge", objects=[
+        pkg.SceneObject.from_mesh(
+            np.zeros(3, np.float32), pkg.Mesh.from_triangles(tri),
+            pkg.Material(np.full(3, 0.8, np.float32), np.zeros(3),
+                         pkg.ReflectType.DIFFUSE)),
+        pkg.SceneObject.sphere(
+            np.array([0.0, 0.0, -2.0], np.float32), 1.0,
+            pkg.Material(np.zeros(3), np.full(3, 4.0, np.float32),
+                         pkg.ReflectType.DIFFUSE)),
+    ], camera=pkg.Camera.looking([1.0, 1.0, 6.0], [0.0, 0.0, -1.0]))
+
+
+K1_SCENES = {"cornell": lambda: _scene("cornell"),
+             "three-spheres": lambda: _scene("three-spheres"),
+             "single-sphere": lambda: _scene("single-sphere"),
+             "gated": _gated_scene, "ceiling": ceiling_scene,
+             "huge": huge_scene}
+
+
+@pytest.mark.cuda
+def test_cuda_k1_bit_exact_on_every_scene(cuda_device):
+    """K1 built with --fmad=false equals the plain version bit for bit
+    (radiance, segments, samples) on cornell with both uniform sources,
+    three-spheres, single-sphere, the gated scene, the 128-primitive scene,
+    a scene too large for the unchecked reciprocal and a pixel count that is
+    no multiple of the block; the default build keeps 99.5% of pixels
+    within 1e-3 and counts exactly the quota."""
+    res = Resolution(48, 64)
+    cases = [(sid, src) for sid in K1_SCENES for src in ("counter",)]
+    cases += [("cornell", "table"), ("cornell", "odd")]
+    for sid, source in cases:
+        scene_c, cam_c = prepare_scene(K1_SCENES[sid](), res, cuda_device)
+        if sid == "ceiling":
+            assert scene_c.prims.shape[0] == 128 and scene_c.gates.shape[0] == 1
+            assert int((scene_c.prims[:, trace_v2.COL_GATE] >= 0).sum()) == 2
+        assert scene_c.rcp_safe == (sid != "huge")
+        pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(
+            cuda_device)
+        if source == "odd":
+            pix = pix[:1000]  # 7 blocks of 128 and 104 threads
+        uni = None
+        if source == "table":
+            uni = torch.from_numpy(np.random.default_rng(1).random(
+                (6, pix.shape[0]), dtype=np.float32)).to(cuda_device)
+        kw = dict(seed=3, sample_base=4, quota=4, max_depth=12, uniforms=uni)
+        p = trace_v2.trace_regen_plain(scene_c, cam_c, pix, **kw)
+        e = trace_v2.trace_regen(scene_c, cam_c, pix, fmad=False, **kw)
+        k = trace_v2.trace_regen(scene_c, cam_c, pix, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(e, p)), (sid, source)
+        assert bool((k[2] == 4).all())
+        agree = float(((k[0] - p[0]).abs().sum(dim=1) < 1e-3).float().mean())
+        assert agree >= 0.995, (sid, source, agree)
+        assert float(p[0].sum()) > 0, sid
+
+
+@pytest.mark.cuda
+def test_cuda_k1_config_reports_the_design(cuda_device):
+    """regen_config: K1 stages the split table, the gates and the hit table
+    into shared memory, runs 128 threads a block and holds 9 blocks an SM
+    in 56 registers or fewer."""
+    scene_c, _ = prepare_scene(_scene("cornell"), Resolution(24, 32), cuda_device)
+    cfg = trace_v2.regen_config(scene_c)
+    assert cfg["smem_bytes"] == 11 * (trace_v2.SPLIT_F + trace_v2.HIT_F) * 4
+    assert cfg["threads"] == 128 and cfg["min_blocks"] == 9
+    assert cfg["blocks_per_sm"] >= 9 and cfg["registers"] <= 56
+    big, _ = prepare_scene(ceiling_scene(), Resolution(24, 32), cuda_device)
+    assert trace_v2.regen_config(big)["smem_bytes"] == (
+        128 * (trace_v2.SPLIT_F + trace_v2.HIT_F) + trace_v2.GATE_F) * 4
+
+
+@pytest.mark.cuda
+def test_cuda_k1_leaves_the_other_kernels_sass(cuda_device):
+    """K1's redesign leaves every other kernel's SASS as it was: each
+    kernel of the sources that share common.cuh with K1, built with and
+    without FMA contraction, hashes as in the fixture that
+    scripts/ablate_k1.py --fingerprints wrote from the parent commit's
+    builds on this toolkit."""
+    spec = importlib.util.spec_from_file_location(
+        "ablate_k1", os.path.join(ROOT, "scripts", "ablate_k1.py"))
+    ablate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablate)
+    with open(os.path.join(ROOT, "tests", "golden", "gpu",
+                           "k1_shared_sass.json")) as fh:
+        want = json.load(fh)
+    got = ablate.fingerprints(ROOT)
+    if got["nvcc"] != want["nvcc"]:
+        pytest.skip(f"fixture made with {want['nvcc']}, this is {got['nvcc']}")
+    assert got["kernels"] == want["kernels"]
 
 
 @pytest.mark.cuda

@@ -9,18 +9,20 @@
 // Where the rows live is a template parameter of the scan:
 //  - GlobalRows: the KernelScene tables (spheres [S, 12], bounding spheres
 //    [M, 4], triangle rows [T, 32], tile AABBs [C, 6]) in device memory,
-//    read through the read-only cache (__ldg). K4 and K7 use it (the
-//    default), and K3 and K6 for a scene whose compact table is too large
-//    for shared memory.
+//    read through the read-only cache (__ldg). K7 uses it (the default),
+//    and K3, K4 and K6 for a scene whose compact table is too large for
+//    shared memory.
 //  - SharedRows: the compact hit-test rows (KernelScene.hit [T, 20]: the 19
 //    floats the distance test reads) and the small tables, staged by the
 //    kernel into shared memory (stage_scene). K3 and K6 use it: with K3's
 //    lanes sorted by the tiles they enter, a warp's lanes read one row at a
 //    time, a broadcast. Measured on the H100 (PERF.md; scripts/ablate_k3.py,
 //    scripts/ablate_k6.py): the shared table cuts K3's time by a quarter on
-//    sorted lanes and by a third on unsorted ones. K4 and K7 are not
-//    redesigned yet and keep the read-only path, which compiles for them as
-//    it did before the template.
+//    sorted lanes and by a third on unsorted ones. K4 scans the same table
+//    through scan_lane, scan_warp and isect_surface below, which split
+//    isect_full at the winner and take a ray whose line enters a tile with
+//    a whole warp. K7 is not redesigned yet and keeps the read-only path,
+//    which compiles for it as it did before the template.
 // The shading fields of the winning row (normal, colour, emission, type,
 // order, id) are read from the 32-float rows in device memory after the
 // scan, for that row only.
@@ -131,6 +133,13 @@ __device__ __forceinline__ void wait_bulk(uint64_t* bar) {
         : "memory");
 }
 
+// The IEEE square root and reciprocal as isect_full takes them; K4 hands
+// the row tests its own exact fast paths (trace_regen_prim.cu FastOps)
+struct IeeeOps {
+  static __device__ __forceinline__ float root(float x) { return sqrtf(x); }
+  static __device__ __forceinline__ float rcp(float x) { return 1.0f / x; }
+};
+
 struct Hit {
   bool found;
   float point[3], nrm[3], color[3], emis[3];
@@ -140,7 +149,7 @@ struct Hit {
 
 // The JAX intersector's expanded sphere test (BIG = miss; r2 <= 0 marks
 // padding, whose far-away center makes b^2 - |op|^2 cancel)
-template <class R>
+template <class R, class Ops = IeeeOps>
 __device__ __forceinline__ float sphere_t(const float* c, float rad2,
                                           const float o[3], const float d[3]) {
   const float c0 = R::ld(c), c1 = R::ld(c + 1), c2 = R::ld(c + 2);
@@ -151,7 +160,7 @@ __device__ __forceinline__ float sphere_t(const float* c, float rad2,
   const float oo = 0.0f + o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
   const float b = cd - od;
   const float det = b * b - (cc - 2.0f * co + oo) + rad2;
-  const float sq = sqrtf(fmaxf(det, 0.0f));
+  const float sq = Ops::root(fmaxf(det, 0.0f));
   const float t_near = b - sq;
   const float t_far = b + sq;
   const float t = t_near >= EPS ? t_near : (t_far >= EPS ? t_far : BIG);
@@ -164,7 +173,7 @@ __device__ __forceinline__ float dot_row(const float* row, const float v[3]) {
 }
 
 // Distance to triangle/quad row r (BIG = no valid hit)
-template <class R>
+template <class R, class Ops = IeeeOps>
 __device__ __forceinline__ float tri_t(const float* r, const float o[3],
                                        const float d[3], const float m[3],
                                        float prevf, uint32_t gate_ok) {
@@ -173,7 +182,7 @@ __device__ __forceinline__ float tri_t(const float* r, const float o[3],
   const float vdet = -dot_row<R>(r + R::E1, m) - dot_row<R>(r + R::AXE1, d);
   const float tdet = dot_row<R>(r + R::N, o) - R::ld(r + R::NA);
   const bool dvalid = fabsf(det) >= EPS;
-  const float inv = 1.0f / (dvalid ? det : 1.0f);
+  const float inv = Ops::rcp(dvalid ? det : 1.0f);
   const float u = udet * inv;
   const float v = vdet * inv;
   const float t = tdet * inv;
@@ -188,14 +197,14 @@ __device__ __forceinline__ float tri_t(const float* r, const float o[3],
 }
 
 // Strictly-closer scan of rows [lo, hi)
-template <class R>
+template <class R, class Ops = IeeeOps>
 __device__ __forceinline__ void tri_rows(const float* rows, int lo, int hi,
                                          const float o[3], const float d[3],
                                          const float m[3], float prevf,
                                          uint32_t gate_ok, float& d_t,
                                          int& r_t) {
   for (int r = lo; r < hi; ++r) {
-    const float t = tri_t<R>(rows + r * R::F, o, d, m, prevf, gate_ok);
+    const float t = tri_t<R, Ops>(rows + r * R::F, o, d, m, prevf, gate_ok);
     if (t < d_t) {
       d_t = t;
       r_t = r;
@@ -205,8 +214,8 @@ __device__ __forceinline__ void tri_rows(const float* rows, int lo, int hi,
 
 // The slab test of a tile AABB as isect_full's cull makes it: whether the
 // ray's line enters the box ahead of the origin, and its entry distance.
-// K3 keys its sort with it; isect_full keeps its own copy inline, so that
-// K4, K6 and K7 compile as before this helper existed.
+// K3 keys its sort with it and K4's scans use it; isect_full keeps its own
+// copy inline, so that K6 and K7 compile as before this helper existed.
 template <class R>
 __device__ __forceinline__ bool tile_slab(const float* box, const float o[3],
                                           const float inv[3], float& t_en) {
@@ -325,6 +334,191 @@ __device__ __forceinline__ void isect_full(const FullScene& sc,
     h.rtype = __ldg(trow + T_RTYPE);
   }
   h.new_prev = (h.found && !sph_wins) ? __ldg(trow + T_PID) : -1.0f;
+}
+
+// ---- K4's scans (trace_regen_prim.cu): isect_full's tests of a live ray,
+// in its order, up to the winner, with the row tests' root and reciprocal
+// taken by Ops. Each returns the hit distance (BIG for a miss) and sets
+// `code` to the winning triangle row, or to -1 - the sphere's index when a
+// sphere wins; isect_surface reads the winner's surface. K4 traces a ray
+// whose line enters a tile with a whole warp (scan_warp) and the others a
+// lane each (scan_lane), so the scan and the surface are apart. ----
+
+// The spheres (first minimum in table order) and the gates' bits
+template <class R, class Ops>
+__device__ __forceinline__ void scan_spheres(const FullScene& sc,
+                                             const float o[3],
+                                             const float d[3], float& d_s,
+                                             int& i_s, uint32_t& gate_ok) {
+  d_s = BIG;
+  i_s = 0;
+  for (int s = 0; s < sc.n_sph; ++s) {
+    const float* row = sc.sph + s * SPH_F;
+    const float t = sphere_t<R, Ops>(row + S_CENTER, R::ld(row + S_RAD2), o, d);
+    if (t < d_s) {
+      d_s = t;
+      i_s = s;
+    }
+  }
+  gate_ok = 0u;
+  for (int g = 0; g < sc.n_bnd; ++g) {
+    const float* row = sc.bnd + g * 4;
+    if (sphere_t<R, Ops>(row, R::ld(row + 3), o, d) < BIG) gate_ok |= 1u << g;
+  }
+}
+
+// The closer of the best sphere and the best row; an exact tie goes to the
+// lower packed order
+template <class R>
+__device__ __forceinline__ float scan_winner(const FullScene& sc, float d_s,
+                                             int i_s, float d_t, int r_t,
+                                             int& code) {
+  const bool sph_wins =
+      d_s < d_t || (d_s == d_t && R::ld(sc.sph + i_s * SPH_F + S_ORDER) <
+                                      __ldg(sc.tri + r_t * TRI_F + T_ORDER));
+  code = sph_wins ? -1 - i_s : r_t;
+  return sph_wins ? d_s : d_t;
+}
+
+// A ray whose line enters no tile, in one lane: the spheres and the base
+// set (every row of a scene without tiles); isect_full's tile loop would
+// test no tile
+template <class R, class Ops>
+__device__ __forceinline__ float scan_lane(const FullScene& sc,
+                                           const float o[3], const float d[3],
+                                           float prevf, int& code) {
+  float d_s;
+  int i_s;
+  uint32_t gate_ok;
+  scan_spheres<R, Ops>(sc, o, d, d_s, i_s, gate_ok);
+  const float m[3] = {o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+                      o[0] * d[1] - o[1] * d[0]};
+  float d_t = BIG;
+  int r_t = 0;
+  tri_rows<R, Ops>(R::rows(sc), 0, sc.n_tiles ? sc.tile_base : sc.n_tri, o,
+                   d, m, prevf, gate_ok, d_t, r_t);
+  return scan_winner<R>(sc, d_s, i_s, d_t, r_t, code);
+}
+
+// Rows [lo, hi) of one ray for a whole warp: lane l tests rows lo + l,
+// lo + l + 32, .. (in order, strictly closer), the warp takes the closest
+// (t, row), first row on a tie, and (d_t, r_t) take it where it is
+// strictly closer: the sequential scan's result, in every lane.
+template <class R, class Ops>
+__device__ __forceinline__ void warp_rows(const float* rows, int lo, int hi,
+                                          int lane, const float o[3],
+                                          const float d[3], const float m[3],
+                                          float prevf, uint32_t gate_ok,
+                                          float& d_t, int& r_t) {
+  float bt = BIG;
+  int br = 0x7fffffff;
+  for (int r = lo + lane; r < hi; r += 32) {
+    const float t = tri_t<R, Ops>(rows + r * R::F, o, d, m, prevf, gate_ok);
+    if (t < bt) {
+      bt = t;
+      br = r;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, bt, off);
+    const int r2 = __shfl_xor_sync(0xffffffffu, br, off);
+    if (t2 < bt || (t2 == bt && r2 < br)) {
+      bt = t2;
+      br = r2;
+    }
+  }
+  if (bt < d_t) {
+    d_t = bt;
+    r_t = br;
+  }
+}
+
+// One ray by a whole warp (every lane active, the same ray): the spheres
+// in every lane, the base set's and each tile's rows split over the lanes
+// (warp_rows); the slab tests of 32 tiles at a time, one a lane, and the
+// tiles the ray enters taken in order, each culled by the bound so far, as
+// isect_full culls them. The same result as isect_full, bit for bit.
+template <class R, class Ops>
+__device__ __forceinline__ float scan_warp(const FullScene& sc,
+                                           const float o[3], const float d[3],
+                                           float prevf, int lane, int& code) {
+  float d_s;
+  int i_s;
+  uint32_t gate_ok;
+  scan_spheres<R, Ops>(sc, o, d, d_s, i_s, gate_ok);
+  const float m[3] = {o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+                      o[0] * d[1] - o[1] * d[0]};
+  float d_t = BIG;
+  int r_t = 0;
+  warp_rows<R, Ops>(R::rows(sc), 0, sc.n_tiles ? sc.tile_base : sc.n_tri,
+                    lane, o, d, m, prevf, gate_ok, d_t, r_t);
+  float inv[3];
+  inv_dir(d, inv);
+  for (int c0 = 0; c0 < sc.n_tiles; c0 += 32) {
+    float t_en = 0.0f;
+    const bool in =
+        c0 + lane < sc.n_tiles &&
+        tile_slab<R>(sc.tiles + (c0 + lane) * TILE_F, o, inv, t_en);
+    for (unsigned enter = __ballot_sync(0xffffffffu, in); enter;
+         enter &= enter - 1) {
+      const int k = __ffs(enter) - 1;
+      if (__shfl_sync(0xffffffffu, t_en, k) < fminf(d_t, d_s)) {
+        const int lo = sc.tile_base + (c0 + k) * TRI_TILE;
+        warp_rows<R, Ops>(R::rows(sc), lo, lo + TRI_TILE, lane, o, d, m,
+                          prevf, gate_ok, d_t, r_t);
+      }
+    }
+  }
+  return scan_winner<R>(sc, d_s, i_s, d_t, r_t, code);
+}
+
+// Whether the ray's line enters a tile's AABB (tile_slab, as the scans
+// test it): where it enters none, isect_full tests the spheres and the
+// base set only
+template <class R>
+__device__ __forceinline__ bool enters_a_tile(const FullScene& sc,
+                                              const float o[3],
+                                              const float d[3]) {
+  float inv[3];
+  inv_dir(d, inv);
+  for (int c = 0; c < sc.n_tiles; ++c) {
+    float t_en;
+    if (tile_slab<R>(sc.tiles + c * TILE_F, o, inv, t_en)) return true;
+  }
+  return false;
+}
+
+// The surface of a K4 scan's winner as isect_full reads it (a live ray)
+template <class R>
+__device__ __forceinline__ void isect_surface(const FullScene& sc,
+                                              const float o[3],
+                                              const float d[3], float t,
+                                              int code, Hit& h) {
+  h.found = t < BIG;
+  for (int k = 0; k < 3; ++k) h.point[k] = o[k] + d[k] * t;
+  if (code < 0) {
+    const float* srow = sc.sph + (-1 - code) * SPH_F;
+    float sn[3];
+    for (int k = 0; k < 3; ++k) sn[k] = h.point[k] - R::ld(srow + S_CENTER + k);
+    const float sl =
+        rsqrtf(fmaxf(sn[0] * sn[0] + sn[1] * sn[1] + sn[2] * sn[2], TINY));
+    for (int k = 0; k < 3; ++k) {
+      h.nrm[k] = sn[k] * sl;
+      h.color[k] = R::ld(srow + S_COLOR + k);
+      h.emis[k] = R::ld(srow + S_EMIS + k);
+    }
+    h.rtype = R::ld(srow + S_RTYPE);
+    h.new_prev = -1.0f;
+  } else {
+    const float* trow = sc.tri + code * TRI_F;
+    for (int k = 0; k < 3; ++k) {
+      h.nrm[k] = __ldg(trow + T_NORMAL + k);
+      h.color[k] = __ldg(trow + T_COLOR + k);
+      h.emis[k] = __ldg(trow + T_EMIS + k);
+    }
+    h.rtype = __ldg(trow + T_RTYPE);
+    h.new_prev = h.found ? __ldg(trow + T_PID) : -1.0f;
+  }
 }
 
 // Where SharedRows' tables sit in a block's dynamic shared memory (bytes

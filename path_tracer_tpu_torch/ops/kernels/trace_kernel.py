@@ -14,7 +14,9 @@ Counterpart of ``path_tracer_tpu.ops.pallas.trace_kernel``:
   ``tile_entry_keys``, K3's sort key (its slab test without the cull);
 - K4 ``trace_regen_prim`` (``csrc/trace_regen_prim.cu``) and its plain
   version ``trace_regen_prim_plain``: the regenerative loop over the
-  full scene, the JAX package's ``pallasr:`` route;
+  full scene, the JAX package's ``pallasr:`` route; ``regen_prim_config``
+  (its launch configuration) and ``K4_SHARED_BUDGET``, the size rule that
+  stages a scene's tables in shared memory;
 - K6 ``trace_stepped`` (``csrc/trace_stepped.cu``) and its plain version
   ``trace_stepped_plain``: the stepped trace of given rays over the full
   scene (the JAX ``trace_pallas``), with the state, call loop and draws it
@@ -897,7 +899,9 @@ CSRC_REGEN_PRIM = os.path.join(os.path.dirname(os.path.dirname(
 
 
 @functools.lru_cache(maxsize=2)
-def _prim_library(fmad: bool = True):
+def prim_library(fmad: bool = True):
+    """``csrc/trace_regen_prim.cu`` (K4) built and bound; ``fmad=False``
+    builds it without FMA contraction."""
     built = load_kernel(CSRC_REGEN_PRIM, fmad)
     fn = built.lib.pt_trace_regen_prim
     fn.restype = ctypes.c_int
@@ -905,6 +909,7 @@ def _prim_library(fmad: bool = True):
         ctypes.c_void_p, ctypes.c_int,  # sph, S
         ctypes.c_void_p, ctypes.c_int,  # bnd, M
         ctypes.c_void_p, ctypes.c_int,  # tri, T
+        ctypes.c_void_p,  # hit [T, HIT_F] or NULL
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # camera (host), W, H
         ctypes.c_void_p, ctypes.c_int,  # pixel_idx, n
@@ -912,9 +917,44 @@ def _prim_library(fmad: bool = True):
         ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
         ctypes.c_void_p,  # uniforms [6, n] or NULL
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rad, segs, done
-        ctypes.c_void_p,  # stream
+        ctypes.c_void_p, ctypes.c_void_p,  # next (zeroed), stream
     ]
+    fn = built.lib.pt_trace_regen_prim_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return built
+
+
+# K4 stages a scene's tables in a block's shared memory when they take at
+# most this many bytes: an H100 block may opt in to 227 KB (232,448 bytes),
+# of which K4's queries take 34 KB at 1,024 threads; a larger scene reads
+# its rows through the read-only path
+K4_SHARED_BUDGET = 192 * 1024
+
+
+def k4_shared_table(ks: KernelScene) -> bool:
+    """Whether K4 scans ``ks`` from shared memory: its tables
+    (``k6_table_bytes``, the same layout) fit K4_SHARED_BUDGET. Decided
+    from the table's size before a launch."""
+    return k6_table_bytes(ks) <= K4_SHARED_BUDGET
+
+
+def regen_prim_config(ks: KernelScene, *, fmad: bool = True) -> dict:
+    """K4's launch configuration for ``ks`` on the current card: dynamic
+    shared memory a block takes (bytes), resident blocks per SM, threads a
+    block, SMs, registers and local (spill) bytes a thread, the shared
+    memory a block may opt in to, the static shared memory a block takes,
+    and whether the table is in shared memory."""
+    built = prim_library(fmad)
+    out = (ctypes.c_int * 8)()
+    shared = k4_shared_table(ks)
+    code = built.lib.pt_trace_regen_prim_config(
+        ks.sph.shape[0], ks.bnd.shape[0], ks.tri.shape[0], ks.tiles.shape[0],
+        int(shared), out)
+    check_launch(built, code, "trace_regen_prim (K4) configuration")
+    keys = ("smem_bytes", "blocks_per_sm", "threads", "sms", "registers",
+            "local_bytes", "smem_optin", "static_smem_bytes")
+    return dict(zip(keys, out), shared_table=shared)
 
 
 def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
@@ -933,7 +973,8 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"trace_regen_prim runs on cpu or cuda, not {dev}")
     _check_regen_args(pixel_idx, quota, max_depth, uniforms, QUOTA_CAP_PRIM)
-    _check_on("trace_regen_prim (K4)", dev, [ks.sph, ks.bnd, ks.tri, ks.tiles]
+    _check_on("trace_regen_prim (K4)", dev,
+              [ks.sph, ks.bnd, ks.tri, ks.tiles, ks.hit]
               + ([uniforms] if uniforms is not None else []), (pixel_idx,))
     n = pixel_idx.shape[0]
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -941,16 +982,18 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
     done = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return rad, segs, done
-    built = _prim_library(fmad)
+    built = prim_library(fmad)
     params = cam.params.to(torch.float32).contiguous()  # host memory
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the refill counter
         code = built.lib.pt_trace_regen_prim(
-            *_scene_args(ks), params.data_ptr(), cam.width, cam.height,
-            pixel_idx.data_ptr(), n,
+            *_prim_scene_args(ks, K4_SHARED_BUDGET), params.data_ptr(),
+            cam.width, cam.height, pixel_idx.data_ptr(), n,
             int(seed) & rng.MASK32, int(sample_base), int(quota),
             int(max_depth), int(rr_start_depth), _ptr(uniforms),
-            rad.data_ptr(), segs.data_ptr(), done.data_ptr(), stream)
+            rad.data_ptr(), segs.data_ptr(), done.data_ptr(), nxt.data_ptr(),
+            stream)
     check_launch(built, code, "trace_regen_prim")
     trace_regen_prim.launches += 1
     return rad, segs, done
@@ -1233,8 +1276,10 @@ def k6_shared_table(ks: KernelScene) -> bool:
     return k6_table_bytes(ks) <= K6_SHARED_BUDGET
 
 
-def _prim_scene_args(ks: KernelScene):
-    hit = ks.hit.data_ptr() if k6_shared_table(ks) else None
+def _prim_scene_args(ks: KernelScene, budget: int = K6_SHARED_BUDGET):
+    """The table-driven scene's launch arguments, the compact rows where
+    the tables fit ``budget`` bytes of shared memory (K6's, or K4's)."""
+    hit = ks.hit.data_ptr() if k6_table_bytes(ks) <= budget else None
     return (ks.sph.data_ptr(), ks.sph.shape[0], _ptr(ks.bnd), ks.bnd.shape[0],
             ks.tri.data_ptr(), ks.tri.shape[0], hit, _ptr(ks.tiles),
             ks.tiles.shape[0], ks.tile_base)

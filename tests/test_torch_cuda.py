@@ -9,9 +9,10 @@ it as
 
 Kernels: K1 trace_regen (cornell, three-spheres, a gated scene; also on
 single-sphere and a scene of 128 primitives, the most a static scene
-holds, with the other kernels' SASS held to the commit's before K1's
-redesign), K4
-trace_regen_prim, K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
+holds, with the other kernels' SASS held to the commit's before K4's
+redesign), K4 trace_regen_prim (mesh; mesh and the two-mesh scene at
+quota 64; past one wave of resident threads; a scene whose table exceeds
+its shared-memory budget; its launch configuration), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
 K2 also at park depths 0-3, on pools wider than one wave of resident
 threads and narrower, of a width no multiple of the block, with every slot
 stalled at entry, with slots that reach the step budget and on a scene of
@@ -262,11 +263,12 @@ def test_cuda_k1_config_reports_the_design(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_k1_leaves_the_other_kernels_sass(cuda_device):
-    """K1's redesign leaves every other kernel's SASS as it was: each
-    kernel of the sources that share common.cuh with K1, built with and
-    without FMA contraction, hashes as in the fixture that
-    scripts/ablate_k1.py --fingerprints wrote from the parent commit's
-    builds on this toolkit."""
+    """The redesigns of K1 and K4 leave every other kernel's SASS as it
+    was: each kernel of the sources that share common.cuh with K1 (K2, K3,
+    K5-K7, K8; K4 has SASS of its own), built with and without FMA
+    contraction, hashes as in the fixture that scripts/ablate_k4.py
+    --fingerprints wrote from the builds of the commit before K4's
+    redesign on this toolkit."""
     spec = importlib.util.spec_from_file_location(
         "ablate_k1", os.path.join(ROOT, "scripts", "ablate_k1.py"))
     ablate = importlib.util.module_from_spec(spec)
@@ -322,6 +324,90 @@ def test_cuda_k4_matches_plain(cuda_device, source):
     exact = trace_kernel.trace_regen_prim(prep.kscene, prep.cam, pix, fmad=False, **kw)
     for k, p in zip(exact, p_out):
         assert torch.equal(k, p)
+
+
+def _k4_case(sid, res, dev):
+    spec = importlib.util.spec_from_file_location(
+        "k4_coherence", os.path.join(ROOT, "scripts", "k4_coherence.py"))
+    coh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(coh)
+    scene = coh.two_mesh_scene(tpt, ROOT) if sid == "two-mesh" else _scene(sid)
+    prep = prepare_render(scene, res, dev)
+    pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(dev)
+    return prep.kscene, prep.cam, pix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sid", ["mesh", "two-mesh"])
+def test_cuda_k4_quota_64_bit_exact(cuda_device, sid):
+    """K4 at the quota its render launches (64), on mesh and on the
+    two-mesh scene the default router sends it: the --fmad=false build
+    equals the plain version bit for bit; the default build counts the
+    quota exactly and keeps 99.5% of pixels within 1e-3."""
+    ks, cam, pix = _k4_case(sid, Resolution(48, 64), cuda_device)
+    assert trace_kernel.k4_shared_table(ks)
+    kw = dict(seed=7, sample_base=4, quota=64)
+    p_out = trace_kernel.trace_regen_prim_plain(ks, cam, pix, **kw)
+    exact = trace_kernel.trace_regen_prim(ks, cam, pix, fmad=False, **kw)
+    k_rad, _, k_done = trace_kernel.trace_regen_prim(ks, cam, pix, **kw)
+    torch.cuda.synchronize()
+    for k, p in zip(exact, p_out):
+        assert torch.equal(k, p)
+    assert bool((k_done == 64).all())
+    assert float(((k_rad - p_out[0]).abs().sum(dim=1) < 1e-3).float().mean()) >= 0.995
+
+
+@pytest.mark.cuda
+def test_cuda_k4_refills_lanes_past_one_wave(cuda_device):
+    """More pixels than the card's resident threads (512x384 = 196,608):
+    threads that finish their pixel take the next from the counter; every
+    pixel still equals the plain version bit for bit (--fmad=false), with
+    the injected uniforms too."""
+    ks, cam, pix = _k4_case("mesh", Resolution(384, 512), cuda_device)
+    cfg = trace_kernel.regen_prim_config(ks)
+    assert pix.shape[0] > cfg["blocks_per_sm"] * cfg["sms"] * cfg["threads"]
+    uni = torch.from_numpy(np.random.default_rng(1).random(
+        (6, pix.shape[0]), dtype=np.float32)).to(cuda_device)
+    for u in (None, uni):
+        kw = dict(seed=3, sample_base=0, quota=2, uniforms=u)
+        p_out = trace_kernel.trace_regen_prim_plain(ks, cam, pix, **kw)
+        exact = trace_kernel.trace_regen_prim(ks, cam, pix, fmad=False, **kw)
+        torch.cuda.synchronize()
+        for k, p in zip(exact, p_out):
+            assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_config_reports_the_design(cuda_device):
+    ks, _, _ = _k4_case("mesh", Resolution(24, 32), cuda_device)
+    cfg = trace_kernel.regen_prim_config(ks)
+    assert cfg["shared_table"] and cfg["threads"] == 1024
+    assert cfg["blocks_per_sm"] >= 1 and cfg["registers"] <= 64
+    assert cfg["smem_bytes"] == (trace_kernel.k6_table_bytes(ks)
+                                 + cfg["threads"] * (32 + 2))
+
+
+@pytest.mark.cuda
+def test_cuda_k4_large_table_reads_rows_from_device_memory(cuda_device):
+    """A scene whose tables exceed K4_SHARED_BUDGET (mesh's tiles four times
+    over: 3,336 rows, 267 KB) takes the read-only path, chosen from its
+    size, and still equals the plain version; so does quota 0."""
+    ks, cam, pix = _k4_case("mesh", Resolution(48, 64), cuda_device)
+    tiles = ks.tri[ks.tile_base:]
+    big = trace_kernel.KernelScene(
+        ks.sph, ks.bnd, torch.cat([ks.tri[:ks.tile_base]] + [tiles] * 4),
+        torch.cat([ks.tiles] * 4), ks.tile_base)
+    assert not trace_kernel.k4_shared_table(big)
+    cfg = trace_kernel.regen_prim_config(big)
+    assert not cfg["shared_table"]
+    assert cfg["smem_bytes"] == cfg["threads"] * (32 + 2)
+    for quota in (4, 0):
+        kw = dict(seed=5, sample_base=0, quota=quota)
+        p_out = trace_kernel.trace_regen_prim_plain(big, cam, pix, **kw)
+        exact = trace_kernel.trace_regen_prim(big, cam, pix, fmad=False, **kw)
+        torch.cuda.synchronize()
+        for k, p in zip(exact, p_out):
+            assert torch.equal(k, p)
 
 
 @pytest.mark.cuda

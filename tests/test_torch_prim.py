@@ -11,9 +11,10 @@
    within 1e-6 (XLA contracts a*b+c into FMAs inside jit).
 3. K4: ``trace_regen_prim_plain`` against ``trace_pallas_regen_prim`` in
    interpret mode, whose PRNG stub returns zeros, given a table of zeros
-   (the tests/test_pallas.py:193 recipe, on mesh); against K1's plain
-   version on cornell under the counter generator; the per-lane tile skip
-   against the unculled scan; the wrapper's device rule and arguments.
+   (the tests/test_pallas.py:193 recipe, on mesh and two-mesh); against
+   K1's plain version on cornell under the counter generator; the per-lane
+   tile skip against the unculled scan; the wrapper's device rule and
+   arguments.
 The CUDA kernel against this plain version is in test_torch_cuda.py.
 """
 
@@ -33,6 +34,7 @@ from path_tracer_tpu_torch.ops.kernels import trace_v2 as t_tv2
 from tests.test_torch_host import SYNTH, load_both
 from tests.test_torch_portal import synthetic_portal
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
+from tests.test_torch_k4 import two_mesh_scene
 
 LANE_TOL = 1e-3
 LANE_FRAC = 0.995
@@ -158,10 +160,14 @@ def test_per_lane_tile_skip_is_exact(repo_root):
     assert work["tri"] < 0.5 * 4096 * ks.tri.shape[0]
 
 
-def test_k4_plain_matches_pallas_kernel_zero_stub(repo_root):
+@pytest.mark.parametrize("sid", ["mesh", "two-mesh"])
+def test_k4_plain_matches_pallas_kernel_zero_stub(repo_root, sid):
     """trace_pallas_regen_prim in interpret mode (PRNG stub: zeros) against
-    the plain version given a table of zeros, on mesh."""
-    js, ts = load_both("mesh", repo_root)
+    the plain version given a table of zeros, on mesh and on two-mesh (two
+    copies of mesh's MeshFile: the default route of both packages sends it
+    to this kernel, tests/test_torch_k4.py)."""
+    js, ts = (load_both(sid, repo_root) if sid == "mesh" else
+              (two_mesh_scene(jpt, repo_root), two_mesh_scene(tpt, repo_root)))
     w, h = 64, 16
     n = w * h
     kb = j_tk.kernel_scene_buffers(jpt.pack_scene(js))

@@ -47,12 +47,17 @@ line):
      camera_rays and the plain trace); K6 also on the frame of a random
      portal scene and of a scene whose table exceeds its shared budget
      (the read-only path), and its design line: registers, blocks per SM,
-     shared bytes, scripts/k6_coherence.py's shares. K8 on a fresh
-     1,048,576-lane v1 pool of mesh primary rays at 1024x768, K7 on its
-     first 524,288 lanes after K8 and the partition (the v1 shape) and on
-     the 4 x 786,432 lanes of a mid-drive park-3 pool (the glue shape),
-     both sources. K9 on the mesh preview frame, sorted every bounce, equal
-     to K6 on the same rays, timed beside K6;
+     shared bytes, scripts/k6_coherence.py's shares. K3 and K6 on a scene
+     of 35 tiles in a row (scripts/portal_fuzz_scenes.py strip_scene) with
+     rays along it, whose keys are the largest a key can be: every ray
+     bounced and counted (the sort pad). K8 on a fresh 1,048,576-lane v1
+     pool of mesh primary rays at 1024x768, K7 on its first 524,288 lanes
+     after K8 and the partition (the v1 shape) and on the 4 x 786,432 lanes
+     of a mid-drive park-3 pool (the glue shape, timed beside K3 on the same
+     pool), both sources, with K7's and K8's design lines: registers, shared
+     bytes, blocks an SM, time against the bound, and K7's schedule model
+     (scripts/k4_coherence.py resolve_model). K9 on the mesh preview frame,
+     sorted every bounce, equal to K6 on the same rays, timed beside K6;
   4. the main paths through render(), each with the launch counts set to
      0 just before and read just after: cornell 1024x768 at 512 spp (K1),
      twice, with each render's wall and Mray/s;
@@ -62,7 +67,9 @@ line):
      (K4 and no portal kernel; per-pixel counts exact);
      mesh 1024x768 at 64 spp through the v2 portal, the v1 scheduler (K8
      and K7, not K2 or K3) and the glue route (K2 and K7, not K3), each
-     within ulp flips of the v2 image; small cornell and mesh renders on
+     within ulp flips of the v2 image, with their wall, Mray/s and cycles
+     beside those of the commit before K7's and K8's redesign (V1_BEFORE,
+     recorded); small cornell and mesh renders on
      the card agree with the same renders on the CPU far inside Monte Carlo
      noise; a portal render cancelled at its first poll keeps exactly the
      samples it traced;
@@ -140,6 +147,11 @@ FLOPS_RAYGEN = 40  # a tent-filtered camera ray
 # a K5 segment: K1's cornell segment less count_flops.py's raygen share (64
 # of its 608), since K5's rays come from outside
 FLOPS_K5_SEGMENT = FLOPS_K1_SEGMENT - 64
+
+# The v1 and glue renders of phase 4 (mesh 1024x768, 64 spp) with the K7
+# and K8 of the commit before their redesign: wall s, Mray/s, cycles, as
+# its chip_smoke.py printed them (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+V1_BEFORE = {"v1": (0.426, 1087.0, 92), "glue": (0.559, 827.0, 204)}
 
 FAILURES: list[str] = []
 
@@ -1003,6 +1015,14 @@ def check_v1(mesh, dev, card, main):
           f"lanes frozen at the portal; kernel {k8['ms']:.3f} ms, plain "
           f"{k8['plain_ms']:.1f} ms, bound {k8['bound_ms']:.3f} ms "
           f"({k8['bound_by']}) ({card})", flush=True)
+    cfg = pk.cheap_blocked_config(pc)
+    print(f"phase 3 K8 design: ptxas "
+          f"{' | '.join(ptxas_registers(BUILT['portal_cheap_blocked.cu fmad=True'].log))}; "
+          f"group {pk.BLOCKED_GROUP} (a warp's vote): {cfg['registers']} "
+          f"registers, {cfg['local_bytes']} local bytes a thread, "
+          f"{cfg['blocks_per_sm']} blocks of {cfg['threads']} threads an SM, "
+          f"{cfg['smem_bytes']} shared bytes a block; {k8['ms']:.3f} ms "
+          f"against a {k8['bound_ms']:.3f} ms bound ({card})", flush=True)
 
     perm = torch.argsort((frozen[pk.ROW_ALIVE] <= 0.0).to(torch.int32), stable=True)
     front = frozen[:, perm][:, :F_cap]
@@ -1052,11 +1072,92 @@ def check_v1(mesh, dev, card, main):
                   f"{plain_s * 1e3:.1f} ms, bound {bound[0]:.3f} ms ({bound[1]}) "
                   f"({card})", flush=True)
             if shape == "glue":
-                k7["glue_ms"] = ms
+                k3_ms = cuda_ms(lambda: pk.trace_resolve_pool(
+                    ks, pool2, seed=seed, parts=park_k + 1, park_k=park_k,
+                    max_depth=max_depth), 5)
+                print(f"phase 3 K7 glue {ms:.3f} ms beside K3 {k3_ms:.3f} ms on "
+                      f"the same pool (the same bounces) ({card})", flush=True)
             else:
                 k7["ms"], k7["plain_ms"] = ms, plain_s * 1e3
                 k7["bound_ms"], k7["bound_by"] = bound
+            k7_design(ks, shape, state, card)
     return k8, k7
+
+
+def k7_design(ks, shape, state, card):
+    """K7's registers, shared bytes, blocks an SM and the schedule model's
+    shares on one of its shapes, on lines of their own."""
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk
+
+    cfg = tk.resolve_config(ks)
+    regs = ptxas_registers(BUILT["trace_stepped.cu fmad=True"].log)
+    m = script_module("k4_coherence").resolve_model(
+        ks, list(state[0]), list(state[1]), state[5][0], state[4][0] > 0,
+        threads=cfg["threads"])
+    print(f"phase 3 K7 design ({shape}): ptxas {' | '.join(regs)}; "
+          f"{cfg['registers']} registers, {cfg['local_bytes']} local bytes a "
+          f"thread, {cfg['blocks_per_sm']} block of {cfg['threads']} threads "
+          f"an SM, {cfg['smem_bytes']} dynamic + {cfg['static_smem_bytes']} "
+          f"static shared bytes, table in shared memory {cfg['shared_table']}, "
+          f"{cfg['group']} lanes a tile query; model: {m['live']} live lanes, "
+          f"{m['warp_queries']} enter a tile; useful rows one thread a lane "
+          f"{m['thread_per_lane']['useful_row_share']:.4f}, split "
+          f"{m['split']['useful_row_share']:.4f}, sorted "
+          f"{m['sorted']['useful_row_share']:.4f} ({card})", flush=True)
+
+
+def check_strip(dev, card):
+    """K3 and K6 on scripts/portal_fuzz_scenes.py's strip scene (35 tiles
+    in a row): every other column of a K3 pool, and half of K6's rays, run
+    along the strip, so their tile-entry keys hold every key tile, next to
+    the sort's pad key; the --fmad=false builds must equal the plain
+    versions bit for bit, every ray bounced and counted."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.ops.kernels import portal as pk
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk
+    from path_tracer_tpu_torch.render.raygen import camera_arrays, camera_rays
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    scenes = script_module("portal_fuzz_scenes")
+    scene = scenes.strip_scene()
+    res = Resolution(96, 128)
+    ks, pool = script_module("k3_coherence").k3_input_pool(scene, res, dev)
+    g = np.random.default_rng(12)
+    cols = torch.arange(0, pool.shape[1], 2, device=dev)
+    o, d = (torch.from_numpy(a.T.copy()).to(dev)
+            for a in scenes.strip_rays(cols.numel(), g))
+    pool[pk.ROW_O:pk.ROW_O + 3, cols] = o
+    pool[pk.ROW_D:pk.ROW_D + 3, cols] = d
+    pool[pk.ROW_THR:pk.ROW_THR + 3, cols] = 1.0
+    pool[pk.ROW_ALIVE, cols] = 1.0
+    pool[pk.ROW_PREV, cols] = -1.0
+    kw = dict(seed=3, parts=4, park_k=3)
+    plain = pk.trace_resolve_pool_plain(ks, pool, **kw)
+    exact = pk.trace_resolve_pool(ks, pool, fmad=False, **kw)
+    torch.cuda.synchronize()
+    k3_lost = int((exact[0] != plain[0]).any(dim=0).sum())
+    npix = res.num_pixels
+    pix = torch.arange(npix, dtype=torch.int32, device=dev).repeat_interleave(2)
+    smp = torch.arange(2, dtype=torch.int32, device=dev).repeat(npix)
+    o, d = camera_rays(camera_arrays(scene.camera), pix, smp, seed=0,
+                       width=res.width, height=res.height)
+    along = torch.from_numpy(g.random(o.shape[0]) < 0.5).to(dev)
+    so, sd = (torch.from_numpy(a).to(dev) for a in scenes.strip_rays(o.shape[0], g))
+    o = torch.where(along[:, None], so, o).contiguous()
+    d = torch.where(along[:, None], sd, d).contiguous()
+    skw = dict(seed=4, pixel_idx=pix, sample_idx=smp)
+    p6 = tk.trace_stepped_plain(ks, o, d, **skw)
+    e6 = tk.trace_stepped(ks, o, d, fmad=False, **skw)
+    torch.cuda.synchronize()
+    k6_lost, k6_extra = int((e6[0] != p6[0]).any(dim=1).sum()), int(e6[1]) - int(p6[1])
+    print(f"phase 3 strip scene ({ks.tiles.shape[0]} tiles in a row): K3 "
+          f"{k3_lost} of {pool.shape[1]} columns differ, counts equal "
+          f"{torch.equal(exact[1], plain[1])}; K6 {k6_lost} of {o.shape[0]} rays "
+          f"differ, bounces kernel - plain {k6_extra} ({card})", flush=True)
+    if k3_lost or k6_lost or k6_extra or not torch.equal(exact[1], plain[1]):
+        fail("a sort pad dropped or doubled a ray on the strip scene")
 
 
 def check_sorted(mesh, dev, card):
@@ -1378,6 +1479,7 @@ def main() -> int:
     k2, k3 = check_portal(scenes["mesh"], dev, card, small, main_res)
     check_k2_shapes(scenes["mesh"], dev, card, main_res, k2)
     k5, k6 = check_stepped(scenes, dev, card)
+    check_strip(dev, card)
     k8, k7 = check_v1(scenes["mesh"], dev, card, main_res)
     k9 = check_sorted(scenes["mesh"], dev, card)
     print("phase 3 done", flush=True)
@@ -1498,6 +1600,12 @@ def main() -> int:
             fail(f"the {name} render counted {done.stats.num_samples} samples")
         if not same <= 0.25 * noise:
             fail(f"the {name} render disagrees with v2 beyond ulp flips")
+        wall, mrays, cycles = V1_BEFORE[name.split(",")[0]]
+        print(f"phase 4 mesh {name} 64 spp: wall {done.stats.wall_seconds:.4f} s, "
+              f"{done.stats.mrays_per_sec:.1f} Mray/s, "
+              f"{done.stats.extra.get('cycles')} cycles; before K7's and K8's "
+              f"redesign (recorded) {wall} s, {mrays} Mray/s, {cycles} cycles "
+              f"({card})", flush=True)
         if name.startswith("v1"):
             launches["trace_cheap_blocked"], launches["trace_resolve"] = lv[7], lv[6]
         else:

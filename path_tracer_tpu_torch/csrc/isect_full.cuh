@@ -9,9 +9,8 @@
 // Where the rows live is a template parameter of the scan:
 //  - GlobalRows: the KernelScene tables (spheres [S, 12], bounding spheres
 //    [M, 4], triangle rows [T, 32], tile AABBs [C, 6]) in device memory,
-//    read through the read-only cache (__ldg). K7 uses it (the default),
-//    and K3, K4 and K6 for a scene whose compact table is too large for
-//    shared memory.
+//    read through the read-only cache (__ldg). K3, K4, K6 and K7 use it for
+//    a scene whose compact table is too large for shared memory.
 //  - SharedRows: the compact hit-test rows (KernelScene.hit [T, 20]: the 19
 //    floats the distance test reads) and the small tables, staged by the
 //    kernel into shared memory (stage_scene). K3 and K6 use it: with K3's
@@ -21,8 +20,8 @@
 //    sorted lanes and by a third on unsorted ones. K4 scans the same table
 //    through scan_lane, scan_warp and isect_surface below, which split
 //    isect_full at the winner and take a ray whose line enters a tile with
-//    a whole warp. K7 is not redesigned yet and keeps the read-only path,
-//    which compiles for it as it did before the template.
+//    a whole warp; K7 through scan_lane, scan_group (a ray by a group of a
+//    warp's lanes) and isect_surface.
 // The shading fields of the winning row (normal, colour, emission, type,
 // order, id) are read from the 32-float rows in device memory after the
 // scan, for that row only.
@@ -133,8 +132,8 @@ __device__ __forceinline__ void wait_bulk(uint64_t* bar) {
         : "memory");
 }
 
-// The IEEE square root and reciprocal as isect_full takes them; K4 hands
-// the row tests its own exact fast paths (trace_regen_prim.cu FastOps)
+// The IEEE square root and reciprocal as isect_full takes them; K4 and K7
+// hand the row tests the exact fast paths of k1_scan.cuh (FastOps)
 struct IeeeOps {
   static __device__ __forceinline__ float root(float x) { return sqrtf(x); }
   static __device__ __forceinline__ float rcp(float x) { return 1.0f / x; }
@@ -237,8 +236,14 @@ __device__ __forceinline__ void inv_dir(const float d[3], float inv[3]) {
 
 // K3's and K6's sort key: the tiles (of the first KEY_TILES) whose AABB the
 // ray's line enters (tile_slab without the distance cull), known before
-// any triangle is tested; trace_kernel.py tile_entry_keys
-constexpr int KEY_TILES = 32;
+// any triangle is tested; trace_kernel.py tile_entry_keys. 31 tiles, so
+// that bit 31 of a live key is clear and the key SORT_PAD that pads a
+// chunk's sort to a power of two sorts after every live key: with a 32nd
+// bit a ray whose line enters 32 tiles had the pad's key, and the sort,
+// which is not stable, could put a pad before it and drop its bounce
+// (tests/test_torch_cuda.py test_cuda_sort_pad_drops_no_ray_on_a_strip_scene).
+constexpr int KEY_TILES = 31;
+constexpr uint32_t SORT_PAD = 0xffffffffu;
 
 template <class R>
 __device__ __forceinline__ uint32_t entry_key(const FullScene& sc,
@@ -466,6 +471,92 @@ __device__ __forceinline__ float scan_warp(const FullScene& sc,
         const int lo = sc.tile_base + (c0 + k) * TRI_TILE;
         warp_rows<R, Ops>(R::rows(sc), lo, lo + TRI_TILE, lane, o, d, m,
                           prevf, gate_ok, d_t, r_t);
+      }
+    }
+  }
+  return scan_winner<R>(sc, d_s, i_s, d_t, r_t, code);
+}
+
+// ---- K7's scan (trace_stepped.cu): one ray for each group of W lanes of
+// a warp (W a power of two, 32 / W rays a warp) ----
+
+// Rows [lo, hi) of each group's ray over the W lanes of the group: lane g
+// of a group tests rows lo + g, lo + g + W, .. (in order, strictly closer);
+// the group takes the closest (t, row), first row on a tie; where `take`,
+// (d_t, r_t) take it where it is strictly closer. Every lane of the warp
+// runs it.
+template <int W, class R, class Ops>
+__device__ __forceinline__ void group_rows(const float* rows, int lo, int hi,
+                                           int g, const float o[3],
+                                           const float d[3], const float m[3],
+                                           float prevf, uint32_t gate_ok,
+                                           bool take, float& d_t, int& r_t) {
+  float bt = BIG;
+  int br = 0x7fffffff;
+  for (int r = lo + g; r < hi; r += W) {
+    const float t = tri_t<R, Ops>(rows + r * R::F, o, d, m, prevf, gate_ok);
+    if (t < bt) {
+      bt = t;
+      br = r;
+    }
+  }
+  for (int off = W / 2; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, bt, off);
+    const int r2 = __shfl_xor_sync(0xffffffffu, br, off);
+    if (t2 < bt || (t2 == bt && r2 < br)) {
+      bt = t2;
+      br = r2;
+    }
+  }
+  if (take && bt < d_t) {
+    d_t = bt;
+    r_t = br;
+  }
+}
+
+// Each group's ray (has: the group holds one; every lane of the warp runs
+// it): the spheres in every lane, the base set's rows split over the
+// group's lanes; the slab tests of W tiles at a time, one a lane; the warp
+// walks the union of the tiles its groups' rays enter, in order, and a
+// group tests a tile's rows where its ray enters it closer than its best
+// hit so far, as isect_full culls. With W 32 it is scan_warp. The same
+// result as isect_full, bit for bit.
+template <int W, class R, class Ops>
+__device__ __forceinline__ float scan_group(const FullScene& sc,
+                                            const float o[3],
+                                            const float d[3], float prevf,
+                                            bool has, int lane, int& code) {
+  const int g = lane & (W - 1), first = lane & ~(W - 1);
+  float d_s;
+  int i_s;
+  uint32_t gate_ok;
+  scan_spheres<R, Ops>(sc, o, d, d_s, i_s, gate_ok);
+  const float m[3] = {o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+                      o[0] * d[1] - o[1] * d[0]};
+  float d_t = BIG;
+  int r_t = 0;
+  group_rows<W, R, Ops>(R::rows(sc), 0, sc.n_tiles ? sc.tile_base : sc.n_tri,
+                        g, o, d, m, prevf, gate_ok, true, d_t, r_t);
+  float inv[3];
+  inv_dir(d, inv);
+  for (int c0 = 0; c0 < sc.n_tiles; c0 += W) {
+    float t_en = 0.0f;
+    const bool in =
+        has && c0 + g < sc.n_tiles &&
+        tile_slab<R>(sc.tiles + (c0 + g) * TILE_F, o, inv, t_en);
+    const unsigned ball = __ballot_sync(0xffffffffu, in);
+    unsigned any = ball;  // tile c0 + k is bit k: entered by some group
+    if constexpr (W < 32)
+      for (int s = W; s < 32; s <<= 1) any |= any >> s;
+    if constexpr (W < 32) any &= (1u << W) - 1u;
+    for (; any; any &= any - 1) {
+      const int k = __ffs(any) - 1;
+      const float te = __shfl_sync(0xffffffffu, t_en, first + k);
+      const bool mine = ((ball >> (first + k)) & 1u) && te < fminf(d_t, d_s);
+      if (__any_sync(0xffffffffu, mine)) {
+        const int lo = sc.tile_base + (c0 + k) * TRI_TILE;
+        group_rows<W, R, Ops>(R::rows(sc), lo, lo + TRI_TILE, g, o, d, m,
+                              prevf, gate_ok, mine, d_t, r_t);
       }
     }
   }

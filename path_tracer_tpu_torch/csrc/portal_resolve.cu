@@ -29,9 +29,8 @@
 //     ROW_ALIVE > 0; part j: BUF_STATE == 1); a warp scan and a block scan
 //     pack the live (column, part) items into shared memory in column order,
 //     each with its sort key, the tiles its ray's line enters (the slab test
-//     without the distance cull, the first KEY_TILES tiles: every tile of a
-//     scene whose table fits in shared memory up to 32 tiles, a prefix
-//     beyond). The mask comes within 3 points of a key of the tiles a ray
+//     without the distance cull, the first KEY_TILES (31) tiles: every tile
+//     of a scene of up to 31 tiles, a prefix beyond). The mask comes within 3 points of a key of the tiles a ray
 //     really tests in the share of useful rows; a key of the nearest
 //     entered tile does worse (scripts/k3_coherence.py, PERF.md);
 //  2. sort: a bitonic sort of the chunk's items by key in shared memory, so
@@ -282,7 +281,7 @@ resolve_pool_kernel(FullScene g, const float* __restrict__ in,
     if (K3_SORT && total > 1 && g.n_tiles > 0) {
       int len = 32;
       while (len < total) len <<= 1;
-      for (int i = total + tid; i < len; i += K3_THREADS) keys[i] = 0xffffffffu;
+      for (int i = total + tid; i < len; i += K3_THREADS) keys[i] = SORT_PAD;
       __syncthreads();
       for (int k = 2; k <= len; k <<= 1) {
         for (int j = k >> 1; j > 0; j >>= 1) {

@@ -62,11 +62,7 @@ namespace {
 constexpr int K4_THREADS = 1024;  // threads a block, one block an SM
 constexpr unsigned FULL = 0xffffffffu;
 
-// The root and reciprocal of the row tests, exact (k1_scan.cuh)
-struct FastOps {
-  static __device__ __forceinline__ float root(float x) { return k1::root0(x); }
-  static __device__ __forceinline__ float rcp(float x) { return __frcp_rn(x); }
-};
+using k1::FastOps;  // the row tests' root and reciprocal, exact
 
 struct Args {
   Cam cam;

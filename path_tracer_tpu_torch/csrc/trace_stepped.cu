@@ -93,8 +93,38 @@
 // the shared table and the group order 1.70 ms at the preview frame,
 // without the group order 1.96 ms, the refill kernel 3.1 ms, the parent
 // 4.05-4.12 ms.
+//
+// K7's design. The parent ran one thread a lane, dead lanes included (a
+// third of them at both of its routes' shapes), read its rows through the
+// read-only path and made each warp run the union of its lanes' tiles: 31%
+// (v1 front) and 18% (glue) of the rows executed were needed
+// (scripts/k4_coherence.py resolve_model). Unlike K4's camera rays, 94% and
+// 84% of K7's live rays enter a tile: they are rays the portal froze in
+// front of the mesh. Here:
+//  - a persistent grid of one block of 1,024 threads an SM, looping over
+//    chunks of 1,024 consecutive lanes; the compact hit table staged in
+//    shared memory (stage_scene), or the read-only path above the wrapper's
+//    budget (trace_kernel.K7_SHARED_BUDGET), chosen before the launch;
+//  - the owner of a dead lane cleans it (thr 0, prev -1, depth and count
+//    rows), coalesced with its warp; a live lane files its ray: a tile query
+//    if its line enters a tile, else a lane query;
+//  - the tile queries are bitonic-sorted by their tile-entry key, led by the
+//    number of tiles it holds (most first, so warps take the longest tasks
+//    first); a warp then traces four of them at once, each by a group of
+//    K7_GROUP (8) lanes that split the base set and each tile's 64 rows
+//    (scan_group); the lane queries go 32 to a warp (scan_lane). The row
+//    tests take K1's exact fast root and reciprocal (k1_scan.cuh FastOps),
+//    and the scans stop at the last real sphere row (the wrapper passes
+//    KernelScene.sph_rows: mesh's 8 rows are all padding);
+//  - each owner reads its winner's surface (isect_surface), shades and
+//    writes its lane's rows once. A ray's index is its lane, so its draws
+//    and rows do not depend on the thread that traced it.
+// Measured (scripts/ablate_k7.py, PERF.md): groups of 32 lanes a ray (K4's
+// split) and one lane a ray after the sort were slower at the glue shape,
+// 4 or 16 lanes and chunks of 512 lanes slower at both.
 
 #include "isect_full.cuh"
+#include "k1_scan.cuh"
 
 using namespace pt;
 
@@ -523,7 +553,7 @@ trace_stepped_prim_sorted_kernel(const FullScene g, const StepArgs a) {
       if (K6_SORT_BY_KEY && sc.n_tiles > 0 && total > 1) {
         int len = 32;
         while (len < total) len <<= 1;
-        for (int i = total + tid; i < len; i += K6_THREADS) keys[i] = 0xffffffffu;
+        for (int i = total + tid; i < len; i += K6_THREADS) keys[i] = SORT_PAD;
         __syncthreads();
         for (int k = 2; k <= len; k <<= 1) {
           for (int j = k >> 1; j > 0; j >>= 1) {
@@ -606,41 +636,268 @@ trace_stepped_prim_sorted_kernel(const FullScene g, const StepArgs a) {
   if (!table_ready) wait_bulk(&table_bar);  // no copy outlives its block
 }
 
-// K7: one bounce at each ray's own depth. `in` and `out` are [16, n]: the
-// state rows, the depth row (bounces completed, exact in float32) and, in
-// `out`, the count row (1 where the ray was alive on entry). A dead ray is
-// cleaned as the JAX kernel's step cleans a dead lane of a live block: thr
-// 0, prev -1; its other rows pass through.
-__global__ void __launch_bounds__(THREADS)
-trace_resolve_kernel(FullScene sc, const float* __restrict__ in,
-                     float* __restrict__ out,
-                     const int* __restrict__ pixel_idx,
-                     const int* __restrict__ sample_idx, int n, uint32_t seed,
-                     int max_depth, int rr_start_depth,
-                     const float* __restrict__ uniforms) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(in, n, i);
-  const float alive_f = in[ROW_ALIVE * n + i];
-  const float depth = in[ROW_DEPTH * n + i];
-  if (r.alive) {
-    const uint32_t key = mix32(pixel_key(seed, pixel_idx[i]),
-                               static_cast<uint32_t>(sample_idx[i]));
-    const int dep = static_cast<int>(depth);
-    float u[4];
-    for (int k = 0; k < 4; ++k) u[k] = draw(uniforms, n, i, key, dep, k);
-    Hit h;
-    isect_full(sc, r.o, r.d, r.prev, true, h);
-    bounce(r, h.found, h.point, h.nrm, h.color, h.emis, h.rtype, h.new_prev,
-           u, static_cast<int>(depth + 1.0f), max_depth, rr_start_depth);
-  } else {
-    for (int k = 0; k < 3; ++k) r.thr[k] = 0.0f;
-    r.prev = -1.0f;
+// ---- K7: one bounce at each ray's own depth ----
+
+constexpr int K7_THREADS = 1024;  // threads a block, and lanes a chunk
+constexpr int K7_GROUP = 8;  // lanes that trace a ray whose line enters a tile
+
+struct ResolveArgs {
+  const float* in;  // [16, n]: the state rows, depth
+  float* out;       // [16, n]: the state rows, depth, count
+  const int* pixel_idx;
+  const int* sample_idx;
+  int n;
+  uint32_t seed;
+  int max_depth, rr_start_depth;
+  const float* uniforms;  // [4, n] or NULL
+};
+
+// Where a block's queries sit after its tables (bytes from the start of its
+// dynamic shared memory): per thread, its lane's (origin, departed
+// triangle) and (direction, 0), the winner's code and distance in their .w
+// once traced; the chunk's tile queries (rays whose line enters a tile) and
+// lane queries (the rest), by owner; the tile queries' sort keys.
+struct ResolveLayout {
+  int q, tile_q, lane_q, keys, bytes;
+};
+
+__host__ __device__ inline ResolveLayout resolve_layout(int table_bytes) {
+  ResolveLayout l;
+  l.q = align16(table_bytes);
+  l.tile_q = l.q + K7_THREADS * 32;
+  l.lane_q = l.tile_q + K7_THREADS * 2;
+  l.keys = align16(l.lane_q + K7_THREADS * 2);
+  l.bytes = l.keys + K7_THREADS * 4;
+  return l;
+}
+
+// A dead lane, cleaned as the JAX kernel's step cleans a dead lane of a live
+// block: thr 0, prev -1, alive 0; depth += alive (its row value); count =
+// alive; the other rows pass through
+__device__ __forceinline__ void clean_lane(const ResolveArgs& a, size_t N,
+                                           int i, float alive_f) {
+  for (int k = 0; k < 3; ++k) {
+    a.out[(ROW_O + k) * N + i] = a.in[(ROW_O + k) * N + i];
+    a.out[(ROW_D + k) * N + i] = a.in[(ROW_D + k) * N + i];
+    a.out[(ROW_THR + k) * N + i] = 0.0f;
+    a.out[(ROW_ACC + k) * N + i] = a.in[(ROW_ACC + k) * N + i];
   }
-  store_ray(out, n, i, r);
-  // the JAX kernel adds the alive row itself (1.0 or 0.0)
-  out[ROW_DEPTH * n + i] = depth + alive_f;
-  out[ROW_COUNT * n + i] = alive_f;
+  a.out[ROW_ALIVE * N + i] = 0.0f;
+  a.out[ROW_PREV * N + i] = -1.0f;
+  a.out[ROW_DEPTH * N + i] = a.in[ROW_DEPTH * N + i] + alive_f;
+  a.out[ROW_COUNT * N + i] = alive_f;
+}
+
+// K7 (see the file's head): a persistent grid of one block of K7_THREADS an
+// SM, each block looping over chunks of K7_THREADS consecutive lanes. Thread
+// t owns lane t of the chunk: it cleans the lane if it is dead, or files its
+// query; the block's warps trace the queries; the owner reads its winner's
+// surface, shades and writes the lane's rows.
+template <class R>
+__global__ void __launch_bounds__(K7_THREADS, 1)
+trace_resolve_kernel(const FullScene g, const ResolveArgs a) {
+  constexpr bool kShared = R::F == HIT_F;
+  constexpr int kPer = 32 / K7_GROUP;  // tile queries a warp task
+  extern __shared__ __align__(16) unsigned char k7_smem[];
+  __shared__ uint64_t table_bar;
+  __shared__ int n_tile[2], n_lane[2], next_task[2];  // by the chunk's parity
+  const int tid = threadIdx.x, lane = tid & 31;
+  FullScene sc = g;
+  int table_bytes = 0;
+  if constexpr (kShared) {
+    sc = stage_scene(g, k7_smem, &table_bar);
+    table_bytes = scene_layout(g.n_tri, g.n_sph, g.n_bnd, g.n_tiles).bytes;
+  }
+  if (tid < 2) n_tile[tid] = n_lane[tid] = next_task[tid] = 0;
+  __syncthreads();
+  bool table_ready = !kShared;
+  const ResolveLayout rl = resolve_layout(table_bytes);
+  float4* q = reinterpret_cast<float4*>(k7_smem + rl.q);  // 2 a thread
+  uint16_t* tile_q = reinterpret_cast<uint16_t*>(k7_smem + rl.tile_q);
+  uint16_t* lane_q = reinterpret_cast<uint16_t*>(k7_smem + rl.lane_q);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(k7_smem + rl.keys);
+  const size_t N = static_cast<size_t>(a.n);
+  const int n_chunks = (a.n + K7_THREADS - 1) / K7_THREADS;
+  const unsigned below = (1u << lane) - 1u;
+
+  int p = 0;
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x, p ^= 1) {
+    const int i = chunk * K7_THREADS + tid;
+    // ---- each owner: clean a dead lane, or file a live lane's query ----
+    float alive_f = 0.0f;
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
+    if (i < a.n) {
+      alive_f = a.in[ROW_ALIVE * N + i];
+      if (alive_f > 0.0f) {
+        for (int k = 0; k < 3; ++k) {
+          o[k] = a.in[(ROW_O + k) * N + i];
+          d[k] = a.in[(ROW_D + k) * N + i];
+        }
+        q[2 * tid] = make_float4(o[0], o[1], o[2], a.in[ROW_PREV * N + i]);
+        q[2 * tid + 1] = make_float4(d[0], d[1], d[2], 0.0f);
+      } else {
+        clean_lane(a, N, i, alive_f);
+      }
+    }
+    const bool live = i < a.n && alive_f > 0.0f;
+    const bool enters = live && enters_a_tile<R>(sc, o, d);
+    const unsigned mt = __ballot_sync(FULL, enters);
+    const unsigned ml = __ballot_sync(FULL, live && !enters);
+    int bt = 0, bl = 0;
+    if (lane == 0) {
+      if (mt) bt = atomicAdd(&n_tile[p], __popc(mt));
+      if (ml) bl = atomicAdd(&n_lane[p], __popc(ml));
+    }
+    bt = __shfl_sync(FULL, bt, 0);
+    bl = __shfl_sync(FULL, bl, 0);
+    if (enters) {  // sort key: the tiles the key holds, most first, then it
+      const int at = bt + __popc(mt & below);
+      const uint32_t key = entry_key<R>(sc, o, d);
+      tile_q[at] = static_cast<uint16_t>(tid);
+      keys[at] = (static_cast<uint32_t>(31 - __popc(key)) << 27) |
+                 (key & 0x07ffffffu);
+    }
+    if (live && !enters)
+      lane_q[bl + __popc(ml & below)] = static_cast<uint16_t>(tid);
+    __syncthreads();
+    const int tiles_n = n_tile[p], lanes_n = n_lane[p];
+    // the next chunk's counters: every thread read them before this
+    // chunk's barrier above, and takes them up after the one below
+    if (tid == 0) n_tile[p ^ 1] = n_lane[p ^ 1] = next_task[p ^ 1] = 0;
+    if (!table_ready && tiles_n + lanes_n > 0) {
+      wait_bulk(&table_bar);
+      table_ready = true;
+    }
+    if (tiles_n > 1) {  // the tile queries by sort key (bitonic, 2^k)
+      int len = 32;
+      while (len < tiles_n) len <<= 1;
+      for (int j = tiles_n + tid; j < len; j += K7_THREADS) keys[j] = SORT_PAD;
+      __syncthreads();
+      for (int k = 2; k <= len; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int x = tid; x < len; x += K7_THREADS) {
+            const int y = x ^ j;
+            if (y > x) {
+              const uint32_t kx = keys[x], ky = keys[y];
+              if ((kx > ky) == ((x & k) == 0)) {
+                keys[x] = ky;
+                keys[y] = kx;
+                const uint16_t t = tile_q[x];
+                tile_q[x] = tile_q[y];
+                tile_q[y] = t;
+              }
+            }
+          }
+          __syncthreads();
+        }
+      }
+    }
+    // ---- trace: warps take kPer tile queries at a time (K7_GROUP lanes
+    // each), those of most tiles first, then the lane queries 32 at a
+    // time ----
+    const int tile_tasks = (tiles_n + kPer - 1) / kPer;
+    const int tasks = tile_tasks + (lanes_n + 31) / 32;
+    for (;;) {
+      int task = 0;
+      if (lane == 0) task = atomicAdd(&next_task[p], 1);
+      task = __shfl_sync(FULL, task, 0);
+      if (task >= tasks) break;
+      if (task < tile_tasks) {
+        const int at = task * kPer + lane / K7_GROUP;
+        const bool has = at < tiles_n;
+        const int j = tile_q[has ? at : task * kPer];
+        const float4 op = q[2 * j], dr = q[2 * j + 1];
+        const float ro[3] = {op.x, op.y, op.z}, rd[3] = {dr.x, dr.y, dr.z};
+        int code;
+        const float t = scan_group<K7_GROUP, R, k1::FastOps>(
+            sc, ro, rd, op.w, has, lane, code);
+        __syncwarp();  // every lane has read its ray before one writes
+        if (has && (lane & (K7_GROUP - 1)) == 0) {
+          q[2 * j].w = __int_as_float(code);
+          q[2 * j + 1].w = t;
+        }
+      } else if (const int at = (task - tile_tasks) * 32 + lane; at < lanes_n) {
+        const int j = lane_q[at];
+        const float4 op = q[2 * j], dr = q[2 * j + 1];
+        const float ro[3] = {op.x, op.y, op.z}, rd[3] = {dr.x, dr.y, dr.z};
+        int code;
+        const float t = scan_lane<R, k1::FastOps>(sc, ro, rd, op.w, code);
+        q[2 * j].w = __int_as_float(code);
+        q[2 * j + 1].w = t;
+      }
+    }
+    __syncthreads();
+    // ---- each owner of a live lane: its winner's surface, one bounce ----
+    if (live) {
+      const float4 op = q[2 * tid], dr = q[2 * tid + 1];
+      Ray r;
+      r.o[0] = op.x, r.o[1] = op.y, r.o[2] = op.z;
+      r.d[0] = dr.x, r.d[1] = dr.y, r.d[2] = dr.z;
+      for (int k = 0; k < 3; ++k) {
+        r.thr[k] = a.in[(ROW_THR + k) * N + i];
+        r.acc[k] = a.in[(ROW_ACC + k) * N + i];
+      }
+      r.alive = true;
+      r.prev = -1.0f;  // bounce sets it
+      const float depth = a.in[ROW_DEPTH * N + i];
+      const uint32_t key = mix32(pixel_key(a.seed, a.pixel_idx[i]),
+                                 static_cast<uint32_t>(a.sample_idx[i]));
+      const int dep = static_cast<int>(depth);
+      float u[4];
+      for (int k = 0; k < 4; ++k) u[k] = draw(a.uniforms, a.n, i, key, dep, k);
+      Hit h;
+      isect_surface<R>(sc, r.o, r.d, dr.w, __float_as_int(op.w), h);
+      bounce(r, h.found, h.point, h.nrm, h.color, h.emis, h.rtype, h.new_prev,
+             u, static_cast<int>(depth + 1.0f), a.max_depth, a.rr_start_depth);
+      store_ray(a.out, a.n, i, r);
+      a.out[ROW_DEPTH * N + i] = depth + alive_f;
+      a.out[ROW_COUNT * N + i] = alive_f;
+    }
+  }
+  if (!table_ready) wait_bulk(&table_bar);  // no copy outlives its block
+}
+
+using ResolveKernel = void (*)(const FullScene, const ResolveArgs);
+
+ResolveKernel resolve_kernel_for(bool shared) {
+  return shared ? trace_resolve_kernel<SharedRows>
+                : trace_resolve_kernel<GlobalRows>;
+}
+
+// K7's launch configuration: out[0] the dynamic shared memory a block takes
+// (bytes), out[1] resident blocks per SM, out[2] threads a block, out[3]
+// SMs, out[4] registers a thread, out[5] local (spill) bytes a thread,
+// out[6] the shared memory a block may opt in to (bytes), out[7] the static
+// shared memory a block takes (bytes), out[8] K7_GROUP
+cudaError_t resolve_config(const FullScene& sc, bool shared, int* out) {
+  const ResolveKernel fn = resolve_kernel_for(shared);
+  const int table =
+      shared ? scene_layout(sc.n_tri, sc.n_sph, sc.n_bnd, sc.n_tiles).bytes
+             : 0;
+  const int smem = resolve_layout(table).bytes;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[6], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], fn, K7_THREADS,
+                                                      smem);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return e;
+  out[0] = smem;
+  out[2] = K7_THREADS;
+  out[4] = fa.numRegs;
+  out[5] = static_cast<int>(fa.localSizeBytes);
+  out[7] = static_cast<int>(fa.sharedSizeBytes);
+  out[8] = K7_GROUP;
+  return out[1] < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 // Checks of a stepped call's arguments; a camera entry starts at depth 0
@@ -833,25 +1090,44 @@ extern "C" int pt_trace_stepped_prim(
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7's launch configuration (resolve_config's out[0..8]) for a scene of
+// these table sizes, shared 1 for the table in shared memory. Returns a
+// CUDA error code (cudaErrorInvalidConfiguration: no block fits on an SM).
+extern "C" int pt_trace_resolve_config(int n_sph, int n_bnd, int n_tri,
+                                       int n_tiles, int shared, int* out) {
+  const FullScene sc = full_scene(nullptr, n_sph, nullptr, n_bnd, nullptr,
+                                  n_tri, nullptr, nullptr, n_tiles, 0);
+  return static_cast<int>(resolve_config(sc, shared != 0, out));
+}
+
 // K7 on `stream`: one bounce of every ray of `in` [16, n] at its own depth
-// into `out` [16, n] (distinct buffers). uniforms is NULL for the counter
-// generator, else [4, n].
+// into `out` [16, n] (distinct buffers). hit is KernelScene.hit ([n_tri,
+// 20], 16-byte aligned), whose rows the scans read from shared memory, or
+// NULL for the read-only path. uniforms is NULL for the counter generator,
+// else [4, n].
 extern "C" int pt_trace_resolve(
     const float* sph, int n_sph, const float* bnd, int n_bnd,
-    const float* tri, int n_tri, const float* tiles, int n_tiles,
-    int tile_base, const float* in, float* out, const int* pixel_idx,
-    const int* sample_idx, int n, uint32_t seed, int max_depth,
-    int rr_start_depth, const float* uniforms, void* stream) {
+    const float* tri, int n_tri, const float* hit, const float* tiles,
+    int n_tiles, int tile_base, const float* in, float* out,
+    const int* pixel_idx, const int* sample_idx, int n, uint32_t seed,
+    int max_depth, int rr_start_depth, const float* uniforms, void* stream) {
   if (n <= 0) return 0;
-  const FullScene sc{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
-                     tile_base};
-  if (!full_scene_ok(sc) || max_depth <= 0 || in == out)
+  const FullScene sc = full_scene(sph, n_sph, bnd, n_bnd, tri, n_tri, hit,
+                                  tiles, n_tiles, tile_base);
+  const bool shared = hit != nullptr;
+  if (!full_scene_ok(sc) || max_depth <= 0 || in == out ||
+      (shared && (reinterpret_cast<uintptr_t>(hit) & 15u)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + THREADS - 1) / THREADS;
-  trace_resolve_kernel<<<blocks, THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      sc, in, out, pixel_idx, sample_idx, n, seed, max_depth, rr_start_depth,
-      uniforms);
+  int cfg[9];
+  const cudaError_t e = resolve_config(sc, shared, cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const ResolveArgs a{in,  out,  pixel_idx, sample_idx,     n,
+                      seed, max_depth, rr_start_depth, uniforms};
+  const int chunks = (n + K7_THREADS - 1) / K7_THREADS;
+  const int resident = cfg[1] * cfg[3];
+  resolve_kernel_for(shared)<<<chunks < resident ? chunks : resident,
+                               K7_THREADS, cfg[0],
+                               static_cast<cudaStream_t>(stream)>>>(sc, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -103,8 +103,10 @@ ROW_PIX = 15
 ROWS = 16
 V1_ROW_SAMPLE = 16
 V1_PORT_ROWS = 17
-# K8's lanes vote in groups of this many (the CUDA block; a multiple of 32)
-BLOCKED_GROUP = 128
+# K8's lanes vote in groups of this many (a multiple of 32): a warp's vote
+# on the card. The group changes neither the image nor, on mesh, the v1
+# render's cycles; 32 is K8's fastest (PERF.md, scripts/ablate_k8.py)
+BLOCKED_GROUP = 32
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -843,20 +845,42 @@ trace_resolve_pool.launches = 0
 
 
 @functools.lru_cache(maxsize=2)
-def _blocked_library(fmad: bool = True):
+def blocked_library(fmad: bool = True):
+    """``csrc/portal_cheap_blocked.cu`` (K8) built and bound; ``fmad=False``
+    builds it without FMA contraction."""
     built = load_kernel(os.path.join(CSRC_DIR, "portal_cheap_blocked.cu"), fmad)
     fn = built.lib.pt_cheap_blocked
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int,  # prims, n_prims
         ctypes.c_void_p, ctypes.c_int,  # gates, n_gates
+        ctypes.c_void_p, ctypes.c_void_p,  # hit, split
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_sph, n_prims, rcp_safe
         ctypes.c_void_p,  # aabb (host): lo, hi
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pool in, out, n
         ctypes.c_int, ctypes.c_uint32,  # group, seed
         ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts, stream
+        ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts
+        ctypes.c_void_p, ctypes.c_void_p,  # next, stream
     ]
+    fn = built.lib.pt_cheap_blocked_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return built
+
+
+def cheap_blocked_config(pc: PortalConsts, group: int = BLOCKED_GROUP, *,
+                         fmad: bool = True) -> dict:
+    """K8's launch configuration for ``pc``'s cheap scene at a vote group
+    on the current card: dynamic shared memory a block takes (bytes),
+    resident blocks per SM, threads a block, SMs, registers and local
+    (spill) bytes a thread."""
+    built = blocked_library(fmad)
+    out = (ctypes.c_int * 6)()
+    code = built.lib.pt_cheap_blocked_config(
+        pc.scene.prims.shape[0], pc.scene.gates.shape[0], int(group), out)
+    check_launch(built, code, "trace_cheap_blocked (K8) configuration")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "threads", "sms",
+                     "registers", "local_bytes"), out))
 
 
 def trace_cheap_blocked(pc: PortalConsts, pool: torch.Tensor, *, seed: int,
@@ -866,8 +890,9 @@ def trace_cheap_blocked(pc: PortalConsts, pool: torch.Tensor, *, seed: int,
                         fmad: bool = True):
     """K8 (see trace_cheap_blocked_plain for the contract). CPU tensors run
     the plain version; CUDA tensors launch ``csrc/portal_cheap_blocked.cu``
-    with ``group`` threads a block (a multiple of 32, at most 1024), or
-    raise. ``fmad=False`` builds the kernel without FMA contraction."""
+    with lanes voting in groups of ``group`` (a multiple of 32, at most
+    1024), or raise. ``fmad=False`` builds the kernel without FMA
+    contraction."""
     dev = pool.device
     kw = dict(seed=seed, max_depth=max_depth, rr_start_depth=rr_start_depth,
               group=group, uniforms=uniforms)
@@ -879,22 +904,24 @@ def trace_cheap_blocked(pc: PortalConsts, pool: torch.Tensor, *, seed: int,
     if group % 32 or group > 1024:
         raise ValueError(f"group must be a multiple of 32 up to 1024, got {group}")
     n = pool.shape[1]
-    _device_args(dev, [pc.scene.prims, pc.scene.gates, pool] + (
+    sc = pc.scene
+    _device_args(dev, [sc.gates, sc.hit, sc.split, pool] + (
         [uniforms] if uniforms is not None else []), "scene, pool and uniforms")
     out = torch.empty_like(pool)
     counts = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out, counts
-    built = _blocked_library(fmad)
+    built = blocked_library(fmad)
     aabb = torch.tensor(pc.aabb(), dtype=F32)  # host memory
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the group counter
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = built.lib.pt_cheap_blocked(
-            pc.scene.prims.data_ptr(), pc.scene.prims.shape[0],
-            _ptr(pc.scene.gates), pc.scene.gates.shape[0], aabb.data_ptr(),
-            pool.data_ptr(), out.data_ptr(), n, int(group),
+            _ptr(sc.gates), sc.gates.shape[0], sc.hit.data_ptr(),
+            sc.split.data_ptr(), sc.n_sph, sc.prims.shape[0], int(sc.rcp_safe),
+            aabb.data_ptr(), pool.data_ptr(), out.data_ptr(), n, int(group),
             int(seed) & rng.MASK32, int(max_depth), int(rr_start_depth),
-            _ptr(uniforms), counts.data_ptr(), stream)
+            _ptr(uniforms), counts.data_ptr(), nxt.data_ptr(), stream)
     check_launch(built, code, "trace_cheap_blocked")
     trace_cheap_blocked.launches += 1
     return out, counts

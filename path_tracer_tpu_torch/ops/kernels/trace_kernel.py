@@ -596,6 +596,14 @@ class KernelScene:
             hit[:, :len(HIT_COLS)] = self.tri[:, list(HIT_COLS)]
             object.__setattr__(self, "hit", hit)
 
+    @functools.cached_property
+    def sph_rows(self) -> int:
+        """The sphere rows up to the last with r² > 0, at least one: the
+        rows after it are padding (r² 0), which misses every ray, so a scan
+        of these rows finds what a scan of all finds."""
+        real = torch.nonzero(self.sph[:, S_RAD2] > 0.0)
+        return int(real.max()) + 1 if real.numel() else 1
+
     def to(self, device) -> "KernelScene":
         return KernelScene(self.sph.to(device), self.bnd.to(device),
                            self.tri.to(device), self.tiles.to(device),
@@ -696,7 +704,10 @@ def _tile_slab(box, o, inv):
     return t_en, (t_ex >= t_en) & (t_ex >= 0.0)
 
 
-KEY_TILES = 32  # tiles a tile-entry key holds (csrc/portal_resolve.cu)
+# tiles a tile-entry key holds (csrc/isect_full.cuh): 31, so that every
+# key sorts below SORT_PAD, the key that pads K3's and K6's chunk sorts
+KEY_TILES = 31
+SORT_PAD = 0xFFFFFFFF
 
 
 def tile_entry_keys(ks: KernelScene, o, d) -> torch.Tensor:
@@ -1223,9 +1234,12 @@ def stepped_library(fmad: bool = True, defines: tuple[str, ...] = ()):
     fn = built.lib.pt_trace_stepped_prim_config
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = built.lib.pt_trace_resolve_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn = built.lib.pt_trace_resolve
     fn.restype = ctypes.c_int
-    fn.argtypes = scene + tiles + [
+    fn.argtypes = scene + [ctypes.c_void_p] + tiles + [  # hit or NULL
         ctypes.c_void_p, ctypes.c_void_p,  # in, out [RESOLVE_ROWS, n]
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pixel, sample, n
         ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, depth, rr start
@@ -1447,6 +1461,47 @@ def path_uniforms(seed, pixel_idx, sample_idx, depth, slots):
     return [rng.uniform(key, dep, s) for s in slots]
 
 
+# K7 stages a scene's tables in a block's shared memory beside its 40 KB of
+# queries when they take at most this many bytes (of the 227 KB a block may
+# opt in to); a larger scene reads its rows through the read-only path
+K7_SHARED_BUDGET = 184 * 1024
+
+
+def k7_scene_args(ks: KernelScene):
+    """K7's scene arguments: ``_prim_scene_args`` under K7_SHARED_BUDGET,
+    with the sphere rows up to the last real sphere (``sph_rows``): the
+    padding after it, which misses every ray, is not scanned."""
+    args = list(_prim_scene_args(ks, K7_SHARED_BUDGET))
+    args[1] = ks.sph_rows
+    return tuple(args)
+
+
+def k7_shared_table(ks: KernelScene) -> bool:
+    """Whether K7 scans ``ks`` from shared memory: its tables
+    (``k6_table_bytes``, the same layout) fit K7_SHARED_BUDGET. Decided from
+    the table's size before a launch."""
+    return k6_table_bytes(ks) <= K7_SHARED_BUDGET
+
+
+def resolve_config(ks: KernelScene, *, fmad: bool = True) -> dict:
+    """K7's launch configuration for ``ks`` on the current card: dynamic
+    shared memory a block takes (bytes), resident blocks per SM, threads a
+    block, SMs, registers and local (spill) bytes a thread, the shared
+    memory a block may opt in to, the static shared memory a block takes,
+    the lanes that trace a ray whose line enters a tile, and whether the
+    table is in shared memory."""
+    built = stepped_library(fmad)
+    out = (ctypes.c_int * 9)()
+    shared = k7_shared_table(ks)
+    code = built.lib.pt_trace_resolve_config(
+        ks.sph_rows, ks.bnd.shape[0], ks.tri.shape[0], ks.tiles.shape[0],
+        int(shared), out)
+    check_launch(built, code, "trace_resolve (K7) configuration")
+    keys = ("smem_bytes", "blocks_per_sm", "threads", "sms", "registers",
+            "local_bytes", "smem_optin", "static_smem_bytes", "group")
+    return dict(zip(keys, out), shared_table=shared)
+
+
 def _check_resolve_args(state, pixel_idx, sample_idx, max_depth, uniforms):
     rows = (("o", 3), ("d", 3), ("thr", 3), ("acc", 3), ("alive", 1),
             ("prev", 1), ("depth", 1))
@@ -1504,8 +1559,9 @@ def trace_resolve(ks: KernelScene, o, d, thr, acc, alive, prev, depth, *,
     plain version; CUDA tensors launch ``pt_trace_resolve`` of
     ``csrc/trace_stepped.cu`` once, or raise. The rays are copied into one
     [RESOLVE_ROWS, n] buffer the kernel reads once and writes once; the
-    results are views of the output. ``fmad=False`` builds the kernel
-    without FMA contraction."""
+    results are views of the output. The scene's compact rows go to shared
+    memory where its tables fit K7_SHARED_BUDGET (``k7_shared_table``).
+    ``fmad=False`` builds the kernel without FMA contraction."""
     state = (o, d, thr, acc, alive, prev, depth)
     kw = dict(pixel_idx=pixel_idx, sample_idx=sample_idx, seed=seed,
               max_depth=max_depth, rr_start_depth=rr_start_depth,
@@ -1521,14 +1577,14 @@ def trace_resolve(ks: KernelScene, o, d, thr, acc, alive, prev, depth, *,
     torch.cat(state, out=buf[:ROW_COUNT])
     out = torch.empty_like(buf)
     name = "trace_resolve (K7)"
-    _check_on(name, dev, [ks.sph, ks.bnd, ks.tri, ks.tiles] + (
+    _check_on(name, dev, [ks.sph, ks.bnd, ks.tri, ks.hit, ks.tiles] + (
         [uniforms] if uniforms is not None else []), (pixel_idx, sample_idx))
     if n:
         built = stepped_library(fmad)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = built.lib.pt_trace_resolve(
-                *_scene_args(ks), buf.data_ptr(), out.data_ptr(),
+                *k7_scene_args(ks), buf.data_ptr(), out.data_ptr(),
                 pixel_idx.data_ptr(), sample_idx.data_ptr(), n,
                 int(seed) & rng.MASK32, int(max_depth), int(rr_start_depth),
                 _ptr(uniforms), stream)

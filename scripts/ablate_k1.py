@@ -21,10 +21,9 @@ spills, resident blocks per SM, shared bytes), its SASS count a warp-step
 and issue estimate (scripts/k1_sass.py weighed by scripts/k1_coherence.py's
 branch shares at quota 4 and the warp-steps of the quota-256 run: a static
 count, no lower bound), and the card's name, power limit and SM clock
-under load. With --parent it also compares the SASS (cuobjdump) of every
-other kernel with the parent's builds: K2 (portal_cheap.cu), K3
-(portal_resolve.cu), K5, K6 and K7 (trace_stepped.cu), K8
-(portal_cheap_blocked.cu); ``--fingerprints
+under load. With --parent it also compares the SASS (cuobjdump) of the
+kernels that must keep it with the parent's builds: K2 (portal_cheap.cu)
+and K5 (trace_stepped.cu); ``--fingerprints
 PATH`` writes the parent's as the fixture of tests/test_torch_cuda.py
 (tests/golden/gpu/k1_shared_sass.json). ``--check-only`` builds, checks
 and counts without timing.
@@ -63,11 +62,13 @@ from path_tracer_tpu_torch.utils.config import Resolution  # noqa: E402
 
 SEED, QUOTA, SMALL_QUOTA = 7, 256, 4
 CSRC = os.path.join("path_tracer_tpu_torch", "csrc")
-# the sources of the kernels that share common.cuh with K1 and must keep
-# the parent's SASS (K4, trace_regen_prim.cu, was redesigned after K1 and
-# compiles to SASS of its own: scripts/ablate_k4.py)
-SHARED = ("portal_cheap.cu", "portal_resolve.cu", "trace_stepped.cu",
-          "portal_cheap_blocked.cu")
+# the kernels that share common.cuh with K1 and must keep the parent's
+# SASS, and their sources: K2 (portal_cheap.cu) and K5 (trace_stepped.cu's
+# trace_stepped_static_kernel). K3, K4, K6, K7 and K8 were redesigned after
+# K1 and compile to SASS of their own (scripts/ablate_k{3,4,6,7,8}.py).
+SHARED = ("portal_cheap.cu", "trace_stepped.cu")
+GUARDED = re.compile(r"cheap_regen_kernel|trace_stepped_static_kernel")
+
 
 def script(name):
     spec = importlib.util.spec_from_file_location(
@@ -154,13 +155,19 @@ def sass(path: str) -> dict[str, list[str]]:
     return out
 
 
+def guarded_sass(path: str) -> dict[str, list[str]]:
+    """``sass`` of the GUARDED kernels of a build."""
+    return {fn: ins for fn, ins in sass(path).items() if GUARDED.search(fn)}
+
+
 def compare_sass(parent: str) -> bool:
-    """Every kernel of the sources that share common.cuh with K1, here and
-    in the parent's builds, with and without FMA contraction."""
+    """The GUARDED kernels, here and in the parent's builds, with and
+    without FMA contraction."""
     same = True
     for src in SHARED:
         for flags in ((), ("--fmad=false",)):
-            a, b = (sass(kbuild.build(os.path.join(root, CSRC, src), flags).path)
+            a, b = (guarded_sass(kbuild.build(os.path.join(root, CSRC, src),
+                                              flags).path)
                     for root in (ROOT, parent))
             for fn in sorted(set(a) | set(b)):
                 x, y = a.get(fn, []), b.get(fn, [])
@@ -175,15 +182,15 @@ def compare_sass(parent: str) -> bool:
 
 
 def fingerprints(root: str) -> dict:
-    """The nvcc release and a sha256 of each kernel's SASS (as ``sass``
-    gives it) in root's builds of the sources that share common.cuh with
-    K1, with and without FMA contraction: the fixture
-    tests/golden/gpu/k1_shared_sass.json holds the parent commit's."""
+    """The nvcc release and a sha256 of each GUARDED kernel's SASS (as
+    ``sass`` gives it) in root's builds, with and without FMA contraction:
+    the fixture tests/golden/gpu/k1_shared_sass.json holds the parent
+    commit's."""
     kernels = {}
     for src in SHARED:
         for flags in ((), ("--fmad=false",)):
             built = kbuild.build(os.path.join(root, CSRC, src), flags)
-            for fn, ins in sass(built.path).items():
+            for fn, ins in guarded_sass(built.path).items():
                 key = f"{src}{' fmad=false' if flags else ''} {fn}"
                 kernels[key] = hashlib.sha256("\n".join(ins).encode()).hexdigest()
     version = subprocess.run([kbuild.find_nvcc(), "--version"],

@@ -1,0 +1,298 @@
+#!/usr/bin/env python3
+"""K7 against the commit before its redesign, on a CUDA card, at the two
+shapes its routes launch.
+
+The shapes (chip_smoke.py phase 3 builds the same): mesh 1024x768, seed 7,
+max depth 12,
+  - the v1 front: a fresh 1,048,576-lane v1 pool after K8 (its plain
+    version) and the cycle's partition, its first F_cap = 524,288 lanes,
+    the live ones first (render/portal.py portal_cycle);
+  - the glue shape: a park-3 v2 pool two cycles into a drive, then K2, its
+    active paths and three park buffers side by side (render/portal.py
+    glue_lanes: 4 x 786,432 lanes), where K3 on the same pool is the
+    yardstick: on that route K7 makes exactly K3's bounces.
+
+Builds this checkout's csrc/trace_stepped.cu and, with ``--parent DIR``
+(a checkout of the commit before the redesign: ``git archive <commit> |
+tar -x -C DIR`` into a git-ignored directory such as _parent/), that
+commit's K7, and runs both on the same lanes with both uniform sources.
+This checkout's build without FMA contraction must equal the plain version
+bit for bit, and its default build (and the parent's) agree on 99.5% of
+lanes within 1e-3 with every count exact; the script fails otherwise.
+Times K7, the parent's K7 and K3 (CUDA events over ``--reps`` launches,
+warm, in turns forward and back over ``--rounds`` rounds; K7's input
+buffer is built once, so the times are the kernel's), with ``--parent``
+also the parent's K3 on the same pool and K6 and the parent's K6 on a
+mesh preview frame (450x300 x 2 spp, given rays, 12 steps: the two
+kernels whose sort pad changed), and prints K7's
+launch configuration (registers, spills, shared bytes, blocks an SM) and
+the schedule model of both shapes (scripts/k4_coherence.py resolve_model:
+useful rows and a chunk's balance under the parent's thread a lane, the
+split into warp and lane queries, and the sort). ``--check-only`` builds
+and checks without timing; ``--fingerprints PATH`` (with --parent) writes
+the parent's SASS fingerprints of the kernels scripts/ablate_k1.py guards
+(K2, K5), the fixture tests/golden/gpu/k1_shared_sass.json. ~1 min on an
+H100. PERF.md keeps the times of the design choices K7 was picked from
+(each once a -D define).
+
+  python3 scripts/ablate_k7.py [--parent DIR] [--reps 20] [--rounds 2]
+      [--check-only] [--fingerprints PATH]
+"""
+
+import argparse
+import concurrent.futures
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import path_tracer_tpu_torch as pt  # noqa: E402
+from path_tracer_tpu_torch.ops import rng  # noqa: E402
+from path_tracer_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
+from path_tracer_tpu_torch.ops.kernels import portal as pk  # noqa: E402
+from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk  # noqa: E402
+from path_tracer_tpu_torch.render import portal as rp  # noqa: E402
+from path_tracer_tpu_torch.render.pipeline import prepare_render  # noqa: E402
+from path_tracer_tpu_torch.utils.config import Resolution  # noqa: E402
+
+SEED, MAX_DEPTH, RR_START, PARK_K = 7, 12, 5, 3
+LANE_TOL, LANE_FRAC = 1e-3, 0.995
+CSRC = os.path.join("path_tracer_tpu_torch", "csrc")
+
+
+def script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def k7_shapes(mesh, res, dev):
+    """(prep, the fresh v1 pool, {"v1 front": lanes, "glue": lanes}, the
+    glue shape's v2 pool), lanes being (the seven state tensors, pixel_idx,
+    sample_idx): K7's inputs on its two routes, from mesh at ``res``."""
+    prep = prepare_render(mesh, res, dev)
+    pc, ks = prep.portal, prep.kscene
+    npix = res.num_pixels
+    C = max(min(rp.DEFAULT_POOL, rp._round_block(npix * 4)), rp.CHEAP_BLOCK)
+    F_cap = max(rp.RESOLVE_BLOCK, rp._round_resolve(C // 2))
+    pool = torch.zeros((pk.V1_PORT_ROWS, C), device=dev)
+    pool[pk.ROW_PIX] = -1.0
+    pool, _, _, _ = rp.portal_cycle(  # the refill fills every slot
+        pool, torch.zeros((npix, 3), device=dev), torch.zeros(npix, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev), limit=64 * npix,
+        sample_base=0, pc=pc, cam=prep.cam, ks=ks, seed=SEED, npix=npix,
+        max_depth=MAX_DEPTH, rr_start_depth=RR_START, F_cap=F_cap)
+    frozen = pk.trace_cheap_blocked_plain(pc, pool, seed=SEED,
+                                          max_depth=MAX_DEPTH)[0]
+    perm = torch.argsort((frozen[pk.ROW_ALIVE] <= 0.0).to(torch.int32),
+                         stable=True)
+    front = frozen[:, perm][:, :F_cap]
+    v1 = (tuple(front[a:b] for a, b in ((0, 3), (3, 6), (6, 9), (9, 12),
+                                        (12, 13), (13, 14), (14, 15))),
+          front[pk.ROW_PIX].to(torch.int32),
+          front[pk.V1_ROW_SAMPLE].to(torch.int32))
+    pool2 = rp.make_pool_v2(npix, rp._round_block(npix), 256, park_k=PARK_K,
+                            device=dev)
+    cheap = dict(seed=SEED, quota=256, sample_base=0, step_cap=64,
+                 park_k=PARK_K, max_depth=MAX_DEPTH)
+    for _ in range(2):
+        pool2, _ = pk.trace_cheap_regen(pc, prep.cam, pool2, **cheap)
+        pool2, _, _ = rp.portal_resolve_phase(
+            pool2, ks, seed=SEED, park_k=PARK_K, max_depth=MAX_DEPTH,
+            rr_start_depth=RR_START)
+    pool2, _ = pk.trace_cheap_regen(pc, prep.cam, pool2, **cheap)
+    return prep, pool, {"v1 front": v1,
+                        "glue": rp.glue_lanes(pool2, PARK_K)[:3]}, pool2
+
+
+def launcher(built, ks, lanes, uniforms, parent: bool):
+    """run() launching one build's pt_trace_resolve on ``lanes`` from an
+    input buffer made once; returns the output [16, n]. The parent's entry
+    takes no compact table."""
+    state, pix, smp = lanes
+    n = pix.shape[0]
+    dev = pix.device
+    buf = torch.empty((tk.RESOLVE_ROWS, n), dtype=torch.float32, device=dev)
+    torch.cat(state, out=buf[:tk.ROW_COUNT])
+    out = torch.empty_like(buf)
+    fn = built.lib.pt_trace_resolve
+    scene = tk._scene_args(ks) if parent else tk.k7_scene_args(ks)
+    if parent:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_uint32]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+
+    def run():
+        code = fn(*scene, buf.data_ptr(), out.data_ptr(), pix.data_ptr(),
+                  smp.data_ptr(), n, SEED & rng.MASK32, MAX_DEPTH, RR_START,
+                  tk._ptr(uniforms), torch.cuda.current_stream().cuda_stream)
+        kbuild.check_launch(built, code, "trace_resolve (K7)")
+        return out
+
+    return run
+
+
+def preview_frame(mesh, dev):
+    """(o, d) and the keyword arguments of K6 on one mesh preview frame at
+    450x300 x 2 spp, seed 5, as chip_smoke.py phase 3 gives it rays."""
+    from path_tracer_tpu_torch.render import integrator
+    from path_tracer_tpu_torch.render.raygen import camera_arrays, camera_rays
+
+    res = Resolution(300, 450)
+    pix, smp = integrator.pass_rays(
+        torch.arange(res.num_pixels, dtype=torch.int32, device=dev), 2)
+    o, d = camera_rays(camera_arrays(mesh.camera), pix, smp, seed=0,
+                       width=res.width, height=res.height)
+    return o, d, dict(seed=5, pixel_idx=pix, sample_idx=smp)
+
+
+def compare(tag, got, plain, exact: bool) -> tuple[bool, float]:
+    """(ok, lane share within LANE_TOL) of a build's [16, n] output against
+    the plain version's."""
+    want = torch.cat(plain)
+    share = float(((got[:15] - want[:15]).abs().sum(dim=0) < LANE_TOL)
+                  .float().mean())
+    counts_equal = torch.equal(got[15:], want[15:])
+    ok = torch.equal(got, want) if exact else (share >= LANE_FRAC
+                                               and counts_equal)
+    if not ok:
+        print(f"FAIL: {tag}: {'not bit-exact' if exact else 'disagrees'} "
+              f"(lane share {share:.6f}, counts equal {counts_equal})")
+    return ok, share
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", default=None)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--fingerprints", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ablate_k7: no CUDA device", file=sys.stderr)
+        return 1
+    if args.fingerprints and args.parent:
+        with open(args.fingerprints, "w") as fh:
+            json.dump(script("ablate_k1").fingerprints(args.parent), fh,
+                      indent=1, sort_keys=True)
+    dev = torch.device("cuda")
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        libs = {("production", f): ex.submit(tk.stepped_library, f)
+                for f in (True, False)}
+        if args.parent:
+            libs["parent", True] = ex.submit(kbuild.build, os.path.join(
+                args.parent, CSRC, "trace_stepped.cu"))
+        libs = {k: v.result() for k, v in libs.items()}
+    if args.parent:  # the parent's K6 entries take this checkout's arguments
+        for name in ("pt_trace_stepped_prim", "pt_trace_stepped_prim_config"):
+            f = getattr(libs["parent", True].lib, name)
+            ref = getattr(libs["production", True].lib, name)
+            f.restype, f.argtypes = ref.restype, ref.argtypes
+    mesh = pt.load_scene("mesh", os.path.join(ROOT, "scenes"),
+                         os.path.join(ROOT, "meshes"))
+    prep, _, shapes, pool2 = k7_shapes(mesh, Resolution(768, 1024), dev)
+    ks = prep.kscene
+    coh = script("k4_coherence")
+    failed = False
+    calls, shares, models, lives = {}, {}, {}, {}
+    g = np.random.default_rng(6)
+    for shape, lanes in shapes.items():
+        state, pix, smp = lanes
+        n = pix.shape[0]
+        lives[shape] = int((state[4] > 0).sum())
+        m = coh.resolve_model(ks, [state[0][k] for k in range(3)],
+                              [state[1][k] for k in range(3)], state[5][0],
+                              state[4][0] > 0)
+        m.pop("visits")
+        models[shape] = m
+        for source in ("counter", "table"):
+            uni = None if source == "counter" else torch.from_numpy(
+                g.random((4, n), dtype=np.float32)).to(dev)
+            plain = tk.trace_resolve_plain(ks, *state, pixel_idx=pix,
+                                           sample_idx=smp, seed=SEED,
+                                           max_depth=MAX_DEPTH, uniforms=uni)
+            for (b, fmad), built in libs.items():
+                run = launcher(built, ks, lanes, uni, b == "parent")
+                got = run()
+                torch.cuda.synchronize()
+                ok, share = compare(f"{b} fmad={fmad} {shape}/{source}",
+                                    got, plain, not fmad)
+                failed |= not ok
+                shares[b, fmad, shape, source] = share
+                if fmad and source == "counter":
+                    calls[b, shape] = run
+            del plain
+    k3 = dict(seed=SEED, parts=PARK_K + 1, park_k=PARK_K, max_depth=MAX_DEPTH)
+    calls["K3 (same pool)", "glue"] = lambda: pk.trace_resolve_pool(
+        ks, pool2, **k3)
+    if args.parent:
+        parent_k3 = pk.bind_resolve(kbuild.build(os.path.join(
+            args.parent, CSRC, "portal_resolve.cu")))
+        calls["parent's K3 (same pool)", "glue"] = (
+            lambda: pk.trace_resolve_pool(ks, pool2, library=parent_k3, **k3))
+        o6, d6, kw6 = preview_frame(mesh, dev)
+        for b, lib in (("K6", None), ("parent's K6", libs["parent", True])):
+            calls[b, "preview frame"] = (lambda lib=lib: tk.trace_stepped(
+                ks, o6, d6, library=lib, **kw6))
+
+    times = {key: [] for key in calls}
+    if not args.check_only:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(args.rounds):
+            for key in list(calls) + list(reversed(calls)):
+                fn = calls[key]
+                fn()
+                start.record()
+                for _ in range(args.reps):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                times[key].append(start.elapsed_time(end) / args.reps)
+    print(f"ablate_k7: mesh 1024x768, seed {SEED} ({card()})")
+    for shape, lanes in shapes.items():
+        print(f" {shape}: {lanes[1].shape[0]} lanes, {lives[shape]} alive; "
+              f"model {json.dumps(models[shape])}")
+        for (b, s), t in times.items():
+            if s == shape:
+                ts = f"{min(t):.4f}-{max(t):.4f} ms" if t else "not timed"
+                print(f"  {b:28s} {ts}")
+    for (b, s), t in times.items():
+        if s == "preview frame":
+            ts = f"{min(t):.4f}-{max(t):.4f} ms" if t else "not timed"
+            print(f" {b} on a mesh preview frame, 450x300 x 2 spp: {ts}")
+    config = tk.resolve_config(ks)
+    ptxas = [ln.split(":", 1)[-1].strip()
+             for ln in libs["production", True].log.splitlines()
+             if "registers" in ln]
+    print(f"  production: {json.dumps(config)}; ptxas {' | '.join(ptxas)}")
+    print(json.dumps({
+        "card": card(), "lanes": {s: lanes[1].shape[0] for s, lanes in shapes.items()},
+        "alive": lives,
+        "ms": {f"{k[0]} @ {k[1]}": v for k, v in times.items()},
+        "shares": {" ".join(map(str, k)): v for k, v in shares.items()},
+        "models": models, "config": config}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,7 +40,7 @@ sys.path.insert(0, ROOT)
 
 from path_tracer_tpu_torch.ops.kernels import portal as pk  # noqa: E402
 from path_tracer_tpu_torch.ops.kernels.trace_kernel import (  # noqa: E402
-    TRI_TILE, isect_full_plain, tile_entry_keys,
+    KEY_TILES, TRI_TILE, isect_full_plain, tile_entry_keys,
 )
 
 PARK_K, STEP_CAP, SEED, MAX_DEPTH = 3, 64, 7, 12
@@ -128,7 +128,7 @@ def coherence(ks, pool, *, parts: int = PARK_K + 1, park_k: int = PARK_K,
     o, d, _ = _item_rays(pool, cols, part)
     keys = tile_entry_keys(ks, o, d)
     out["key_tiles_per_item"] = float(sum(
-        ((keys >> c) & 1).sum() for c in range(min(ks.tiles.shape[0], 32)))) / max(L, 1)
+        ((keys >> c) & 1).sum() for c in range(min(ks.tiles.shape[0], KEY_TILES)))) / max(L, 1)
     for window in windows:
         chunk = cols // window
         for sort in (False, True):

@@ -27,7 +27,8 @@ Prints, per quota:
 threads that take pixels from a counter, each step's queries sorted by key
 within the block), whose outputs equal the plain loop's bit for bit;
 ``--schedule THREADSxBLOCKS [--heavy H]`` prints its useful-row share and
-its steps' balance too.
+its steps' balance too. ``resolve_model`` counts K7's schedules the same
+way on one launch's lanes (scripts/ablate_k7.py, chip_smoke.py).
 
 Everything counts rows and lane-steps, not time. Runs on the CPU at a tiny
 size and on a card at the full one (the plain version on CUDA tensors):
@@ -226,6 +227,68 @@ def _step_work(ids, keys, tiles, threads: int, blocks: int, base_rows: int,
     even = total / (threads // WARP)
     return (WARP * int(task_rows.sum()), float(even[busy].sum()),
             float(torch.maximum(even, most)[busy].sum()))
+
+
+BATCH = 1 << 18  # lanes per isect_full_plain call (bounds its temporaries)
+
+
+def resolve_model(ks, o, d, prev, alive, *, threads: int = 1024) -> dict:
+    """K7's schedules on one launch's lanes (o, d: 3 lists of [n] f32;
+    prev [n]; alive [n] bool), each live lane's tiles and key recorded as
+    ``Recorder`` records a step of K4's, and counted as ``_step_work``
+    counts it:
+
+    - ``thread_per_lane``: the kernel before its redesign, warps of 32
+      consecutive lanes, the dead ones included: the share of lane slots on
+      a live lane, and of the rows executed that a lane needs;
+    - ``split`` and ``sorted``: chunks of ``threads`` consecutive lanes (a
+      block each, csrc/trace_stepped.cu K7_THREADS), whose live lanes are
+      split into warp queries (a line that enters a tile) and lane queries
+      32 to a warp, or sorted by tile-entry key and traced 32 to a warp:
+      the useful-row share and a chunk's balance (``scheduled``'s
+      step_balance).
+
+    ``visits`` [n]: how many of the split schedule's tasks trace each lane
+    (1 for a live lane, 0 for a dead one)."""
+    dev = alive.device
+    n = alive.shape[0]
+    ids = torch.nonzero(alive).squeeze(1)
+    lo_, do_ = [x[ids] for x in o], [x[ids] for x in d]
+    tiles = []
+    for lo in range(0, ids.numel(), BATCH):
+        sl = slice(lo, lo + BATCH)
+        t: list = []
+        tk.isect_full_plain(ks, [x[sl] for x in lo_], [x[sl] for x in do_],
+                            prev[ids][sl], torch.ones_like(ids[sl], dtype=torch.bool),
+                            tiles_out=t)
+        tiles.append(torch.stack(t, dim=1) if t else torch.zeros(
+            (ids[sl].numel(), 0), dtype=torch.bool, device=dev))
+    tiles = (torch.cat(tiles) if tiles else
+             torch.zeros((0, ks.tiles.shape[0]), dtype=torch.bool, device=dev))
+    keys = tk.tile_entry_keys(ks, lo_, do_)
+    base = ks.tile_base if ks.tiles.shape[0] else ks.tri.shape[0]
+    needed = ids.numel() * base + tk.TRI_TILE * int(tiles.sum())
+    warp_q = _popcount(keys) >= 1
+    out = {"lanes": n, "live": ids.numel(), "warp_queries": int(warp_q.sum()),
+           "lane_queries": int((~warp_q).sum()),
+           "rows_needed_per_lane": needed / max(ids.numel(), 1),
+           "thread_per_lane": {
+               "lane_slot_share": ids.numel() / (WARP * -(-n // WARP)),
+               "useful_row_share": needed / max(
+                   _union_rows(ids // WARP, tiles, base), 1)}}
+    blocks = -(-n // threads)
+    for name, heavy in (("split", 1), ("sorted", 99)):
+        executed, even, step = _step_work(ids, keys, tiles, threads, blocks,
+                                          base, heavy)
+        out[name] = {"useful_row_share": needed / max(executed, 1),
+                     "chunk_balance": even / max(step, 1.0)}
+    visits = torch.zeros(n, dtype=torch.int64, device=dev)
+    visits.index_add_(0, ids[warp_q], torch.ones_like(ids[warp_q]))
+    lid = ids[~warp_q]
+    group, order = _chunk_groups(lid, keys[~warp_q], threads, False)
+    visits.index_add_(0, lid[order], torch.ones_like(group))
+    out["visits"] = visits
+    return out
 
 
 def scheduled(ks, cam, pix, *, seed: int = SEED,

@@ -72,3 +72,50 @@ def fuzz_scene(seed: int) -> tpt.SceneDescriptor:
                     np.float32)
     return tpt.SceneDescriptor(id=f"fuzz{seed}", objects=objs,
                                camera=tpt.Camera.looking(eye, look))
+
+
+# ---- a strip: tiles in a row, and rays whose lines enter all of them ----
+
+STRIP_HALF = 0.05  # half the strip's height and depth
+
+
+def strip_scene(n_tris: int = 2240) -> tpt.SceneDescriptor:
+    """A portal-eligible scene of ``n_tris`` small triangles laid along the
+    x axis from -6 to 6 (all with the same centroid y and z, so their Morton
+    order is their order along x and the tiles of TRI_TILE rows lie in a
+    row: 35 tiles for 2,240), a floor and a light sphere."""
+    h = STRIP_HALF
+    x0 = np.linspace(-6.0, 6.0, n_tris, dtype=np.float32)
+    w = np.float32(0.8 * 12.0 / n_tris)
+    tris = np.zeros((n_tris, 3, 3), np.float32)
+    tris[:, 0] = np.stack([x0, np.full_like(x0, -h), np.full_like(x0, -h)], 1)
+    tris[:, 1] = np.stack([x0 + w, np.full_like(x0, h), np.full_like(x0, -h)], 1)
+    tris[:, 2] = np.stack([x0, np.full_like(x0, h), np.full_like(x0, h)], 1)
+    grey = tpt.Material(np.full(3, 0.7, np.float32), np.zeros(3, np.float32),
+                        tpt.ReflectType.DIFFUSE)
+    light = tpt.Material(np.full(3, 0.9, np.float32), np.full(3, 6.0, np.float32),
+                         tpt.ReflectType.DIFFUSE)
+    floor = np.array([[[-10, -1, -8], [10, -1, -8], [-10, -1, 8]],
+                      [[10, -1, -8], [10, -1, 8], [-10, -1, 8]]], np.float32)
+    objs = [tpt.SceneObject.from_mesh(np.zeros(3, np.float32),
+                                      tpt.Mesh.from_triangles(tris), grey),
+            tpt.SceneObject.from_mesh(np.zeros(3, np.float32),
+                                      tpt.Mesh.from_triangles(floor), grey),
+            tpt.SceneObject.sphere(np.array([0.0, 3.0, -1.0], np.float32), 1.0,
+                                   light)]
+    return tpt.SceneDescriptor(id="strip", objects=objs, camera=tpt.Camera.looking(
+        np.array([0.0, 0.6, 7.0], np.float32),
+        np.array([0.0, -0.1, -1.0], np.float32)))
+
+
+def strip_rays(n: int, g) -> tuple[np.ndarray, np.ndarray]:
+    """n rays ([n, 3] origins and unit directions, float32) along the
+    strip of ``strip_scene``, from either end, within its height and depth:
+    each one's line enters every tile's AABB."""
+    sign = np.where(g.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = -7.0 * sign
+    o[:, 1:] = g.uniform(-0.8 * STRIP_HALF, 0.8 * STRIP_HALF, (n, 2))
+    d = np.zeros((n, 3), np.float32)
+    d[:, 0] = sign
+    return o, d

@@ -9,7 +9,7 @@ it as
 
 Kernels: K1 trace_regen (cornell, three-spheres, a gated scene; also on
 single-sphere and a scene of 128 primitives, the most a static scene
-holds, with the other kernels' SASS held to the commit's before K4's
+holds, with K2's and K5's SASS held to the commit's before K7's and K8's
 redesign), K4 trace_regen_prim (mesh; mesh and the two-mesh scene at
 quota 64; past one wave of resident threads; a scene whose table exceeds
 its shared-memory budget; its launch configuration), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
@@ -23,9 +23,11 @@ K5 and K6 trace_stepped (cornell and mesh preview rays), K6's design
 variants (the -D choices of csrc/trace_stepped.cu) on a full preview frame,
 the camera entries of K5 and K6 (trace_camera) against camera_rays and the
 plain trace, K6 on a scene whose table exceeds its shared-memory budget,
-and the progressive preview on the card; K7 trace_resolve, K8
-trace_cheap_blocked and K9 trace_sorted (mesh) and the v1 and glue portal
-routes.
+and the progressive preview on the card; K3 and K6 on a scene of 35 tiles
+in a row with rays that enter them all (the sort pad); K7 trace_resolve
+(also at both of its routes' shapes and on a scene whose table exceeds
+its shared-memory budget), K8 trace_cheap_blocked (also at vote groups of
+32 to 1024) and K9 trace_sorted (mesh) and the v1 and glue portal routes.
 
 Tolerance of the default build: at least 99.5% of pixels (K2, K3: pool
 columns) within |Δ|₁ < 1e-3, channel means within rtol 1e-3 and atol 1e-3,
@@ -263,12 +265,12 @@ def test_cuda_k1_config_reports_the_design(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_k1_leaves_the_other_kernels_sass(cuda_device):
-    """The redesigns of K1 and K4 leave every other kernel's SASS as it
-    was: each kernel of the sources that share common.cuh with K1 (K2, K3,
-    K5-K7, K8; K4 has SASS of its own), built with and without FMA
-    contraction, hashes as in the fixture that scripts/ablate_k4.py
-    --fingerprints wrote from the builds of the commit before K4's
-    redesign on this toolkit."""
+    """The redesigns of K1, K3, K4, K6, K7 and K8 leave the SASS of the
+    kernels that share common.cuh with K1 and were not redesigned with it
+    as it was: K2 and K5 (scripts/ablate_k1.py GUARDED), built with and
+    without FMA contraction, hash as in the fixture that
+    scripts/ablate_k4.py --fingerprints wrote from the builds of the commit
+    before K7's and K8's redesign on this toolkit."""
     spec = importlib.util.spec_from_file_location(
         "ablate_k1", os.path.join(ROOT, "scripts", "ablate_k1.py"))
     ablate = importlib.util.module_from_spec(spec)
@@ -529,6 +531,72 @@ def test_cuda_k3_large_table_reads_rows_from_device_memory(cuda_device):
     with pytest.raises(RuntimeError, match="trace_resolve_pool"):
         portal.trace_resolve_pool(bad, pool, seed=3, parts=4, park_k=3)
     assert portal.trace_resolve_pool.launches == before
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lost(exact, plain, dim):
+    """The rays (pool columns, or rays) whose --fmad=false result is not
+    the plain version's."""
+    return int((exact != plain).any(dim=dim).sum())
+
+
+@pytest.mark.cuda
+def test_cuda_sort_pad_drops_no_ray_on_a_strip_scene(cuda_device):
+    """K3 and K6 sort each chunk's live rays by tile-entry key, padded to a
+    power of two; on a scene of 35 tiles in a row (scripts/
+    portal_fuzz_scenes.py strip_scene), rays along the strip enter every
+    tile, so their keys are the largest a key can be, beside the pad's. No
+    such ray may lose its bounce to a pad: K3 on a park-3 pool built as
+    tests/test_torch_k3.py builds it, with every other column's active
+    path along the strip, and K6 given rays, half of them along the strip
+    among the scene's camera rays, equal their plain versions bit for bit
+    (--fmad=false), rays and counts included."""
+    scenes = _script("portal_fuzz_scenes")
+    scene = scenes.strip_scene()
+    res = Resolution(48, 64)
+    ks, pool = _script("k3_coherence").k3_input_pool(scene, res, cuda_device)
+    assert ks.tiles.shape[0] >= 33
+    g = np.random.default_rng(12)
+    cols = torch.arange(0, pool.shape[1], 2, device=cuda_device)
+    o, d = (torch.from_numpy(a.T.copy()).to(cuda_device)
+            for a in scenes.strip_rays(cols.numel(), g))
+    pool[portal.ROW_O:portal.ROW_O + 3, cols] = o
+    pool[portal.ROW_D:portal.ROW_D + 3, cols] = d
+    pool[portal.ROW_THR:portal.ROW_THR + 3, cols] = 1.0
+    pool[portal.ROW_ALIVE, cols] = 1.0
+    pool[portal.ROW_PREV, cols] = -1.0
+    kw = dict(seed=3, parts=4, park_k=3)
+    plain = portal.trace_resolve_pool_plain(ks, pool, **kw)
+    exact = portal.trace_resolve_pool(ks, pool, fmad=False, **kw)
+    torch.cuda.synchronize()
+    k3_lost = _lost(exact[0], plain[0], 0)
+    k3_counts = torch.equal(exact[1], plain[1])
+
+    n = 6000
+    cam_o, cam_d, pix, smp = _preview_rays(scene, Resolution(48, 64), 2,
+                                           cuda_device)
+    pick = torch.from_numpy(g.choice(cam_o.shape[0], n, replace=False)).to(cuda_device)
+    o, d = cam_o[pick].clone(), cam_d[pick].clone()
+    along = torch.from_numpy(g.random(n) < 0.5).to(cuda_device)
+    so, sd = (torch.from_numpy(a).to(cuda_device) for a in scenes.strip_rays(n, g))
+    o = torch.where(along[:, None], so, o).contiguous()
+    d = torch.where(along[:, None], sd, d).contiguous()
+    skw = dict(seed=4, pixel_idx=pix[pick].contiguous(),
+               sample_idx=smp[pick].contiguous())
+    p = trace_kernel.trace_stepped_plain(ks, o, d, **skw)
+    e = trace_kernel.trace_stepped(ks, o, d, fmad=False, **skw)
+    torch.cuda.synchronize()
+    k6_lost, k6_bounces = _lost(e[0], p[0], 1), int(p[1]) - int(e[1])
+    assert (k3_lost, k3_counts, k6_lost, k6_bounces) == (0, True, 0, 0), (
+        f"K3: {k3_lost} columns differ, counts equal {k3_counts}; K6: "
+        f"{k6_lost} rays' radiance differs, {k6_bounces} bounces lost")
 
 
 def _k2_pool(dev, park_k, res=Resolution(96, 128), cycles=2, scene=None):
@@ -960,6 +1028,89 @@ def test_cuda_v1_kernels_match_plain(cuda_device, source):
         pool = p_pool.clone()
         pool[:portal.ROW_PIX] = p_state
     assert float(pool[portal.ROW_ACC:portal.ROW_ACC + 3].sum()) > 0
+
+
+def _k7_equal(ks, lanes, uni):
+    """K7 on ``lanes`` (state, pixel_idx, sample_idx): --fmad=false equals
+    the plain version bit for bit, the default build agrees on 99.5% of
+    lanes with the counts equal; one launch a call."""
+    state, pix, smp = lanes
+    kw = dict(pixel_idx=pix, sample_idx=smp, seed=3, uniforms=uni)
+    before = trace_kernel.trace_resolve.launches
+    k = trace_kernel.trace_resolve(ks, *state, **kw)
+    e = trace_kernel.trace_resolve(ks, *state, fmad=False, **kw)
+    p = trace_kernel.trace_resolve_plain(ks, *state, **kw)
+    torch.cuda.synchronize()
+    assert trace_kernel.trace_resolve.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(e, p))
+    ks_, ps_ = torch.cat(k[:7]), torch.cat(p[:7])
+    assert float(((ks_ - ps_).abs().sum(dim=0) < 1e-3).float().mean()) >= 0.995
+    assert torch.equal(k[7], p[7]) and int(p[7].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["v1 front", "glue"])
+@pytest.mark.parametrize("source", ["counter", "table"])
+def test_cuda_k7_both_shapes_match_plain(cuda_device, shape, source):
+    """K7 at analogues of its two routes' shapes at 128x96
+    (scripts/ablate_k7.py k7_shapes): the v1 front, its live lanes first,
+    and the glue lanes of a park-3 pool, more than one wave of its blocks."""
+    prep, _, lanes, _ = _script("ablate_k7").k7_shapes(
+        _scene("mesh"), Resolution(96, 128), cuda_device)
+    assert trace_kernel.resolve_config(prep.kscene)["shared_table"]
+    n = lanes[shape][1].shape[0]
+    uni = None
+    if source == "table":
+        uni = torch.from_numpy(np.random.default_rng(5).random(
+            (4, n), dtype=np.float32)).to(cuda_device)
+    _k7_equal(prep.kscene, lanes[shape], uni)
+
+
+@pytest.mark.cuda
+def test_cuda_k7_large_table_reads_rows_from_device_memory(cuda_device):
+    """A scene whose tables exceed K7_SHARED_BUDGET (mesh's tiles three
+    times over: 2,504 rows, 200 KB) takes the read-only path, chosen from
+    its size, and still equals the plain version; a compact table off its
+    16-byte alignment is refused and launches nothing."""
+    prep, _, lanes, _ = _script("ablate_k7").k7_shapes(
+        _scene("mesh"), Resolution(96, 128), cuda_device)
+    ks = prep.kscene
+    tiles = ks.tri[ks.tile_base:]
+    big = trace_kernel.KernelScene(
+        ks.sph, ks.bnd, torch.cat([ks.tri[:ks.tile_base]] + [tiles] * 3),
+        torch.cat([ks.tiles] * 3), ks.tile_base)
+    cfg = trace_kernel.resolve_config(big)
+    assert not cfg["shared_table"] and cfg["smem_bytes"] < 48 * 1024
+    _k7_equal(big, lanes["glue"], None)
+    shifted = torch.empty(ks.hit.numel() + 1, device=cuda_device)[1:]
+    bad = dataclasses.replace(ks, hit=shifted.view_as(ks.hit).copy_(ks.hit))
+    state, pix, smp = lanes["glue"]
+    before = trace_kernel.trace_resolve.launches
+    with pytest.raises(RuntimeError, match="trace_resolve"):
+        trace_kernel.trace_resolve(bad, *state, pixel_idx=pix, sample_idx=smp,
+                                   seed=3)
+    assert trace_kernel.trace_resolve.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [32, 64, 128, 1024])
+def test_cuda_k8_groups_match_plain(cuda_device, group):
+    """K8 on a fresh mesh v1 pool at the port's group (32, a warp's vote)
+    and at groups of 64, 128 and 1024 (a block's vote): the --fmad=false
+    build equals the plain version at that group bit for bit, the default
+    build agrees on 99.5% of columns with segment totals within 0.5%."""
+    res = Resolution(96, 128)
+    prep = prepare_render(_scene("mesh"), res, cuda_device)
+    pool = _v1_pool(prep, res, cuda_device)
+    kw = dict(seed=4, group=group)
+    k = portal.trace_cheap_blocked(prep.portal, pool, **kw)
+    e = portal.trace_cheap_blocked(prep.portal, pool, fmad=False, **kw)
+    p = portal.trace_cheap_blocked_plain(prep.portal, pool, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(e[0], p[0]) and torch.equal(e[1], p[1])
+    assert float(((k[0] - p[0]).abs().sum(dim=0) < 1e-3).float().mean()) >= 0.995
+    segs, want = int(k[1].sum()), int(p[1].sum())
+    assert abs(segs - want) <= 0.005 * want and want > 0
 
 
 @pytest.mark.cuda

@@ -153,11 +153,15 @@ def test_k1_offsets_match_the_sources():
                       (k1["SQ_GATE"], "r4.z"), (k1["SQ_ROW"], "r4.w")):
         assert expr in split_src
         assert 4 * int(expr[1]) + "xyzw".index(expr[3]) == col, expr
-    # only K1 includes its header, and K4 for root0
+    # K1 includes its header; K4 and K7 (trace_stepped.cu) for the row
+    # tests' root and reciprocal, K8 (portal_cheap_blocked.cu) for the scan;
+    # K2 (portal_cheap.cu) and K3 do not
     for src in os.listdir(CSRC):
         with open(os.path.join(CSRC, src)) as fh:
             inc = '#include "k1_scan.cuh"' in fh.read()
-        assert inc == (src in ("trace_regen.cu", "trace_regen_prim.cu")), src
+        assert inc == (src in ("trace_regen.cu", "trace_regen_prim.cu",
+                               "trace_stepped.cu",
+                               "portal_cheap_blocked.cu")), src
 
 
 def test_k1_reciprocal_range_check():

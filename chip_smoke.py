@@ -44,10 +44,12 @@ line):
      cornell and K6 on mesh: one preview frame's rays at 450x300 x 2 spp,
      both uniform sources, in calls of 12 and of 5 steps, given rays and
      from the camera entries (the rays made in the kernel, held against
-     camera_rays and the plain trace); K6 also on the frame of a random
-     portal scene and of a scene whose table exceeds its shared budget
-     (the read-only path), and its design line: registers, blocks per SM,
-     shared bytes, scripts/k6_coherence.py's shares. K3 and K6 on a scene
+     camera_rays and the plain trace); K5's design line: registers,
+     blocks per SM, the waves of the 1-, 2- and 4-spp frames and
+     scripts/k5_coherence.py's lane shares there; K6 also on the frame of a
+     random portal scene and of a scene whose table exceeds its shared
+     budget (the read-only path), and its design line: registers, blocks
+     per SM, shared bytes, scripts/k6_coherence.py's shares. K3 and K6 on a scene
      of 35 tiles in a row (scripts/portal_fuzz_scenes.py strip_scene) with
      rays along it, whose keys are the largest a key can be: every ray
      bounced and counted (the sort pad). K8 on a fresh 1,048,576-lane v1
@@ -254,10 +256,16 @@ def build_all():
 BUILT: dict = {}  # "source fmad=..." -> build_all's Built
 
 
-def ptxas_registers(log: str) -> list[str]:
-    """The register lines of nvcc's -Xptxas -v report, one a kernel."""
-    return [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-            if "registers" in ln]
+def ptxas_registers(log: str, kernel: str = "") -> list[str]:
+    """The register lines of nvcc's -Xptxas -v report, one a kernel (those
+    of the kernels whose names hold ``kernel``)."""
+    out, name = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln
+        elif "registers" in ln and kernel in name:
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def script_module(name: str):
@@ -842,9 +850,46 @@ def check_stepped(scenes, dev, card):
               f"plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.3f} ms "
               f"({rec['bound_by']}) ({card})", flush=True)
         out[name] = rec
+    k5_design(scenes["cornell"], dev, card)
     check_k6_scenes(scenes["mesh"], dev, out["K6"])
     k6_design(scenes["mesh"], dev, card)
     return out["K5"], out["K6"]
+
+
+def k5_design(cornell, dev, card):
+    """K5's registers, resident blocks, the waves of the 1-, 2- and 4-spp
+    preview frames and scripts/k5_coherence.py's lane shares there, on a
+    line of its own."""
+    import torch
+
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel as tk
+    from path_tracer_tpu_torch.ops.kernels import trace_v2 as tv2
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    coh = script_module("k5_coherence")
+    res = Resolution(*PREVIEW)
+    regs = ptxas_registers(BUILT["trace_stepped.cu fmad=True"].log,
+                           "trace_stepped_static_kernel")
+    waves, shares = [], []
+    for spp in (1, 2, 4):
+        sc, cam, pix, smp = coh.frame(cornell, res, dev, spp)
+        cfg = tv2.stepped_static_config(sc)
+        state, steps = coh.camera_state(cam, pix, smp, seed=7, width=res.width,
+                                        height=res.height)
+        tk.stepped_call_plain(tv2.stepped_isect(sc),
+                              tk.stepped_draw(7, pix, smp, None), state, steps,
+                              depth0=0, n_steps=12, max_depth=12,
+                              rr_start_depth=5)
+        blocks = -(-pix.shape[0] // cfg["threads"])
+        waves.append(f"{blocks / (cfg['blocks_per_sm'] * cfg['sms']):.3f}")
+        shares.append(f"{coh.K2.thread_per_slot(steps.to(torch.int64))['lane_share']:.4f}")
+    print(f"phase 3 K5 design: ptxas {' | '.join(regs)}; camera entry "
+          f"{cfg['registers']} registers, {cfg['local_bytes']} local bytes a "
+          f"thread, {cfg['blocks_per_sm']} blocks of {cfg['threads']} threads "
+          f"an SM ({cfg['min_blocks']} asked of ptxas), {cfg['smem_bytes']} "
+          f"shared bytes a block; waves of the 1/2/4-spp frames "
+          f"{'/'.join(waves)}; lane-steps working (scripts/k5_coherence.py, "
+          f"one thread a ray) {'/'.join(shares)} ({card})", flush=True)
 
 
 def stepped_compare(tag, kern, exact, plain, rec, note="",

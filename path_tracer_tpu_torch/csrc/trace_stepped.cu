@@ -55,8 +55,29 @@
 //
 // What bounds them on this card: per-thread FP32 work and divergence. A ray
 // moves 14 state floats in and out per call and does hundreds of flops per
-// segment. K5 (one thread a ray) copies its scene into shared memory per
-// block; every lane of a warp reads the same primitive, a broadcast.
+// segment.
+//
+// K5's design. The parent kernel ran one thread a ray in blocks of 128,
+// scanned the scene with common.cuh's prim_scan and ran at 48 registers, 10
+// blocks an SM. A warp of 32 consecutive rays runs until its longest path
+// ends: on the cornell preview frame 77% of its lane-steps do work
+// (scripts/k5_coherence.py). Here, still one thread a ray:
+//  - K1's split scan (k1_scan.cuh scan_split over trace_v2.k1_split_table:
+//    no kind test, the exact fast root, the reciprocal without a range
+//    check where trace_v2.k1_rcp_safe allows it) and K1's hit table for
+//    shading, both staged into each block's shared memory; every lane of a
+//    warp reads the same row, a broadcast;
+//  - blocks of K5_THREADS (256), K5_MIN_BLOCKS (4) resident an SM asked of
+//    ptxas (64 registers, no spills).
+// Measured on the H100 (scripts/ablate_k5.py, PERF.md): 0.142 -> 0.123 ms
+// on the 2-spp cornell frame. Lost and deleted: a persistent grid whose
+// lanes take a new ray from a counter as soon as theirs stops (0.148 ms;
+// the model's 0.779-0.859 of lane-steps against 0.774, but by reading the
+// code each step then runs the raygen and the stores for a few lanes),
+// packing each block's live rays to its first threads before each step
+// through shared memory (0.128-0.156 ms; 0.924-0.980 of lane-steps), warps
+// that take 32-ray groups from a counter (0.128 ms), other block sizes and
+// register bounds.
 //
 // K6's design. The parent kernel ran one thread a ray for the whole call,
 // so a warp ran until its longest path (6 to 12 bounces on mesh) ended,
@@ -173,6 +194,9 @@ static_assert(K6_WINDOW >= 128 && K6_WINDOW <= 8192 &&
 constexpr int MIN_WINDOW = 128;
 static_assert(K6_REFILL_MIN >= 1 && K6_REFILL_MIN <= 32,
               "K6_REFILL_MIN: 1 .. 32");
+
+constexpr int K5_THREADS = 256;  // K5's threads a block
+constexpr int K5_MIN_BLOCKS = 4;  // its resident blocks an SM asked of ptxas
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -352,25 +376,43 @@ __device__ __forceinline__ void finish_ray(const StepArgs& a, int i,
   a.counts[i] = kCamera ? steps : a.counts[i] + steps;
 }
 
+// K5's scene: K1's split table [n_prims, SPLIT_F] (n_sph sphere rows first,
+// 16-byte aligned), the gates [n_gates, GATE_F] and K1's hit table
+// [n_prims, HIT_F]; rcp_safe: trace_v2.k1_rcp_safe
+struct StaticScene {
+  const float* split;
+  const float* gates;
+  const float* hit;
+  int n_prims, n_sph, n_gates, rcp_safe;
+};
+
+// Dynamic shared memory K5 takes a block (floats): the split table (first,
+// so that its rows are 16-byte aligned), the gates, the hit table
+inline int static_smem_floats(int n_prims, int n_gates) {
+  return n_prims * k1::SPLIT_F + n_gates * GATE_F + n_prims * k1::HIT_F;
+}
+
+// K5: one thread a ray, the scene in the block's shared memory; a ray dead
+// on entry is not traced and not written
 template <bool kCamera>
-__global__ void __launch_bounds__(THREADS)
-trace_stepped_static_kernel(const float* __restrict__ prims_g, int n_prims,
-                            const float* __restrict__ gates_g, int n_gates,
-                            const StepArgs a) {
-  extern __shared__ float smem[];
-  float* prims = smem;
-  float* gates = smem + n_prims * PRIM_F;
-  for (int k = threadIdx.x; k < n_prims * PRIM_F; k += blockDim.x)
-    prims[k] = prims_g[k];
-  for (int k = threadIdx.x; k < n_gates * GATE_F; k += blockDim.x)
-    gates[k] = gates_g[k];
+__global__ void __launch_bounds__(K5_THREADS, K5_MIN_BLOCKS)
+trace_stepped_static_kernel(const StaticScene g, const StepArgs a) {
+  extern __shared__ float4 static_smem[];
+  float* split = reinterpret_cast<float*>(static_smem);
+  float* gates = split + g.n_prims * k1::SPLIT_F;
+  float* hits = gates + g.n_gates * GATE_F;
+  for (int k = threadIdx.x; k < g.n_prims * k1::SPLIT_F; k += K5_THREADS)
+    split[k] = g.split[k];
+  for (int k = threadIdx.x; k < g.n_gates * GATE_F; k += K5_THREADS)
+    gates[k] = g.gates[k];
+  for (int k = threadIdx.x; k < g.n_prims * k1::HIT_F; k += K5_THREADS)
+    hits[k] = g.hit[k];
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
+  const int i = blockIdx.x * K5_THREADS + threadIdx.x;
   Ray r;
   uint32_t key = 0u;
-  if (!start_ray<kCamera>(a, i, r, key)) return;  // dead: nothing to write
+  if (i >= a.n || !start_ray<kCamera>(a, i, r, key)) return;
   int steps = 0;
   for (int s = 0; s < a.n_steps && r.alive; ++s) {
     ++steps;
@@ -379,13 +421,16 @@ trace_stepped_static_kernel(const float* __restrict__ prims_g, int n_prims,
     for (int k = 0; k < 4; ++k)
       u[k] = step_uniform(a.uniforms, a.n, i, key, depth, k);
     float tmin;
-    const int best = prim_scan(prims, n_prims, gates, r.o, r.d,
-                               static_cast<int>(r.prev), tmin);
+    const int best =
+        g.rcp_safe ? k1::scan_split<true>(split, g.n_sph, g.n_prims, gates,
+                                          r.o, r.d, r.prev, tmin)
+                   : k1::scan_split<false>(split, g.n_sph, g.n_prims, gates,
+                                           r.o, r.d, r.prev, tmin);
     float point[3] = {0.0f, 0.0f, 0.0f}, nrm[3] = {0.0f, 0.0f, 0.0f};
-    const float* row = prims + (best >= 0 ? best : 0) * PRIM_F;
-    if (best >= 0) prim_surface(row, r.o, r.d, tmin, point, nrm);
-    bounce(r, best >= 0, point, nrm, row + COL_COLOR, row + COL_EMIS,
-           row[COL_RTYPE], best >= 0 ? row[COL_PREVID] : -1.0f, u, depth + 1,
+    const float* h = hits + (best >= 0 ? best : 0) * k1::HIT_F;
+    if (best >= 0) k1::hit_surface(h, r.o, r.d, tmin, point, nrm);
+    bounce(r, best >= 0, point, nrm, h + k1::H_COLOR, h + k1::H_EMIS,
+           h[k1::H_RTYPE], best >= 0 ? h[k1::H_PREVID] : -1.0f, u, depth + 1,
            a.max_depth, a.rr_start_depth);
   }
   finish_ray<kCamera>(a, i, r, steps);
@@ -998,37 +1043,76 @@ FullScene full_scene(const float* sph, int n_sph, const float* bnd, int n_bnd,
 
 }  // namespace
 
+// K5's launch configuration for the camera entry (camera 1) or given rays
+// and a scene of n_prims rows and n_gates gates: out[0] the dynamic shared
+// memory a block takes (bytes), out[1] resident blocks per SM, out[2]
+// threads a block, out[3] SMs, out[4] registers a thread, out[5] local
+// (spill) bytes a thread, out[6] the blocks an SM asked of ptxas. Returns
+// a CUDA error code (cudaErrorInvalidConfiguration: no block fits on an
+// SM).
+extern "C" int pt_trace_stepped_static_config(int n_prims, int n_gates,
+                                              int camera, int* out) {
+  if (n_prims <= 0 || n_prims > MAX_PRIMS || n_gates < 0 ||
+      n_gates > MAX_PRIMS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto fn = camera ? trace_stepped_static_kernel<true>
+                         : trace_stepped_static_kernel<false>;
+  const int smem =
+      static_smem_floats(n_prims, n_gates) * static_cast<int>(sizeof(float));
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], fn, K5_THREADS,
+                                                      smem);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = smem;
+  out[2] = K5_THREADS;
+  out[4] = fa.numRegs;
+  out[5] = static_cast<int>(fa.localSizeBytes);
+  out[6] = K5_MIN_BLOCKS;
+  return static_cast<int>(out[1] < 1 ? cudaErrorInvalidConfiguration
+                                     : cudaSuccess);
+}
+
 // K5 on `stream`: one call of n_steps bounces over the state [14, n]
 // (updated in place) and counts [n] (added to); with a camera (cam: 12 host
 // floats so, su, sv, lc, and the image's width and height; NULL: none) the
 // call is the camera entry, which starts the rays at depth0 0 and writes
-// every state row and the counts. uniforms is NULL for the counter
-// generator, else the whole [max_depth * 4, n] table. Returns
+// every state row and the counts. split, hit: SceneConsts.split ([n_prims,
+// 20], n_sph sphere rows first, 16-byte aligned) and SceneConsts.hit
+// ([n_prims, 13]); rcp_safe: SceneConsts.rcp_safe. uniforms is NULL for the
+// counter generator, else the whole [max_depth * 4, n] table. Returns
 // cudaGetLastError() after the launch.
 extern "C" int pt_trace_stepped_static(
-    const float* prims, int n_prims, const float* gates, int n_gates,
-    const float* cam, int width, int height, const int* pixel_idx,
-    const int* sample_idx, int n, uint32_t seed, int depth0, int n_steps,
-    int max_depth, int rr_start_depth, const float* uniforms, float* state,
-    int* counts, void* stream) {
+    const float* split, int n_prims, int n_sph, int rcp_safe,
+    const float* gates, int n_gates, const float* hit, const float* cam,
+    int width, int height, const int* pixel_idx, const int* sample_idx,
+    int n, uint32_t seed, int depth0, int n_steps, int max_depth,
+    int rr_start_depth, const float* uniforms, float* state, int* counts,
+    void* stream) {
   if (n <= 0) return 0;
   const StepArgs a =
       step_args(cam, width, height, pixel_idx, sample_idx, n, seed, depth0,
                 n_steps, max_depth, rr_start_depth, uniforms, state, counts,
                 nullptr);
   if (!stepped_args_ok(a, cam != nullptr) || n_prims <= 0 ||
-      n_prims > MAX_PRIMS || n_gates < 0 || n_gates > MAX_PRIMS)
+      n_prims > MAX_PRIMS || n_gates < 0 || n_gates > MAX_PRIMS ||
+      n_sph < 0 || n_sph > n_prims || split == nullptr || hit == nullptr ||
+      (reinterpret_cast<uintptr_t>(split) & 15u))
     return static_cast<int>(cudaErrorInvalidValue);
+  const StaticScene sc{split, gates, hit, n_prims, n_sph, n_gates, rcp_safe};
   const size_t smem =
-      static_cast<size_t>(n_prims * PRIM_F + n_gates * GATE_F) * sizeof(float);
-  const int blocks = (n + THREADS - 1) / THREADS;
+      static_cast<size_t>(static_smem_floats(n_prims, n_gates)) * sizeof(float);
+  const int blocks = (n + K5_THREADS - 1) / K5_THREADS;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cam != nullptr)
-    trace_stepped_static_kernel<true><<<blocks, THREADS, smem, st>>>(
-        prims, n_prims, gates, n_gates, a);
+    trace_stepped_static_kernel<true><<<blocks, K5_THREADS, smem, st>>>(sc, a);
   else
-    trace_stepped_static_kernel<false><<<blocks, THREADS, smem, st>>>(
-        prims, n_prims, gates, n_gates, a);
+    trace_stepped_static_kernel<false><<<blocks, K5_THREADS, smem, st>>>(sc, a);
   return static_cast<int>(cudaGetLastError());
 }
 

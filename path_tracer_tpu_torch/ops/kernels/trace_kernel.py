@@ -1218,9 +1218,14 @@ def stepped_library(fmad: bool = True, defines: tuple[str, ...] = ()):
     ]
     fn = built.lib.pt_trace_stepped_static
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int,  # prims, n_prims
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int,  # split table, n_prims
+                   ctypes.c_int, ctypes.c_int,  # its sphere rows, rcp_safe
                    ctypes.c_void_p, ctypes.c_int,  # gates, n_gates
+                   ctypes.c_void_p,  # hit table
                    *cam, *rays, ctypes.c_void_p]  # stream
+    fn = built.lib.pt_trace_stepped_static_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     scene = [
         ctypes.c_void_p, ctypes.c_int,  # sph, S
         ctypes.c_void_p, ctypes.c_int,  # bnd, M

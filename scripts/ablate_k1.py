@@ -62,12 +62,12 @@ from path_tracer_tpu_torch.utils.config import Resolution  # noqa: E402
 
 SEED, QUOTA, SMALL_QUOTA = 7, 256, 4
 CSRC = os.path.join("path_tracer_tpu_torch", "csrc")
-# the kernels that share common.cuh with K1 and must keep the parent's
-# SASS, and their sources: K2 (portal_cheap.cu) and K5 (trace_stepped.cu's
-# trace_stepped_static_kernel). K3, K4, K6, K7 and K8 were redesigned after
-# K1 and compile to SASS of their own (scripts/ablate_k{3,4,6,7,8}.py).
-SHARED = ("portal_cheap.cu", "trace_stepped.cu")
-GUARDED = re.compile(r"cheap_regen_kernel|trace_stepped_static_kernel")
+# the kernel that shares common.cuh with K1 and must keep the parent's
+# SASS, and its source: K2 (portal_cheap.cu). K3, K4, K5, K6, K7 and K8
+# were redesigned after K1 and compile to SASS of their own
+# (scripts/ablate_k{3,4,5,6,7,8}.py).
+SHARED = ("portal_cheap.cu",)
+GUARDED = re.compile(r"cheap_regen_kernel")
 
 
 def script(name):

@@ -26,7 +26,7 @@ numbers (scripts/k4_coherence.py ``scheduled`` at quota 4 on this card's
 resident blocks: the kernel's warp queries, and the sorted lane groups
 they replaced). With --parent it also compares the SASS (cuobjdump) of
 the other kernels that include csrc/isect_full.cuh or common.cuh with the
-parent's builds (scripts/ablate_k1.py GUARDED: K2 and K5);
+parent's builds (scripts/ablate_k1.py GUARDED: K2);
 ``--fingerprints PATH`` writes the parent's as the fixture of
 tests/test_torch_cuda.py (tests/golden/gpu/k1_shared_sass.json).
 ``--quick`` runs the plain version at quota 4 only; ``--check-only``

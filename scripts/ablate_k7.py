@@ -31,7 +31,7 @@ useful rows and a chunk's balance under the parent's thread a lane, the
 split into warp and lane queries, and the sort). ``--check-only`` builds
 and checks without timing; ``--fingerprints PATH`` (with --parent) writes
 the parent's SASS fingerprints of the kernels scripts/ablate_k1.py guards
-(K2, K5), the fixture tests/golden/gpu/k1_shared_sass.json. ~1 min on an
+(K2), the fixture tests/golden/gpu/k1_shared_sass.json. ~1 min on an
 H100. PERF.md keeps the times of the design choices K7 was picked from
 (each once a -D define).
 

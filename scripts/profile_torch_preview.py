@@ -11,6 +11,8 @@ For cornell (K5) and mesh (K6), ProgressiveRenderer(device="cuda") at
     quantize, fetch);
   - device time by kernel name, device operations a frame and the device's
     idle share over --frames frames, from torch.profiler;
+  - one frame's timeline: each device operation in order, its device time
+    and the gap before it, in which the device waits for the host;
   - the card's name and power limit, and its SM clock and power draw after
     the run.
 
@@ -70,6 +72,29 @@ def stages(r: ProgressiveRenderer) -> dict:
     return {"trace": t_trace, "rest": t_rest}
 
 
+def timeline(prof, per_frame: int) -> None:
+    """The last profiled frame's device operations in order: when each
+    starts after the frame's first, its device time, and the gap since the
+    previous one ended (device idle)."""
+    from torch.autograd import DeviceType
+
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)[-per_frame:]
+    if not evts:
+        return
+    t0 = evts[0].time_range.start
+    busy = sum(e.time_range.end - e.time_range.start for e in evts)
+    span = evts[-1].time_range.end - t0
+    print(f"  the last frame's {len(evts)} device operations over {span:.1f} us, "
+          f"{busy:.1f} us busy, {span - busy:.1f} us in gaps:")
+    prev = t0
+    for e in evts:
+        start, end = e.time_range.start, e.time_range.end
+        print(f"    +{start - t0:8.1f} us  gap {start - prev:6.1f} us  "
+              f"device {end - start:7.1f} us  {e.name[:70]}")
+        prev = max(prev, end)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
@@ -127,6 +152,7 @@ def main() -> int:
               f"{ops / args.frames:.1f} a frame")
         for dev_us, key, count in rows[:6]:
             print(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:80]}")
+        timeline(prof, ops // args.frames)
     print(f"after the run: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     return 0
 

@@ -9,7 +9,7 @@ it as
 
 Kernels: K1 trace_regen (cornell, three-spheres, a gated scene; also on
 single-sphere and a scene of 128 primitives, the most a static scene
-holds, with K2's and K5's SASS held to the commit's before K7's and K8's
+holds, with K2's SASS held to the commit's before K7's and K8's
 redesign), K4 trace_regen_prim (mesh; mesh and the two-mesh scene at
 quota 64; past one wave of resident threads; a scene whose table exceeds
 its shared-memory budget; its launch configuration), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
@@ -22,12 +22,17 @@ is too large for shared memory),
 K5 and K6 trace_stepped (cornell and mesh preview rays), K6's design
 variants (the -D choices of csrc/trace_stepped.cu) on a full preview frame,
 the camera entries of K5 and K6 (trace_camera) against camera_rays and the
-plain trace, K6 on a scene whose table exceeds its shared-memory budget,
+plain trace, K5 on 1, 33 and 4,097 rays, on a 4-spp preview frame and with
+rays dead on entry, K6 on a scene whose table exceeds its shared-memory budget,
 and the progressive preview on the card; K3 and K6 on a scene of 35 tiles
 in a row with rays that enter them all (the sort pad); K7 trace_resolve
 (also at both of its routes' shapes and on a scene whose table exceeds
 its shared-memory budget), K8 trace_cheap_blocked (also at vote groups of
 32 to 1024) and K9 trace_sorted (mesh) and the v1 and glue portal routes.
+
+Whether FMA contraction moves images: K1 at 512 spp, the v2 portal render
+of a random portal scene and K5's preview, each against the CPU render of
+the same seed, within a quarter of the CPU's noise between two seeds.
 
 Tolerance of the default build: at least 99.5% of pixels (K2, K3: pool
 columns) within |Δ|₁ < 1e-3, channel means within rtol 1e-3 and atol 1e-3,
@@ -265,10 +270,10 @@ def test_cuda_k1_config_reports_the_design(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_k1_leaves_the_other_kernels_sass(cuda_device):
-    """The redesigns of K1, K3, K4, K6, K7 and K8 leave the SASS of the
-    kernels that share common.cuh with K1 and were not redesigned with it
-    as it was: K2 and K5 (scripts/ablate_k1.py GUARDED), built with and
-    without FMA contraction, hash as in the fixture that
+    """The redesigns of K1, K3, K4, K5, K6, K7 and K8 leave the SASS of
+    the kernel that shares common.cuh with K1 and was not redesigned with
+    it as it was: K2 (scripts/ablate_k1.py GUARDED), built with and
+    without FMA contraction, hashes as in the fixture that
     scripts/ablate_k4.py --fingerprints wrote from the builds of the commit
     before K7's and K8's redesign on this toolkit."""
     spec = importlib.util.spec_from_file_location(
@@ -930,6 +935,204 @@ def test_cuda_camera_entries_match_camera_rays(cuda_device, sid, source):
         e = fn(tables, cam, fmad=False, **kw)
         assert torch.equal(e[0], p[0]) and torch.equal(e[1], p[1])
         assert float(p[0].sum()) > 0
+
+
+def _k5_frame(dev, res, spp):
+    """cornell's SceneConsts, camera arrays and one preview frame's pixel
+    and sample indices at ``res`` x ``spp``."""
+    scene = _scene("cornell")
+    sc = trace_v2.build_scene_consts(tpt.pack_scene(scene)).to(dev)
+    pix, smp = integrator.pass_rays(
+        torch.arange(res.num_pixels, dtype=torch.int32, device=dev), spp)
+    return sc, camera_arrays(scene.camera), pix, smp
+
+
+def _k5_cases(sc, cam, pix, smp, res, source, exact_only=False):
+    """K5 from the camera entry and on given rays, in calls of 12 steps and
+    of 5 (6 with a table): the --fmad=false build equals the plain version
+    bit for bit, the default build agrees on 99.5% of rays (unless
+    ``exact_only``: too few rays for a share); one launch a call."""
+    n = pix.shape[0]
+    uni = None
+    if source == "table":
+        uni = torch.from_numpy(np.random.default_rng(4).random(
+            (48, n), dtype=np.float32)).to(pix.device)
+    o, d = camera_rays(cam, pix, smp, seed=0, width=res.width,
+                       height=res.height)
+    for steps in (12, 6) if uni is not None else (12, 5):
+        kw = dict(seed=3, pixel_idx=pix, sample_idx=smp, uniforms=uni,
+                  steps_per_call=steps)
+        ckw = dict(kw, width=res.width, height=res.height)
+        for fn, plain, args in (
+                (trace_v2.trace_camera, trace_v2.trace_camera_plain, (sc, cam)),
+                (trace_v2.trace_stepped, trace_v2.trace_stepped_plain,
+                 (sc, o, d))):
+            fkw = ckw if fn is trace_v2.trace_camera else kw
+            before = trace_v2.trace_stepped.launches
+            k = fn(*args, **fkw)
+            torch.cuda.synchronize()
+            assert trace_v2.trace_stepped.launches == before + -(-12 // steps)
+            p = plain(*args, **fkw)
+            e = fn(*args, fmad=False, **fkw)
+            assert torch.equal(e[0], p[0]) and torch.equal(e[1], p[1]), (
+                fn.__name__, steps)
+            assert bool(torch.isfinite(k[0]).all())
+            if not exact_only:
+                assert _agree(k, p) >= 0.995
+                assert abs(int(k[1]) - int(p[1])) <= 0.005 * int(p[1])
+
+
+@pytest.mark.cuda
+def test_cuda_k5_config_reports_the_design(cuda_device):
+    """K5's launch configuration: blocks of 256 threads, 4 resident an SM
+    asked of ptxas and granted (64 registers at most), no spills; the
+    split and hit tables and the gates in shared memory."""
+    sc, _, _, _ = _k5_frame(cuda_device, Resolution(12, 18), 1)
+    for camera in (True, False):
+        cfg = trace_v2.stepped_static_config(sc, camera=camera)
+        assert cfg["threads"] == 256 and cfg["min_blocks"] == 4
+        assert cfg["blocks_per_sm"] >= 4 and cfg["registers"] <= 64
+        assert cfg["local_bytes"] == 0
+        assert cfg["smem_bytes"] == 4 * (
+            sc.prims.shape[0] * (trace_v2.SPLIT_F + trace_v2.HIT_F)
+            + sc.gates.shape[0] * trace_v2.GATE_F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4097])
+@pytest.mark.parametrize("source", ["counter", "table"])
+def test_cuda_k5_ray_counts(cuda_device, n, source):
+    """K5 on 1, 33 and 4,097 rays: far fewer than the card's resident
+    lanes, and no multiple of a block or a warp."""
+    res = Resolution(300, 450)
+    sc, cam, pix, smp = _k5_frame(cuda_device, res, 2)
+    pick = torch.from_numpy(np.random.default_rng(n).choice(
+        pix.shape[0], n, replace=False)).to(cuda_device)
+    _k5_cases(sc, cam, pix[pick].contiguous(), smp[pick].contiguous(), res,
+              source, exact_only=n < 4097)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["counter", "table"])
+def test_cuda_k5_four_spp_frame(cuda_device, source):
+    """K5 on a 450x300 x 4 spp preview frame (540,000 rays: more than one
+    wave of the card's resident threads)."""
+    res = Resolution(300, 450)
+    _k5_cases(*_k5_frame(cuda_device, res, 4), res, source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmad", [False, True])
+def test_cuda_k5_leaves_dead_rays_unwritten(cuda_device, fmad):
+    """A ray dead on entry is not traced and not written: every third ray
+    of a given-ray call is dead, its state rows and count hold sentinels,
+    and after one launch of 12 steps (and one of 5 from depth 5) they are
+    bit for bit as they were; the live rays equal the plain call's (bit for
+    bit without FMA contraction, on 99.5% of rays with it)."""
+    res = Resolution(60, 90)
+    sc, cam, pix, smp = _k5_frame(cuda_device, res, 2)
+    n = pix.shape[0]
+    o, d = camera_rays(cam, pix, smp, seed=0, width=res.width,
+                       height=res.height)
+    state = torch.empty((trace_kernel.STATE_ROWS, n), device=cuda_device)
+    state[0:3], state[3:6] = o.T, d.T
+    state[6:9], state[9:12] = 1.0, 0.0
+    state[trace_kernel.ROW_ALIVE] = 1.0
+    state[trace_kernel.ROW_PREV] = -1.0
+    dead = torch.arange(n, device=cuda_device) % 3 == 1
+    state[:, dead] = 123.0
+    state[trace_kernel.ROW_ALIVE, dead] = 0.0
+    counts = torch.where(dead, 77, 2).to(torch.int32)
+    launch = trace_kernel.stepped_launcher(
+        "trace_stepped (K5)", "pt_trace_stepped_static",
+        trace_v2._stepped_scene_args(sc), seed=3, max_depth=12,
+        rr_start_depth=5, fmad=fmad, counter=trace_v2.trace_stepped)
+    draw = trace_kernel.stepped_draw(3, pix, smp, None)
+    isect = trace_v2.stepped_isect(sc)
+    for depth0, steps in ((0, 12), (5, 5)):
+        k_state, k_counts = state.clone(), counts.clone()
+        launch(k_state, k_counts, depth0, steps, pix, smp, None)
+        p_state, p_counts = state.clone(), counts.clone()
+        trace_kernel.stepped_call_plain(isect, draw, p_state, p_counts,
+                                        depth0=depth0, n_steps=steps,
+                                        max_depth=12, rr_start_depth=5)
+        torch.cuda.synchronize()
+        assert torch.equal(k_state[:, dead], state[:, dead])
+        assert torch.equal(k_counts[dead], counts[dead])
+        assert torch.equal(k_counts, p_counts) or fmad
+        live = ~dead
+        if fmad:
+            acc = trace_kernel.ROW_ACC
+            agree = ((k_state[acc:acc + 3, live] - p_state[acc:acc + 3, live])
+                     .abs().sum(dim=0) < 1e-3).float().mean()
+            assert float(agree) >= 0.995
+        else:
+            assert torch.equal(k_state[:, live], p_state[:, live])
+
+
+@pytest.mark.cuda
+def test_cuda_fma_k1_512_spp_image(cuda_device):
+    """Does FMA contraction move K1's image at the production quota? cornell
+    at 16x16 and 512 spp (two K1 passes at quota 256) on the card against
+    the CPU render of the same seed: mean |card - CPU| at most a quarter of
+    the CPU's noise between seeds 0 and 1, the sample counts exact."""
+    scene = _scene("cornell")
+    cfg = RenderConfig(samples_per_pixel=512, resolution=Resolution(16, 16))
+    before = trace_v2.trace_regen.launches
+    gpu = tpt.render(scene, cfg, device=cuda_device, out_dir=None, verbose=False)
+    assert trace_v2.trace_regen.launches - before == 2
+    cpu = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
+    cpu1 = tpt.render(scene, cfg.with_(seed=1), device="cpu", out_dir=None,
+                      verbose=False)
+    same = np.abs(gpu.image.pixels - cpu.image.pixels).mean()
+    noise = np.abs(cpu1.image.pixels - cpu.image.pixels).mean()
+    print(f"K1 512 spp: mean |card - CPU| {same:.3g}, CPU noise {noise:.3g}")
+    assert same <= 0.25 * noise, (same, noise)
+    assert gpu.stats.num_samples == cpu.stats.num_samples == 512 * 256
+
+
+@pytest.mark.cuda
+def test_cuda_fma_portal_v2_image(cuda_device):
+    """Does FMA contraction move the v2 portal render's image? The random
+    portal scene of chip_smoke.py phase 3 (scripts/portal_fuzz_scenes.py
+    fuzz_scene(3), glass and mirror spheres) at 18x12 and 32 spp on the
+    card against the CPU render of the same seed: mean |card - CPU| at most
+    a quarter of the CPU's noise between seeds 0 and 1, the sample counts
+    exact."""
+    scene = _script("portal_fuzz_scenes").fuzz_scene(3)
+    cfg = RenderConfig(samples_per_pixel=32, resolution=Resolution(12, 18))
+    before = portal.trace_cheap_regen.launches
+    gpu = tpt.render(scene, cfg, device=cuda_device, out_dir=None, verbose=False)
+    assert portal.trace_cheap_regen.launches > before
+    assert gpu.stats.extra["portal_runner"] == "v2"
+    cpu = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
+    cpu1 = tpt.render(scene, cfg.with_(seed=1), device="cpu", out_dir=None,
+                      verbose=False)
+    same = np.abs(gpu.image.pixels - cpu.image.pixels).mean()
+    noise = np.abs(cpu1.image.pixels - cpu.image.pixels).mean()
+    print(f"v2 portal: mean |card - CPU| {same:.3g}, CPU noise {noise:.3g}")
+    assert same <= 0.25 * noise, (same, noise)
+    assert gpu.stats.num_samples == cpu.stats.num_samples == 32 * 216
+
+
+@pytest.mark.cuda
+def test_cuda_fma_k5_preview_image(cuda_device):
+    """Does FMA contraction move K5's preview? Eight frames of 2 spp on
+    cornell at 90x60 on the card against the CPU preview of the same seed:
+    mean |card - CPU| at most a quarter of the CPU's noise between seeds 0
+    and 1, the samples exact."""
+    res = Resolution(60, 90)
+    gpu = ProgressiveRenderer(_scene("cornell"), res, device=cuda_device)
+    cpu = ProgressiveRenderer(_scene("cornell"), res, device="cpu")
+    cpu1 = ProgressiveRenderer(_scene("cornell"), res, seed=1, device="cpu")
+    before = trace_v2.trace_stepped.launches
+    for _ in range(8):
+        g, a, b = gpu.step().pixels, cpu.step().pixels, cpu1.step().pixels
+    assert trace_v2.trace_stepped.launches - before == 8
+    same, noise = np.abs(g - a).mean(), np.abs(a - b).mean()
+    print(f"K5 preview: mean |card - CPU| {same:.3g}, CPU noise {noise:.3g}")
+    assert same <= 0.25 * noise, (same, noise)
+    assert gpu.samples_done == cpu.samples_done == 16
 
 
 @pytest.mark.cuda

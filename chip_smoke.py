@@ -88,7 +88,19 @@ line):
      port, served from a thread): /state, three /preview.png (decoded here;
      the etag changes), /control orbit, /pick, /probe, /select_scene
      cornell, /start_render at 16 spp and res_y 120 until done with no
-     render error, /render.png; each request's latency.
+     render error, /render.png; each request's latency;
+  8. the wavefront integrator on the card (plain torch, no kernel: the
+     launch counts stay 0), each render's per-pixel sample counts exact
+     and its wall, Mray/s and peak device memory: cornell 1024x768 at 64
+     spp in backend fast, twice, against the K1 route's image of the same
+     seed beside K1's two-seed noise; mesh 1024x768 at 4 spp in fast (six
+     pixel chunks a pass); cornell 256x192 at 16 spp in exact (against
+     fast) and with the literal estimator; a mock_random render at 96x64 on
+     the card against the same render on the CPU (the share of pixels
+     within 1e-4: TF32 would part far more); render_samples in each mode;
+     two preview frames on the wavefront; the raster preview
+     (viewer.raster.render_preview) at 450x300 on the card against the CPU.
+     Phase 5 also runs the CLI with --backend fast --debug-nans --profile.
 Then a JSON line per kernel, the card's line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1483,6 +1495,157 @@ def check_app(dev, card):
     print("phase 7 done", flush=True)
 
 
+def check_wavefront(scenes, card, counters):
+    """Phase 8: the wavefront integrator and the raster preview on the
+    card, each against what it must agree with."""
+    import numpy as np
+    import torch
+
+    import path_tracer_tpu_torch as pt
+    from path_tracer_tpu_torch.render import integrator, pipeline, raygen
+    from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
+    from path_tracer_tpu_torch.viewer import raster
+    from path_tracer_tpu_torch.viewer.progressive import ProgressiveRenderer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the fast form needs float32")
+    from path_tracer_tpu_torch import native
+
+    print(f"phase 8 host native runtime: "
+          f"{native.library_path() if native.native_available() else 'not built (no C++ compiler), Python fallbacks'}",
+          flush=True)
+
+    def run(tag, scene, cfg, device="cuda", route="wavefront"):
+        """render() with the launch counts zeroed just before and read
+        just after; fails on a wrong route, a kernel launched on the
+        wavefront, inexact counts or a bad image."""
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        done = pt.render(scene, cfg, device=device, out_dir=None, verbose=False)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = [c.launches for c in counters]
+        s = done.stats
+        res = cfg.resolution
+        img = done.image.pixels
+        if s.extra.get("route") != route:
+            fail(f"{tag}: route {s.extra.get('route')!r}, want {route!r}")
+        if route == "wavefront" and any(launched):
+            fail(f"{tag}: the wavefront launched kernels {launched} (K1..K9)")
+        if s.num_samples != cfg.samples_per_pixel * res.num_pixels:
+            fail(f"{tag}: {s.num_samples} samples, want "
+                 f"{cfg.samples_per_pixel * res.num_pixels}")
+        if img.shape != (res.num_pixels, 3) or not np.isfinite(img).all():
+            fail(f"{tag}: bad image, shape {img.shape}")
+        if device == "cuda":
+            print(f"phase 8 {tag}: wall {s.wall_seconds:.4f} s, "
+                  f"{s.mrays_per_sec:.1f} Mray/s, {s.num_rays} segments, "
+                  f"{s.num_dispatches} dispatches, peak "
+                  f"{peak:.3f} GiB allocated; mean "
+                  f"{img.mean(axis=0).round(4).tolist()} ({card})", flush=True)
+        return done
+
+    def mean_abs(a, b):
+        return float(np.abs(a.image.pixels - b.image.pixels).mean())
+
+    big = Resolution(768, 1024)
+    cfg = RenderConfig(samples_per_pixel=64, resolution=big, backend="fast")
+    for when in ("first", "warm"):
+        wave = run(f"cornell 1024x768 64 spp fast (wavefront), {when} render",
+                   scenes["cornell"], cfg)
+    k1 = run("cornell 1024x768 64 spp K1", scenes["cornell"],
+             cfg.with_(backend="auto"), route="regen")
+    k1_seed1 = run("cornell 1024x768 64 spp K1 seed 1", scenes["cornell"],
+                   cfg.with_(backend="auto", seed=1), route="regen")
+    same, noise = mean_abs(wave, k1), mean_abs(k1_seed1, k1)
+    print(f"phase 8 cornell 1024x768 64 spp: wavefront vs K1 (same seed, the "
+          f"same keyed draws) mean |Δ| {same:.6f}, K1 seed 0 vs 1 {noise:.5f}; "
+          f"K1 wall {k1.stats.wall_seconds:.4f} s, "
+          f"{k1.stats.mrays_per_sec:.1f} Mray/s", flush=True)
+    if not same <= 0.25 * noise:
+        fail("the wavefront image disagrees with K1's beyond ulp flips")
+
+    run("mesh 1024x768 4 spp fast (wavefront, pixel chunks)", scenes["mesh"],
+        RenderConfig(samples_per_pixel=4, resolution=big, backend="fast"))
+
+    small = Resolution(192, 256)
+    fast = run("cornell 256x192 16 spp fast", scenes["cornell"],
+               RenderConfig(samples_per_pixel=16, resolution=small,
+                            backend="fast"))
+    fast1 = run("cornell 256x192 16 spp fast seed 1", scenes["cornell"],
+                RenderConfig(samples_per_pixel=16, resolution=small,
+                             backend="fast", seed=1))
+    exact = run("cornell 256x192 16 spp exact", scenes["cornell"],
+                RenderConfig(samples_per_pixel=16, resolution=small,
+                             backend="exact"))
+    lit = run("cornell 256x192 16 spp literal estimator", scenes["cornell"],
+              RenderConfig(samples_per_pixel=16, resolution=small,
+                           estimator="literal"))
+    noise = mean_abs(fast1, fast)
+    print(f"phase 8 cornell 256x192 16 spp: exact vs fast mean |Δ| "
+          f"{mean_abs(exact, fast):.6f}, literal vs shipped "
+          f"{mean_abs(lit, fast):.5f}, fast seed 0 vs 1 {noise:.5f}", flush=True)
+    if not mean_abs(exact, fast) <= 0.25 * noise:
+        fail("the exact form disagrees with the fast form beyond ulp flips")
+
+    mock_cfg = RenderConfig(samples_per_pixel=8, resolution=Resolution(64, 96),
+                            mock_random=True)
+    card_mock = run("cornell 96x64 8 spp mock_random", scenes["cornell"], mock_cfg)
+    cpu_mock = run("cpu mock", scenes["cornell"], mock_cfg, device="cpu")
+    diff = np.abs(card_mock.image.pixels - cpu_mock.image.pixels).max(axis=1)
+    share = float((diff <= 1e-4).mean())
+    print(f"phase 8 mock_random cornell 96x64 8 spp: card vs cpu {share:.5f} of "
+          f"pixels within 1e-4 (need 0.99), segments {card_mock.stats.num_rays} "
+          f"vs {cpu_mock.stats.num_rays}", flush=True)
+    if share < 0.99:
+        fail("the card's mock_random render parts from the CPU's")
+
+    res = Resolution(64, 96)
+    cam = raygen.camera_arrays(scenes["cornell"].camera)
+    pix = torch.arange(res.num_pixels, dtype=torch.int32, device="cuda")
+    smp = torch.zeros_like(pix)
+    for backend in ("exact", "fast"):
+        prep = pipeline.prepare_render(scenes["cornell"], res, "cuda",
+                                       backend=backend)
+        for opts in ({}, {"mock_random": True}, {"literal": True}):
+            out = integrator.render_samples(prep, cam, pix, smp, seed=0,
+                                            width=res.width, height=res.height,
+                                            **opts)
+            if (out.radiance.device.type != "cuda"
+                    or not bool(torch.isfinite(out.radiance).all())
+                    or int(out.rays_traced) < res.num_pixels):
+                fail(f"render_samples {backend} {opts} on the card")
+    preview = ProgressiveRenderer(scenes["cornell"], Resolution(*PREVIEW),
+                                  backend="fast", device="cuda")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preview.step_u8()
+        times.append(time.perf_counter() - t0)
+    print(f"phase 8 preview on the wavefront, cornell 450x300 2 spp a frame: "
+          f"frame {sorted(times)[1] * 1e3:.2f} ms (2nd best of 3)", flush=True)
+
+    t0 = time.perf_counter()
+    card_r = raster.render_preview(scenes["cornell"], 450, 300, device="cuda")
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        raster.render_preview(scenes["cornell"], 450, 300, device="cuda")
+        times.append(time.perf_counter() - t0)
+    cpu_r = raster.render_preview(scenes["cornell"], 450, 300, device="cpu")
+    depth = np.abs(card_r["depth"] - cpu_r["depth"])
+    color = np.abs(card_r["color"] - cpu_r["color"]).max(axis=2)
+    d_share, c_share = float((depth <= 1e-5).mean()), float((color <= 1e-5).mean())
+    print(f"phase 8 raster preview cornell 450x300: card vs cpu depth "
+          f"{d_share:.5f} and color {c_share:.5f} of pixels within 1e-5 (need "
+          f"0.999), max |Δ| depth {depth.max():.2e}; first {first:.3f} s, warm "
+          f"{sorted(times)[1] * 1e3:.1f} ms (2nd best of 3) ({card})", flush=True)
+    if d_share < 0.999 or c_share < 0.999:
+        fail("the card's raster preview parts from the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -1697,13 +1860,27 @@ def main() -> int:
 
     # ---- phase 5: the CLI ----
     for args, wh in ((["100", "300", "cornell"], (450, 300)),
-                     (["16", "300", "mesh"], (450, 300))):
+                     (["16", "300", "mesh"], (450, 300)),
+                     (["16", "300", "cornell", "--backend", "fast",
+                       "--debug-nans", "--profile"], (450, 300))):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
+            if args[-1] == "--profile":
+                args = args + [os.path.join(tmp, "prof")]
             proc = subprocess.run(
                 [sys.executable, "-m", "path_tracer_tpu_torch.cli", *args,
                  "--out-dir", tmp],
                 cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if "--profile" in args:
+                trace = os.path.join(tmp, "prof", "trace.json")
+                kinds = set()
+                if os.path.exists(trace):
+                    with open(trace) as fh:
+                        kinds = {e.get("cat") for e in json.load(fh)["traceEvents"]}
+                print(f"phase 5 CLI --profile: trace.json event kinds "
+                      f"{sorted(k for k in kinds if k)}", flush=True)
+                if "kernel" not in kinds:
+                    fail("the CLI's --profile trace holds no device kernel")
             if proc.returncode != 0:
                 fail(f"CLI {args} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
             ppms = glob.glob(os.path.join(tmp, "*.ppm"))
@@ -1724,6 +1901,10 @@ def main() -> int:
 
     # ---- phase 7: the viewer app ----
     check_app(dev, card)
+
+    # ---- phase 8: the wavefront integrator and the raster preview ----
+    check_wavefront(scenes, card, counters)
+    print("phase 8 done", flush=True)
 
     for name, _, _ in KERNELS:
         if launches.get(name, 0) <= 0:

@@ -12,8 +12,11 @@ device=...)`` → PPM, with progress, cancel and checkpoints, and the
 ``spp res_y scene`` CLI. Scenes of at most 128 primitives take the
 regenerative trace kernel (K1); ``mesh`` takes the portal scheduler with
 its cheap and resolve kernels (K2, K3); other triangle-heavy scenes take the
-regenerative loop over the full scene (K4). See ROADMAP.md for the slices
-still to come.
+regenerative loop over the full scene (K4). Backend ``exact`` or ``fast``,
+``mock_random`` and ``estimator="literal"`` take the wavefront integrator
+(plain torch). Also ported: the interactive and raster previews, the viewer
+app and the host native runtime. See ROADMAP.md for the slices still to
+come.
 """
 
 from path_tracer_tpu_torch.models.material import Material, ReflectType
@@ -31,6 +34,7 @@ from path_tracer_tpu_torch.models.scenes import (
 from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 # eager import: `render` (the function) shadows the `render` subpackage
 from path_tracer_tpu_torch.render.pipeline import render, RenderDone, RenderUpdate
+from path_tracer_tpu_torch.version import __version__
 
 __all__ = [
     "Material",
@@ -50,4 +54,5 @@ __all__ = [
     "render",
     "RenderDone",
     "RenderUpdate",
+    "__version__",
 ]

@@ -4,13 +4,18 @@ Counterpart of ``path_tracer_tpu.cli`` with the interface
 ``spp res_y scene_id|scene_index`` and a ``\\r`` progress line with percent,
 elapsed and estimated h:mm:ss. ``--device`` picks the device (default
 ``cuda``); without CUDA the CLI stops with an error instead of rendering on
-the CPU.
+the CPU. ``--backend`` ``exact`` or ``fast`` (``jnp``) renders on the
+wavefront integrator, ``auto``, ``mxu`` and ``pallas`` on the kernel routes;
+``--profile DIR`` writes a torch.profiler Chrome trace to DIR/trace.json;
+``--debug-nans`` stops with an error when the accumulator holds a
+non-finite value after a pass.
 
 Usage:
     python -m path_tracer_tpu_torch.cli [spp] [res_y] [scene] [options]
     python -m path_tracer_tpu_torch.cli 1000 768 cornell
     python -m path_tracer_tpu_torch.cli 8 24 cornell --device cpu
     python -m path_tracer_tpu_torch.cli 1024 768 mesh
+    python -m path_tracer_tpu_torch.cli 64 768 cornell --backend fast
     python -m path_tracer_tpu_torch.cli --list-scenes
 """
 
@@ -20,7 +25,8 @@ import argparse
 import sys
 import time
 
-from path_tracer_tpu_torch.utils.profiling import format_eta
+from path_tracer_tpu_torch.utils.config import BACKENDS
+from path_tracer_tpu_torch.utils.profiling import format_eta, profiler_trace
 
 DEFAULT_SPP = 100
 DEFAULT_RES_Y = 300
@@ -46,8 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default="out")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-depth", type=int, default=12)
+    p.add_argument("--backend", default="auto", choices=BACKENDS,
+                   help="exact or fast (jnp): the wavefront integrator; "
+                        "auto, mxu or pallas: the kernel routes (default)")
     p.add_argument("--samples-per-pass", type=int, default=0,
-                   help="samples per pixel in one pass (0 = min(spp, 256))")
+                   help="samples per pixel in one pass (0 = auto)")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file for resumable renders")
     p.add_argument("--checkpoint-every", type=int, default=8,
@@ -60,6 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-validate", action="store_true",
                    help="skip the GUI-parity range checks on spp/res_y")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace to DIR/trace.json")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="stop with an error when the accumulator holds a "
+                        "NaN or an infinity after a pass")
     return p
 
 
@@ -104,6 +118,7 @@ def main(argv: list[str] | None = None) -> int:
         resolution=Resolution.from_height(args.res_y),
         seed=args.seed,
         max_depth=args.max_depth,
+        backend=args.backend,
         samples_per_pass=args.samples_per_pass,
         validate=not args.no_validate,
     )
@@ -123,17 +138,19 @@ def main(argv: list[str] | None = None) -> int:
         )
         sys.stderr.flush()
 
-    done = render(
-        scene,
-        config,
-        device=device,
-        progress=progress,
-        progress_snapshots=False,
-        checkpoint_path=args.checkpoint,
-        checkpoint_every=args.checkpoint_every,
-        out_dir=args.out_dir,
-        verbose=not args.quiet,
-    )
+    with profiler_trace(args.profile):
+        done = render(
+            scene,
+            config,
+            device=device,
+            progress=progress,
+            progress_snapshots=False,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            out_dir=args.out_dir,
+            verbose=not args.quiet,
+            debug_nans=args.debug_nans,
+        )
     if not args.quiet:
         sys.stderr.write("\n")
         s = done.stats

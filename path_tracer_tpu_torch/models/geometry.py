@@ -15,9 +15,10 @@ Parity notes (vs ``src/render/mod.rs``):
 
 Triangles are stored SoA as a float32 ``[T, 3, 3]`` array (triangle, vertex,
 xyz) — the natural device layout — rather than a list of structs.
+- UV-sphere tessellation (16 stacks × 32 slices with pole handling,
+  ``mod.rs:346-404``) backs the raster preview.
 
-Counterpart of ``path_tracer_tpu.models.geometry``. The raster preview's
-UV-sphere tessellation is not ported yet (ROADMAP.md, Slice 3).
+Counterpart of ``path_tracer_tpu.models.geometry``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 F32 = np.float32
+PI = F32(3.141592653589793)
 
 
 @dataclass(frozen=True)
@@ -179,6 +181,40 @@ class Mesh:
             },
             "bounding_box": triangles_to_json(self.bounding_box),
         }
+
+
+def sphere_to_triangles(radius: float, steps: int = 16) -> np.ndarray:
+    """UV-sphere tessellation for the raster preview (``mod.rs:346-404``):
+    ``steps`` stacks × ``2*steps`` slices, single triangles at the poles."""
+    radius = F32(radius)
+    tris: list[np.ndarray] = []
+
+    def pt(theta: F32, phi: F32) -> np.ndarray:
+        return np.array(
+            [
+                radius * np.sin(theta) * np.cos(phi),
+                radius * np.cos(theta),
+                radius * np.sin(theta) * np.sin(phi),
+            ],
+            np.float32,
+        )
+
+    for i in range(steps):
+        theta1 = PI * F32(i) / F32(steps)
+        theta2 = PI * F32(i + 1) / F32(steps)
+        for j in range(steps * 2):
+            phi1 = F32(2.0) * PI * F32(j) / F32(steps * 2)
+            phi2 = F32(2.0) * PI * F32(j + 1) / F32(steps * 2)
+            p1, p2 = pt(theta1, phi1), pt(theta2, phi1)
+            p3, p4 = pt(theta2, phi2), pt(theta1, phi2)
+            if i == 0:
+                tris.append(np.stack([p1, p3, p4]))
+            elif i + 1 == steps:
+                tris.append(np.stack([p1, p2, p3]))
+            else:
+                tris.append(np.stack([p1, p2, p4]))
+                tris.append(np.stack([p2, p3, p4]))
+    return np.stack(tris).astype(np.float32)
 
 
 def single_quad_mesh(size_x: float, size_y: float, axis: int, flip: bool) -> Mesh:

@@ -5,9 +5,10 @@ blank lines, requires the ``OFF`` magic, reads ``nv nf ne`` counts, scales
 vertices by ``scale``, accepts triangle faces only (face count != 3 is an
 error, matching ``load_off.rs:73-76``).
 
-Counterpart of ``path_tracer_tpu.models.off``: the pure-Python parser only.
-The ctypes binding to ``csrc/pt_native.cpp`` is not ported yet (ROADMAP.md,
-Slice 1b).
+Counterpart of ``path_tracer_tpu.models.off``. ``load_off`` parses through
+the native runtime (``path_tracer_tpu_torch.native``, ``csrc/pt_native.cpp``)
+where it builds; the pure-Python ``parse_off`` is the fallback and the
+correctness oracle.
 """
 
 from __future__ import annotations
@@ -77,6 +78,10 @@ def parse_off(text: str, scale: float = 1.0) -> np.ndarray:
 
 def load_off(path: str, scale: float = 1.0) -> Mesh:
     """Load an OFF file into a Mesh (bounds recomputed, like ``Mesh::new``)."""
-    with open(path, "r") as f:
-        tris = parse_off(f.read(), scale)
+    from path_tracer_tpu_torch.native import native_parse_off
+
+    tris = native_parse_off(path, scale)
+    if tris is None:
+        with open(path, "r") as f:
+            tris = parse_off(f.read(), scale)
     return Mesh.from_triangles(tris, file={"path": path, "scale": np.float32(scale)})

@@ -18,8 +18,7 @@ strictly-closer hits (``mod.rs:631-659``) — with this layout a sequential
 first-wins scan reproduces its tie-breaking exactly.
 
 Counterpart of ``path_tracer_tpu.models.scene``; the packed buffers are
-byte-equal to the JAX package's. The raster preview's ``scene_bounds`` is not
-ported yet (ROADMAP.md, Slice 3).
+byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from path_tracer_tpu_torch.models.camera import Camera
-from path_tracer_tpu_torch.models.geometry import Mesh
+from path_tracer_tpu_torch.models.geometry import Mesh, mesh_bounds
 from path_tracer_tpu_torch.models.material import Material
 
 F32 = np.float32
@@ -407,3 +406,22 @@ def pack_scene(
         bnd_radius=bnd_radius,
     )
 
+
+
+def scene_bounds(scene: SceneDescriptor) -> tuple[np.ndarray, np.ndarray]:
+    """World AABB over all objects (min, max), float32."""
+    mins, maxs = [], []
+    for obj in scene.objects:
+        if obj.is_sphere:
+            mins.append(obj.position - obj.radius)
+            maxs.append(obj.position + obj.radius)
+        else:
+            mn, mx = mesh_bounds(obj.mesh.triangles)
+            mins.append(mn + obj.position)
+            maxs.append(mx + obj.position)
+    if not mins:
+        return np.zeros(3, np.float32), np.zeros(3, np.float32)
+    return (
+        np.min(np.stack(mins), axis=0).astype(np.float32),
+        np.max(np.stack(maxs), axis=0).astype(np.float32),
+    )

@@ -55,7 +55,9 @@ import numpy as np
 import torch
 
 from path_tracer_tpu_torch.models.scene import ScenePacked
+from path_tracer_tpu_torch.native import native_morton3d
 from path_tracer_tpu_torch.ops import rng
+from path_tracer_tpu_torch.ops.intersect import triangle_coeffs_np
 from path_tracer_tpu_torch.ops.kernels.build import check_launch, load_kernel
 from path_tracer_tpu_torch.render.raygen import (
     camera_rays, preview_cam_params, tent_filter,
@@ -363,25 +365,12 @@ def _pad_to(x: np.ndarray, n: int, axis: int, fill: float) -> np.ndarray:
     return np.pad(x, widths, constant_values=fill)
 
 
-def triangle_coeffs_np(tri_v):
-    """Affine feature form of each triangle, in float32 numpy."""
-    tri_v = np.asarray(tri_v, np.float32)
-    a = tri_v[:, 0]
-    e1 = tri_v[:, 1] - tri_v[:, 0]
-    e2 = tri_v[:, 2] - tri_v[:, 0]
-    n = np.cross(e1, e2)
-    return {
-        "n": n,
-        "e1": e1,
-        "e2": e2,
-        "e2xa": np.cross(e2, a),
-        "axe1": np.cross(a, e1),
-        "na": (n * a).sum(axis=1),
-    }
-
-
 def _morton3d(norm: np.ndarray) -> np.ndarray:
-    """30-bit Morton codes of points in [0, 1)^3 (10 bits an axis)."""
+    """30-bit Morton codes of points in [0, 1)^3 (10 bits an axis): the
+    native runtime's ``pt_morton3d`` where it builds, else numpy."""
+    codes = native_morton3d(norm)
+    if codes is not None:
+        return codes
     q = (norm * 1024).astype(np.uint32)
 
     def expand(v):

@@ -21,10 +21,17 @@ stream is not the TPU's: the two agree in distribution only.
 Torch has no wrapping uint32 multiply, so values live in int64 and
 ``_mul32`` splits one factor into 16-bit halves: no partial product
 exceeds 2^49.
+
+``MOCK_RANDOMS``, ``mock_uniforms`` and ``mock_uniforms_traced`` are the
+reference's MOCK_RANDOM fixture (a fixed 9-float cycle, ``mod.rs:31-45``)
+as the JAX package's ``ops.rng`` reproduces it, value for value: draws
+that are a pure function of a counter, for the wavefront integrator's
+``mock_random`` mode.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -77,3 +84,40 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, depth: torch.Tensor | int, slot: int
             ) -> torch.Tensor:
     return bits_to_uniform(uniform_bits(key, depth, slot))
+
+
+# The reference's fixed mock sequence (mod.rs:33-43), rounded to f32.
+MOCK_RANDOMS = np.array(
+    [
+        0.75902418061906407,
+        0.023879213030728041,
+        0.21016190197770457,
+        0.78814922184253244,
+        0.56819568237964491,
+        0.7689823904006352,
+        0.16910304067812287,
+        0.54519597695203492,
+        0.63614169009490062,
+    ],
+    dtype=np.float32,
+)
+MOCK_RAYGEN_BOUNCE = 15  # the raygen draws' bounce in mock_uniforms_traced
+
+
+def mock_uniforms_traced(bounce: int, n: int, slots: int, device) -> torch.Tensor:
+    """MOCK_RANDOM fixture for the wavefront: the draw (lane, bounce, slot)
+    of a call of ``n`` lanes is ``MOCK_RANDOMS[(lane * slots * 16 + bounce *
+    slots + slot) % 9]``, the index computed in int32 as the JAX package
+    does. Returns [n, slots] float32 on ``device``."""
+    lane = torch.arange(n, dtype=torch.int32, device=device)[:, None]
+    slot = torch.arange(slots, dtype=torch.int32, device=device)[None, :]
+    idx = (lane * (slots * 16) + int(bounce) * slots + slot) % len(MOCK_RANDOMS)
+    return torch.from_numpy(MOCK_RANDOMS).to(device)[idx.long()]
+
+
+def mock_uniforms(counter_start: int, shape, n: int, device="cpu") -> torch.Tensor:
+    """Deterministic fixture: draw i returns MOCK_RANDOMS[i % 9], counting
+    row-major over [*shape, n] starting at counter_start."""
+    total = int(np.prod(shape)) * n
+    idx = (np.arange(total, dtype=np.int64) + counter_start) % len(MOCK_RANDOMS)
+    return torch.from_numpy(MOCK_RANDOMS[idx].reshape(tuple(shape) + (n,))).to(device)

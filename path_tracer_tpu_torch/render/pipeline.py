@@ -30,18 +30,29 @@ rebuilds nothing on the card:
 
 Passes: ``min(spp, 256)`` samples for ``regen`` (``samples_per_pass``
 overrides), at most 64 for ``prim`` (K4's quota cap) and at most
-PT_TPU_PORTAL_PASS_CAP (default 1024) for ``portal``. The global sample
-base of pass i is ``i * k`` with k the full pass size.
+PT_TPU_PORTAL_PASS_CAP (default 1024) for ``portal``, ``wavefront_pass``'s
+for ``wavefront``. The global sample base of pass i is ``i * k`` with k the
+full pass size.
 
 Cancellation keeps completed work: a cancelled render still produces a
 ``RenderDone`` with the partial image and still writes the PPM. A portal
 pass cancelled mid-pass keeps every started sample (freeze-and-drain) and
 normalizes each pixel by its exact retired count.
 
-The device is an explicit argument: ``"cuda"`` launches the CUDA kernels,
-``"cpu"`` runs their plain torch versions. Nothing falls back from one to
-the other. Off this slice, and raising ``NotImplementedError``:
-``estimator="literal"`` and ``mock_random`` (ROADMAP.md Slice 1b).
+The wavefront route (the JAX ``exact`` and ``fast`` modes): backend
+``exact`` or ``fast`` (``jnp`` means ``fast``), and every render with
+``mock_random`` or ``estimator="literal"``, which switch a kernel route to
+``fast``. It runs ``integrator.trace`` in plain torch, no kernel, with the
+JAX package's pass size and pixel chunking: a lane budget of
+``DEFAULT_LANE_BUDGET``, bounded to ~2 GB of ``[lanes, T]`` intermediates
+(``wavefront_pass``), chunks of the Morton order padded with pixel 0.
+The backends ``auto``, ``mxu`` and ``pallas`` mean the kernel routes above
+on both devices: on a CPU the port runs its kernels' plain versions, where
+the JAX package resolves ``auto`` to ``fast``.
+
+The device is an explicit argument: ``"cuda"`` launches the CUDA kernels
+(and runs the wavefront on the card), ``"cpu"`` runs their plain torch
+versions. Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -57,14 +68,16 @@ import numpy as np
 import torch
 
 from path_tracer_tpu_torch.models.scene import SceneDescriptor, pack_scene
+from path_tracer_tpu_torch.ops.intersect import check_fp32_matmul, scene_tensors
 from path_tracer_tpu_torch.ops.kernels import portal as portal_ops
 from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
 from path_tracer_tpu_torch.render import integrator
 from path_tracer_tpu_torch.render.image import Image, write_ppm
+from path_tracer_tpu_torch.render.raygen import camera_arrays
 from path_tracer_tpu_torch.render.portal import (
     make_portal_pass_runner, make_portal_pass_runner_v2,
 )
-from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
+from path_tracer_tpu_torch.utils.config import BACKENDS, RenderConfig, Resolution
 from path_tracer_tpu_torch.utils.profiling import RenderStats
 
 # Samples per pixel in one K1 pass: the JAX package's pass granularity. The
@@ -73,6 +86,8 @@ from path_tracer_tpu_torch.utils.profiling import RenderStats
 PASS_SAMPLES = 256
 # Seconds between mid-pass checkpoints of a portal pass (PT_TPU_CKPT_SECS)
 CKPT_SECS = 15.0
+# Wavefront lanes (pixels x samples) in one dispatch, the JAX package's
+DEFAULT_LANE_BUDGET = 2 * 1024 * 1024
 
 
 @dataclass
@@ -97,14 +112,47 @@ class Prepared:
     """A scene ready to render on one device: its route and what it needs.
     ``scene`` is set for ``regen`` and ``stepped``, ``portal`` and
     ``kscene`` for ``portal``, ``kscene`` alone for ``prim`` and
-    ``stepped_prim``. ``cam`` (the in-kernel camera) is None for the
-    stepped routes, which take their rays from outside."""
+    ``stepped_prim``, ``bufs`` (``intersect.scene_tensors``) and ``mode``
+    (``exact`` or ``fast``) for ``wavefront``. ``cam`` (the in-kernel
+    camera) is None for the stepped and wavefront routes, which make their
+    rays outside a kernel."""
 
     route: str
     cam: trace_v2.CameraConsts | None
     scene: trace_v2.SceneConsts | None = None
     portal: portal_ops.PortalConsts | None = None
     kscene: trace_kernel.KernelScene | None = None
+    bufs: dict | None = None
+    mode: str = ""
+
+
+def resolve_backend(backend: str) -> str:
+    """``exact`` or ``fast`` (the wavefront), or ``kernel`` (the routes of
+    ``prepare_render``): ``jnp`` means ``fast``; ``auto``, ``mxu`` and
+    ``pallas`` mean the kernel routes on every device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend in ("exact", "fast"):
+        return backend
+    return "fast" if backend == "jnp" else "kernel"
+
+
+def wavefront_pass(npix: int, spp: int, samples_per_pass: int, mode: str,
+                   n_tris: int, pixel_chunk: int = 0) -> tuple[int, int]:
+    """(samples per pixel in a pass, pixels in a chunk, 0 for none) of a
+    wavefront render, by the JAX package's rule: a budget of
+    DEFAULT_LANE_BUDGET lanes, at most ~2 GB of [lanes, T] intermediates
+    (36 bytes a lane-triangle exact, 16 fast); chunks when even one sample
+    a pixel exceeds it. A mock_random image depends on both."""
+    per = 36 if mode == "exact" else 16
+    budget = min(DEFAULT_LANE_BUDGET, max(2_000_000_000 // (n_tris * per), 4096))
+    k = samples_per_pass or min(max(1, budget // max(npix, 1)), spp)
+    chunk = pixel_chunk
+    if not chunk and npix > budget:
+        chunk = max(budget // k, 4096)
+    if chunk >= npix:
+        chunk = 0
+    return k, chunk
 
 
 def resolve_device(device) -> torch.device:
@@ -121,11 +169,17 @@ def resolve_device(device) -> torch.device:
 
 
 def prepare_render(scene: SceneDescriptor, resolution: Resolution, device,
-                   *, regen: bool = True) -> Prepared:
+                   *, regen: bool = True, backend: str = "auto") -> Prepared:
     """Pick the route as the JAX package's prepare_scene_and_mode does and
-    build its tables on ``device``. ``regen=False`` (the interactive
-    preview) gives the camera-free ``stepped`` or ``stepped_prim`` route."""
+    build its tables on ``device``. ``backend`` (``resolve_backend``)
+    ``exact`` or ``fast`` gives the ``wavefront`` route. ``regen=False``
+    (the interactive preview) gives the camera-free ``stepped`` or
+    ``stepped_prim`` route."""
     packed = pack_scene(scene)
+    mode = resolve_backend(backend)
+    if mode != "kernel":
+        return Prepared("wavefront", None, bufs=scene_tensors(packed, device),
+                        mode=mode)
     consts = trace_v2.build_scene_consts(packed)
     if not regen:
         if consts is not None:
@@ -181,7 +235,8 @@ def morton_pixel_order(width: int, height: int) -> tuple[np.ndarray, np.ndarray]
 
 
 def pass_size(route: str, spp: int, samples_per_pass: int | None) -> int:
-    """Samples per pixel in one full pass of a route."""
+    """Samples per pixel in one full pass of a kernel route (the wavefront's
+    is ``wavefront_pass``)."""
     if route == "regen":
         return min(samples_per_pass or PASS_SAMPLES, spp)
     cap = (trace_kernel.QUOTA_CAP_PRIM if route == "prim" else
@@ -209,18 +264,19 @@ def render(
     checkpoint_every: int = 0,
     out_dir: str | None = "out",
     verbose: bool = True,
+    debug_nans: bool = False,
 ) -> RenderDone:
-    """Render a scene to completion (or cancellation) on ``device``."""
+    """Render a scene to completion (or cancellation) on ``device``.
+    ``debug_nans``: raise FloatingPointError as soon as the accumulator
+    holds a non-finite value after a pass."""
     config = config.validated()
     dev = resolve_device(device)
-    if config.mock_random:
-        raise NotImplementedError(
-            "mock_random runs on the wavefront integrator, ported in "
-            "ROADMAP.md Slice 1b")
-    if config.estimator == "literal":
-        raise NotImplementedError(
-            "estimator='literal' runs on the wavefront integrator, ported in "
-            "ROADMAP.md Slice 1b")
+    literal = config.estimator == "literal"
+    backend = config.backend
+    if (config.mock_random or literal) and resolve_backend(backend) == "kernel":
+        # both are wavefront semantics: the kernels bake the shipped
+        # estimator and draw from the counter generator
+        backend = "fast"
     if checkpoint_path and not checkpoint_path.endswith(".npz"):
         checkpoint_path += ".npz"  # np.savez appends it regardless
     res = config.resolution
@@ -234,8 +290,16 @@ def render(
         )
 
     t_start = time.perf_counter()
-    prep = prepare_render(scene, res, dev)
-    k = pass_size(prep.route, spp, config.samples_per_pass)
+    prep = prepare_render(scene, res, dev, backend=backend)
+    chunk = 0
+    if prep.route == "wavefront":
+        if prep.mode == "fast":
+            check_fp32_matmul(dev)
+        k, chunk = wavefront_pass(npix, spp, config.samples_per_pass, prep.mode,
+                                  prep.bufs["tri_v"].shape[0], config.pixel_chunk)
+    else:
+        k = pass_size(prep.route, spp, config.samples_per_pass)
+    npix_pad = -(-npix // chunk) * chunk if chunk else npix
     portal_v1 = prep.route == "portal" and bool(
         os.environ.get("PT_TPU_PORTAL_V1"))
     if portal_v1 and checkpoint_path and checkpoint_every:
@@ -258,10 +322,14 @@ def render(
             rr_start_depth=config.rr_start_depth, device=dev)
         stats.extra["portal_runner"] = "v1" if portal_v1 else "v2"
     else:
-        # Z-order lanes; accum lives in permuted order until finalize
+        # Z-order lanes; accum lives in permuted order until finalize. Pad
+        # lanes of the last wavefront chunk redo pixel 0; their rows are
+        # cropped at the end.
         perm, inv_perm = morton_pixel_order(res.width, res.height)
-        perm_dev = torch.from_numpy(perm).to(dev)
-    accum = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+        perm_dev = torch.zeros(npix_pad, dtype=torch.int32)
+        perm_dev[:npix] = torch.from_numpy(perm)
+        perm_dev = perm_dev.to(dev)
+    accum = torch.zeros((npix_pad, 3), dtype=torch.float32, device=dev)
     samples_done = 0
     pass_start = 0
 
@@ -278,8 +346,9 @@ def render(
             )
             if int(ck[name]) != want
         ]
-        if ck["accum"].shape != (npix, 3):
-            mismatches.append(f"accum shape {ck['accum'].shape} != {(npix, 3)}")
+        if ck["accum"].shape != (npix_pad, 3):
+            mismatches.append(
+                f"accum shape {ck['accum'].shape} != {(npix_pad, 3)} (chunking)")
         mid_pass = "mid_pass" in ck.files and int(ck["mid_pass"])
         if mid_pass and runner is None:
             mismatches.append("mid-pass checkpoint needs the portal route "
@@ -351,8 +420,8 @@ def render(
                 last_image_t = time.perf_counter()
                 last_image_cost = last_image_t - now
         elif progress_snapshots and samples_done > 0:
-            partial = integrator.finalize(accum, samples_done).cpu().numpy()
-            img = Image.new(unpermute(partial), res)
+            partial = integrator.finalize(accum[:npix], samples_done)
+            img = Image.new(unpermute(partial.cpu().numpy()), res)
         progress(RenderUpdate(
             progress=min((samples_done + extra_samples) / spp, 1.0), image=img,
             samples_done=samples_done, stats=stats,
@@ -407,11 +476,22 @@ def render(
         if runner is not None:
             accum, rays = runner(accum, pass_idx, k_pass)
             return rays
-        accum, rays = integrator.render_pass(
-            prep, accum, perm_dev, seed=config.seed, sample_base=pass_idx * k,
-            quota=k_pass, max_depth=config.max_depth,
-            rr_start_depth=config.rr_start_depth)
+        kw = dict(seed=config.seed, sample_base=pass_idx * k, quota=k_pass,
+                  max_depth=config.max_depth,
+                  rr_start_depth=config.rr_start_depth)
+        if prep.route != "wavefront":
+            accum, rays = integrator.render_pass(prep, accum, perm_dev, **kw)
+            return rays
+        rays = 0
+        for start in range(0, npix_pad, chunk or npix_pad):
+            accum, r = integrator.render_pass(
+                prep, accum, perm_dev, cam=cam, width=res.width,
+                height=res.height, mock_random=config.mock_random,
+                literal=literal, pixel_chunk=chunk, chunk_start=start, **kw)
+            rays = rays + r
         return rays
+
+    cam = camera_arrays(scene.camera)
 
     # ---- pass schedule: full passes of k samples, then one remainder pass ----
     schedule = [(i, k) for i in range(pass_start, full_passes)]
@@ -426,7 +506,11 @@ def render(
             break
         current_k_pass = k_pass
         ray_handles.append(run_pass(pass_idx, k_pass))
-        stats.num_dispatches += 1
+        stats.num_dispatches += npix_pad // chunk if chunk else 1
+        if debug_nans and not bool(torch.isfinite(accum).all()):
+            raise FloatingPointError(
+                f"non-finite radiance in the accumulator after pass {pass_idx} "
+                f"({int((~torch.isfinite(accum)).any(dim=1).sum())} pixels)")
         if runner is not None and runner.last_cancelled:
             # cancelled mid-pass by freeze-and-drain: every started sample
             # is in accum, runner.last_partial_counts holds the counts
@@ -463,7 +547,7 @@ def render(
         final = _partial_image(accum, torch.zeros_like(accum), cnt,
                                samples_done, npix)
     else:
-        final = integrator.finalize(accum, max(samples_done, 1))
+        final = integrator.finalize(accum[:npix], max(samples_done, 1))
     final_np = final.cpu().numpy()
     drain_rays()
     duration = time.perf_counter() - t_start

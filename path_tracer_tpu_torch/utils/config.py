@@ -5,8 +5,11 @@ limits match the GUI: res_y default 300 (width = res_y*3/2), spp default
 100, res_y in [1,2000], spp in [1,10000].
 
 The device is not part of the configuration: ``render`` takes it as an
-explicit argument. The JAX package's XLA-only knobs (``backend``,
-``pixel_chunk``, ``f32_precision``) have no counterpart here.
+explicit argument. ``backend`` picks the wavefront integrator (``exact``,
+``fast``; ``jnp`` means ``fast``) or the kernel routes (``auto``, ``mxu``,
+``pallas``) on either device. ``f32_precision`` takes only ``"highest"``:
+the fast form's matmuls stay float32 (no TF32), and the TPU's
+reduced-precision matmul passes (``"high"``, ``"default"``) are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ class Resolution:
 # Validation limits (main.rs:157-170)
 RES_Y_RANGE = (1, 2000)
 SPP_RANGE = (1, 10000)
+BACKENDS = ("auto", "jnp", "exact", "fast", "mxu", "pallas")
 
 
 @dataclass(frozen=True)
@@ -46,15 +50,29 @@ class RenderConfig:
 
     # RNG: the key of the counter-based generator (ops.rng)
     seed: int = 0
-    # MOCK_RANDOM fixture and the literal estimator are wavefront-integrator
-    # modes; render() raises NotImplementedError for them (ROADMAP Slice 1b)
+    # MOCK_RANDOM fixture (mod.rs:31-55); a wavefront-integrator mode, as
+    # is the literal estimator: both switch a kernel route to "fast"
     mock_random: bool = False
+    # "shipped": t > 1e-4 + departed-triangle exclusion; "literal": the
+    # reference's t > 0 acceptance (mod.rs:592)
     estimator: str = "shipped"
 
-    samples_per_pass: int = 0  # 0 = min(spp, 256)
+    # Execution: "auto" | "mxu" | "pallas" (the kernel routes), "exact" |
+    # "fast" | "jnp" (the wavefront integrator)
+    backend: str = "auto"
+    samples_per_pass: int = 0  # 0 = auto (per route)
+    pixel_chunk: int = 0  # wavefront pixels per dispatch; 0 = auto
+    f32_precision: str = "highest"  # the only value ported
     validate: bool = False  # enforce GUI ranges
 
     def validated(self) -> "RenderConfig":
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
+        if self.f32_precision != "highest":
+            raise ValueError(
+                f"f32_precision {self.f32_precision!r}: only 'highest' is "
+                "supported; the TPU's reduced-precision matmul passes are not "
+                "ported (the fast form's matmuls stay float32, never TF32)")
         if self.estimator not in ("shipped", "literal"):
             raise ValueError(
                 f"estimator must be 'shipped' or 'literal', got {self.estimator!r}"

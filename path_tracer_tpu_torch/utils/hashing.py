@@ -1,9 +1,10 @@
 """Image content hashing.
 
-Counterpart of ``path_tracer_tpu.utils.hashing`` without the native
-library: a cheap, deterministic digest over the f32 bit patterns of all
-pixels (or the bytes of a uint8 preview frame), used as a
-cache-invalidation key. Only self-consistency matters.
+Counterpart of ``path_tracer_tpu.utils.hashing`` (role parity with
+``hash_vec_of_vectors``, ``mod.rs:916-926``): a cheap, deterministic
+digest over the f32 bit patterns of all pixels, used as a
+cache-invalidation key by viewers. FNV-1a 64-bit through the native
+runtime; only self-consistency matters.
 """
 
 from __future__ import annotations
@@ -12,13 +13,35 @@ import hashlib
 
 import numpy as np
 
+FNV_OFFSET = 0xCBF29CE484222325
+FNV_PRIME = 0x100000001B3
+MASK64 = (1 << 64) - 1
+
 
 def hash_image(pixels: np.ndarray) -> int:
-    """blake2b digest over the f32 bit patterns of all components."""
+    """Digest over the f32 bit patterns of all components.
+
+    Native path: FNV-1a (C++). Python fallback: blake2b — FNV is
+    byte-sequential and a Python loop costs seconds per megapixel frame (the
+    hash is a cache key, so the two paths need not agree with each other)."""
+    from path_tracer_tpu_torch.native import native_hash_image
+
+    native = native_hash_image(np.asarray(pixels, np.float32))
+    if native is not None:
+        return native
     data = np.ascontiguousarray(pixels, np.float32).tobytes()
     return int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(), "little")
 
 
 def hash_bytes(data: bytes) -> int:
-    """blake2b digest over raw bytes (the uint8 preview frames)."""
+    """Content digest over raw bytes (uint8 preview frames). blake2b: the
+    frames are small (~100 KB) and only self-consistency matters."""
     return int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(), "little")
+
+
+def fnv1a(data: bytes) -> int:
+    """Reference FNV-1a 64 (the tests hold the native hash to it)."""
+    h = FNV_OFFSET
+    for b in data:
+        h = ((h ^ b) * FNV_PRIME) & MASK64
+    return h

@@ -9,8 +9,9 @@ The scene is prepared with ``regen=False``, as the JAX package's preview
 does, so the routes are camera-free (``pipeline.prepare_render``): scenes
 of at most 128 primitives trace through K5, every other scene through K6,
 whose camera entries (``trace_v2.trace_camera``, ``trace_kernel.
-trace_camera``) make the frame's camera rays in the kernel. A camera move
-re-uploads nothing. The frame's pixel and sample indices are made once
+trace_camera``) make the frame's camera rays in the kernel. ``backend``
+``exact`` or ``fast`` (``pipeline.resolve_backend``) runs the frames on the
+wavefront integrator instead. A camera move re-uploads nothing. The frame's pixel and sample indices are made once
 (``integrator.pass_rays``); a frame adds its sample base.
 
 Frame f traces the global samples ``f * spp_per_frame ..``, each drawing
@@ -47,7 +48,7 @@ class ProgressiveRenderer:
     """Accumulates samples frame by frame on ``device``; ``reset()`` or
     ``move_camera()`` restart it. ``device`` defaults to ``"cuda"`` and
     raises when CUDA is missing; ``"cpu"`` runs the kernels' plain
-    versions."""
+    versions. ``backend`` as ``RenderConfig.backend``."""
 
     def __init__(
         self,
@@ -56,6 +57,7 @@ class ProgressiveRenderer:
         spp_per_frame: int = 2,
         seed: int = 0,
         max_depth: int = 12,
+        backend: str = "auto",
         device="cuda",
     ):
         self.scene = scene
@@ -65,7 +67,8 @@ class ProgressiveRenderer:
         self.max_depth = max_depth
         self.device = resolve_device(device)
         self._lock = threading.Lock()
-        self.prep = prepare_render(scene, resolution, self.device, regen=False)
+        self.prep = prepare_render(scene, resolution, self.device, regen=False,
+                                   backend=backend)
         self._pixels = torch.arange(
             resolution.num_pixels, dtype=torch.int32, device=self.device)
         self._rays = integrator.pass_rays(self._pixels, spp_per_frame)

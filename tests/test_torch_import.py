@@ -1,7 +1,7 @@
-"""The port imports and renders (cornell through K1's plain version, mesh
-through the v2 portal scheduler, its glue route and the v1 scheduler) and
-imports its viewer app without jax, the JAX package or an imaging
-library."""
+"""The port imports and renders (cornell through K1's plain version and
+the wavefront integrator, mesh through the v2 portal scheduler, its glue
+route and the v1 scheduler) and imports its viewer app, raster preview and
+native runtime without jax, the JAX package or an imaging library."""
 
 import subprocess
 import sys
@@ -22,6 +22,10 @@ done = pt.render(scene, RenderConfig(samples_per_pixel=4,
                  resolution=Resolution(8, 12)), device="cpu", out_dir=None,
                  verbose=False)
 assert done.image.pixels.shape == (96, 3) and done.stats.num_rays > 0
+wave = pt.render(scene, RenderConfig(samples_per_pixel=4, backend="fast",
+                 resolution=Resolution(8, 12)), device="cpu", out_dir=None,
+                 verbose=False)
+assert wave.stats.extra["route"] == "wavefront" and wave.stats.num_rays > 0
 mesh = pt.load_scene("mesh", "scenes", "meshes")
 done = pt.render(mesh, RenderConfig(samples_per_pixel=1,
                  resolution=Resolution(4, 6)), device="cpu", out_dir=None,
@@ -46,6 +50,9 @@ import path_tracer_tpu_torch.ops.kernels.portal
 import path_tracer_tpu_torch.render.drive
 import path_tracer_tpu_torch.render.portal
 import path_tracer_tpu_torch.viewer.app
+import path_tracer_tpu_torch.viewer.raster
+import path_tracer_tpu_torch.native
+import path_tracer_tpu_torch.utils.profiling
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu", "PIL")]
 print("LOADED", bad)

@@ -317,14 +317,3 @@ def test_preview_needs_cuda_when_asked(repo_root):
     _, ts = load_both("cornell", repo_root)
     with pytest.raises(RuntimeError, match="cuda"):
         ProgressiveRenderer(ts, tpt.Resolution(4, 6))
-
-
-@pytest.mark.parametrize("what", ["literal", "mock_random"])
-def test_off_slice_sample_options_raise(repo_root, what):
-    _, ts = load_both("cornell", repo_root)
-    prep = t_pipeline.prepare_render(ts, tpt.Resolution(4, 6), "cpu", regen=False)
-    pix = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Slice 1b"):
-        integrator.render_samples(
-            prep, t_raygen.camera_arrays(ts.camera), pix, pix, seed=0, width=6,
-            height=4, **{what: True})

@@ -147,18 +147,6 @@ def test_pass_sample_base_is_pass_index_times_pass_size(repo_root):
     np.testing.assert_allclose(one.image.pixels, plain.image.pixels, atol=1e-6)
 
 
-@pytest.mark.parametrize("what", ["literal", "mock_random"])
-def test_off_slice_render_options_raise(repo_root, what):
-    cfg = tpt.RenderConfig(samples_per_pixel=1, resolution=tpt.Resolution(4, 6))
-    if what == "literal":
-        cfg = cfg.with_(estimator="literal")
-    if what == "mock_random":
-        cfg = cfg.with_(mock_random=True)
-    with pytest.raises(NotImplementedError, match="Slice 1b"):
-        tpt.render(_cornell(repo_root), cfg, device="cpu", out_dir=None,
-                   verbose=False)
-
-
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--daemon"]])
 def test_off_slice_cli_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="Slice 4"):

@@ -1293,8 +1293,7 @@ OPS_FRAMES = 5  # frames of step_u8 under torch.profiler, phase 6
 
 def device_ops_per_frame(step) -> float:
     """Device operations (kernels, copies, fills: torch.profiler's CUDA
-    events, as scripts/profile_torch_preview.py counts them) a frame of
-    ``step``, over OPS_FRAMES frames."""
+    events) a frame of ``step``, over OPS_FRAMES frames."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

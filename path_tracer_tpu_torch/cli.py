@@ -6,7 +6,8 @@ elapsed and estimated h:mm:ss. ``--device`` picks the device (default
 ``cuda``); without CUDA the CLI stops with an error instead of rendering on
 the CPU. ``--backend`` ``exact`` or ``fast`` (``jnp``) renders on the
 wavefront integrator, ``auto``, ``mxu`` and ``pallas`` on the kernel routes;
-``--profile DIR`` writes a torch.profiler Chrome trace to DIR/trace.json;
+``--profile DIR`` writes a torch.profiler Chrome trace to DIR/trace.json,
+the program's ``pt.*`` spans (``utils.profiling.span``) beside the kernels;
 ``--debug-nans`` stops with an error when the accumulator holds a
 non-finite value after a pass.
 

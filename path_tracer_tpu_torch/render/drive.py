@@ -19,6 +19,10 @@ are [done, quota), resumable through ``thaw_pool``.
 The poll batching tiers are the JAX package's, tuned for a ~25 ms round
 trip to a remote TPU; they are kept as they are until they are measured on
 the card.
+
+While a profiler runs (``utils.profiling``), each batch of cycles is a
+``portal.issue`` span, each poll a ``portal.wait`` and each compaction or
+redistribution a ``portal.compact``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from path_tracer_tpu_torch.ops.kernels.portal import (
     ROW_ALIVE, ROW_PREV, V2_ROW_DONE, V2_ROW_PIX, V2_ROW_QUOTA, V3_ROW_STARTED,
 )
+from path_tracer_tpu_torch.utils import profiling
 
 #: outcome values of a drive
 DONE = "done"
@@ -176,11 +181,13 @@ def drive_loop(
                 max_depth=max_depth, batch_polls=batch_polls,
             )
             first_poll = False
-            pool, r, unfin_raw = run_cycles(pool, cycle, steps)
+            with profiling.span("portal.issue", steps):
+                pool, r, unfin_raw = run_cycles(pool, cycle, steps)
             rays = rays + r
             cycle += steps
             inflight.append(unfin_raw)
-        u, u_ladder = poll(inflight.pop(0))
+        with profiling.span("portal.wait"):
+            u, u_ladder = poll(inflight.pop(0))
         polls += 1
         if draining is None and on_check is not None:
             kw = {}
@@ -208,16 +215,17 @@ def drive_loop(
                 f"progress)")
         if draining is not None:
             continue  # no compaction while draining (frozen_quota aligned)
-        moved = compact_fn(pool, u_ladder)
-        if moved is not None:
-            stage, pool = moved
-            stages.append(stage)
-        elif redistribute_fn is not None and pool.shape[1] - u >= max(
-            2048, pool.shape[1] // 16
-        ):
-            if flush is None:
-                flush = new_flush()
-            pool, flush = redistribute_fn(pool, flush)
+        with profiling.span("portal.compact"):
+            moved = compact_fn(pool, u_ladder)
+            if moved is not None:
+                stage, pool = moved
+                stages.append(stage)
+            elif redistribute_fn is not None and pool.shape[1] - u >= max(
+                2048, pool.shape[1] // 16
+            ):
+                if flush is None:
+                    flush = new_flush()
+                pool, flush = redistribute_fn(pool, flush)
 
 
 def drained_slot_state(pool, frozen_quota):

@@ -47,6 +47,7 @@ from path_tracer_tpu_torch.ops.bsdf import sample_bsdf
 from path_tracer_tpu_torch.ops.intersect import EPS_TRI_T, intersect_scene
 from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
 from path_tracer_tpu_torch.render.raygen import camera_rays, generate_rays
+from path_tracer_tpu_torch.utils import profiling
 
 WAVEFRONT_MODES = ("exact", "fast")
 
@@ -255,7 +256,9 @@ def render_pass(prep, accum: torch.Tensor, pixel_perm: torch.Tensor, *,
             prep.kscene, prep.cam, pixel_perm, **kw)
     else:
         raise ValueError(f"render_pass has no {prep.route!r} route")
-    if not bool((done == quota).all()):
+    with profiling.span("render.check.wait"):
+        exact = bool((done == quota).all())
+    if not exact:
         raise RuntimeError(
             f"per-pixel sample counts differ from the pass quota {quota}: "
             f"min {int(done.min())}, max {int(done.max())}")

@@ -53,6 +53,13 @@ the JAX package resolves ``auto`` to ``fast``.
 The device is an explicit argument: ``"cuda"`` launches the CUDA kernels
 (and runs the wavefront on the card), ``"cpu"`` runs their plain torch
 versions. Nothing falls back from one to the other.
+
+While a profiler runs, a render is a unit of ``utils.profiling``'s spans:
+``render`` around the call, and inside it ``render.prepare``,
+``render.upload``, one ``render.pass`` a pass, ``render.wait`` (a sync that
+only a traced render makes, so the device's tail shows apart from the
+host's), ``render.fetch``, ``render.finish`` (unpermute, the image's hash),
+``render.ppm`` and ``render.checkpoint``.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ from path_tracer_tpu_torch.render.raygen import camera_arrays
 from path_tracer_tpu_torch.render.portal import (
     make_portal_pass_runner, make_portal_pass_runner_v2,
 )
+from path_tracer_tpu_torch.utils import profiling
 from path_tracer_tpu_torch.utils.config import BACKENDS, RenderConfig, Resolution
 from path_tracer_tpu_torch.utils.profiling import RenderStats
 
@@ -168,6 +176,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@profiling.spanned("render.prepare")
 def prepare_render(scene: SceneDescriptor, resolution: Resolution, device,
                    *, regen: bool = True, backend: str = "auto") -> Prepared:
     """Pick the route as the JAX package's prepare_scene_and_mode does and
@@ -251,6 +260,7 @@ def _partial_image(accum, rad, cnt, samples_done: int, npix: int):
     return torch.clamp((accum[:npix] + rad[:npix]) / total[:, None], 0.0, 1.0)
 
 
+@profiling.spanned("render", unit="render")
 def render(
     scene: SceneDescriptor,
     config: RenderConfig,
@@ -310,26 +320,27 @@ def render(
     stats = RenderStats()
     stats.extra["route"] = prep.route
 
-    runner = None
-    perm_dev = inv_perm = None
-    if prep.route == "portal":
-        # accum in pixel order: stages add into it by their pix rows
-        make_runner = (make_portal_pass_runner if portal_v1
-                       else make_portal_pass_runner_v2)
-        runner = make_runner(
-            prep.portal, prep.cam, prep.kscene, npix=npix, k_full=k,
-            seed=config.seed, max_depth=config.max_depth,
-            rr_start_depth=config.rr_start_depth, device=dev)
-        stats.extra["portal_runner"] = "v1" if portal_v1 else "v2"
-    else:
-        # Z-order lanes; accum lives in permuted order until finalize. Pad
-        # lanes of the last wavefront chunk redo pixel 0; their rows are
-        # cropped at the end.
-        perm, inv_perm = morton_pixel_order(res.width, res.height)
-        perm_dev = torch.zeros(npix_pad, dtype=torch.int32)
-        perm_dev[:npix] = torch.from_numpy(perm)
-        perm_dev = perm_dev.to(dev)
-    accum = torch.zeros((npix_pad, 3), dtype=torch.float32, device=dev)
+    with profiling.span("render.upload"):
+        runner = None
+        perm_dev = inv_perm = None
+        if prep.route == "portal":
+            # accum in pixel order: stages add into it by their pix rows
+            make_runner = (make_portal_pass_runner if portal_v1
+                           else make_portal_pass_runner_v2)
+            runner = make_runner(
+                prep.portal, prep.cam, prep.kscene, npix=npix, k_full=k,
+                seed=config.seed, max_depth=config.max_depth,
+                rr_start_depth=config.rr_start_depth, device=dev)
+            stats.extra["portal_runner"] = "v1" if portal_v1 else "v2"
+        else:
+            # Z-order lanes; accum lives in permuted order until finalize. Pad
+            # lanes of the last wavefront chunk redo pixel 0; their rows are
+            # cropped at the end.
+            perm, inv_perm = morton_pixel_order(res.width, res.height)
+            perm_dev = torch.zeros(npix_pad, dtype=torch.int32)
+            perm_dev[:npix] = torch.from_numpy(perm)
+            perm_dev = perm_dev.to(dev)
+        accum = torch.zeros((npix_pad, 3), dtype=torch.float32, device=dev)
     samples_done = 0
     pass_start = 0
 
@@ -452,20 +463,21 @@ def render(
             # quota) give the remaining per-slot ranges [done, quota). The
             # current pass's rays so far stay with the runner: num_rays in
             # the file is a floor.
-            drain_rays()
-            np.savez(
-                checkpoint_path,
-                accum=accum_dev.cpu().numpy(),
-                samples_done=samples_done,
-                next_pass=pass_idx,
-                seed=config.seed, spp=spp, npix=npix, k=k,
-                num_rays=stats.num_rays,
-                mid_pass=1,
-                cycle0=int(runner.last_pause_cycles),
-                slot_layout=runner.slot_layout,
-                slot_pix=slot_rows[0], slot_done=slot_rows[1],
-                slot_quota=slot_rows[2],
-            )
+            with profiling.span("render.checkpoint"):
+                drain_rays()
+                np.savez(
+                    checkpoint_path,
+                    accum=accum_dev.cpu().numpy(),
+                    samples_done=samples_done,
+                    next_pass=pass_idx,
+                    seed=config.seed, spp=spp, npix=npix, k=k,
+                    num_rays=stats.num_rays,
+                    mid_pass=1,
+                    cycle0=int(runner.last_pause_cycles),
+                    slot_layout=runner.slot_layout,
+                    slot_pix=slot_rows[0], slot_done=slot_rows[1],
+                    slot_quota=slot_rows[2],
+                )
             ck_state["t"] = time.monotonic()
 
         runner.set_hooks(on_check=portal_hook,
@@ -505,8 +517,10 @@ def render(
             cancelled = True
             break
         current_k_pass = k_pass
-        ray_handles.append(run_pass(pass_idx, k_pass))
-        stats.num_dispatches += npix_pad // chunk if chunk else 1
+        with profiling.span("render.pass", k_pass):
+            ray_handles.append(run_pass(pass_idx, k_pass))
+        if runner is None:  # a portal render's count is its cycles'
+            stats.num_dispatches += npix_pad // chunk if chunk else 1
         if debug_nans and not bool(torch.isfinite(accum).all()):
             raise FloatingPointError(
                 f"non-finite radiance in the accumulator after pass {pass_idx} "
@@ -525,20 +539,22 @@ def render(
         if checkpoint_path and checkpoint_every and (
             (pass_idx + 1) % checkpoint_every == 0
         ):
-            drain_rays()  # the snapshot stores the count up to this pass
-            np.savez(
-                checkpoint_path,
-                accum=accum.cpu().numpy(),
-                samples_done=samples_done,
-                next_pass=pass_idx + 1,
-                seed=config.seed,
-                spp=spp,
-                npix=npix,
-                k=k,
-                num_rays=stats.num_rays,
-            )
+            with profiling.span("render.checkpoint"):
+                drain_rays()  # the snapshot stores the count up to this pass
+                np.savez(
+                    checkpoint_path,
+                    accum=accum.cpu().numpy(),
+                    samples_done=samples_done,
+                    next_pass=pass_idx + 1,
+                    seed=config.seed,
+                    spp=spp,
+                    npix=npix,
+                    k=k,
+                    num_rays=stats.num_rays,
+                )
 
     # ---- finalize ----
+    profiling.sync_span("render.wait", dev)
     if cancelled and runner is not None and runner.last_partial_counts is not None:
         # normalize each pixel by its exact retired count: completed passes
         # plus the cancelled pass's ragged counts
@@ -548,20 +564,26 @@ def render(
                                samples_done, npix)
     else:
         final = integrator.finalize(accum[:npix], max(samples_done, 1))
-    final_np = final.cpu().numpy()
+    with profiling.span("render.fetch"):
+        final_np = final.cpu().numpy()
     drain_rays()
     duration = time.perf_counter() - t_start
     stats.wall_seconds = duration
     if runner is not None:
         stats.extra.update(cycles=runner.total_cycles, polls=runner.total_polls)
+        # two launches a cycle: K2 and K3 (or K7) on v2, K8 and K7 on v1
+        stats.num_dispatches = 2 * runner.total_cycles
 
-    image = Image.new(unpermute(final_np), res)
+    with profiling.span("render.finish"):
+        image = Image.new(unpermute(final_np), res)
     if verbose:
         print("Rendering complete" if not cancelled else "Rendering cancelled")
 
     ppm_path = None
     if out_dir is not None:
-        ppm_path = write_ppm(image, scene.id, spp, duration, out_dir=out_dir)
+        with profiling.span("render.ppm"):
+            ppm_path = write_ppm(image, scene.id, spp, duration,
+                                 out_dir=out_dir)
 
     if checkpoint_path and not cancelled and os.path.exists(checkpoint_path):
         os.remove(checkpoint_path)

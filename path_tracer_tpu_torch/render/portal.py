@@ -53,6 +53,7 @@ from path_tracer_tpu_torch.ops.kernels.trace_kernel import (
     make_raygen, path_uniforms, trace_resolve,
 )
 from path_tracer_tpu_torch.render import drive
+from path_tracer_tpu_torch.utils import profiling
 
 F32 = torch.float32
 CHEAP_BLOCK = 2048  # pool widths are multiples of this
@@ -469,7 +470,8 @@ def merge_stages(accum, stages, flush):
     for st in list(stages) + ([_flush_stage(flush)] if flush is not None else []):
         pix = st[V2_ROW_PIX].to(torch.int64)
         keep = pix < npix  # the flush stage covers max(pool width, npix) rows
-        accum.index_add_(0, pix[keep], st[ROW_ACC:ROW_ACC + 3].T[keep])
+        with profiling.span("portal.merge.wait"):  # the masks' sizes sync
+            accum.index_add_(0, pix[keep], st[ROW_ACC:ROW_ACC + 3].T[keep])
     return accum
 
 
@@ -542,30 +544,31 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
             rays = rays + res.rays
             pass_runner.total_cycles += res.cycles - cycle0
             pass_runner.total_polls += res.polls
-            merge_stages(accum, res.stages, res.flush)
-            if res.outcome == drive.DONE:
-                return accum, rays
-            if res.outcome == drive.CANCEL:
-                _, cnt = _snapshot_stages(
-                    tuple(res.stages), res.flush,
-                    out_rows=max(npix, res.stages[0].shape[1]))
-                if cnt_pass is not None:
-                    cnt[:npix] += cnt_pass[:npix]
-                pass_runner.last_cancelled = True
-                pass_runner.last_partial_counts = cnt[:npix]
-                return accum, rays
-            # PAUSE: the radiance is merged; persist the slot rows and go on
-            live = res.stages[-1]
-            delta = _retired_counts(
-                tuple(res.stages[:-1]), res.flush,
-                out_rows=max(npix, live.shape[1]), device=live.device)[:npix]
-            cnt_pass = delta if cnt_pass is None else cnt_pass + delta
-            if hooks["on_pause"] is not None:
-                pass_runner.last_pause_cycles = res.cycles
-                slot_rows = drive.drained_slot_state(live, res.frozen_quota)
-                hooks["on_pause"](accum, slot_rows, pass_idx, k_pass)
-            pool = drive.thaw_pool(live, res.frozen_quota, park_k=park_k)
-            cycle0 = res.cycles
+            with profiling.span("portal.merge"):
+                merge_stages(accum, res.stages, res.flush)
+                if res.outcome == drive.DONE:
+                    return accum, rays
+                if res.outcome == drive.CANCEL:
+                    _, cnt = _snapshot_stages(
+                        tuple(res.stages), res.flush,
+                        out_rows=max(npix, res.stages[0].shape[1]))
+                    if cnt_pass is not None:
+                        cnt[:npix] += cnt_pass[:npix]
+                    pass_runner.last_cancelled = True
+                    pass_runner.last_partial_counts = cnt[:npix]
+                    return accum, rays
+                # PAUSE: the radiance is merged; persist the slot rows and go on
+                live = res.stages[-1]
+                delta = _retired_counts(
+                    tuple(res.stages[:-1]), res.flush,
+                    out_rows=max(npix, live.shape[1]), device=live.device)[:npix]
+                cnt_pass = delta if cnt_pass is None else cnt_pass + delta
+                if hooks["on_pause"] is not None:
+                    pass_runner.last_pause_cycles = res.cycles
+                    slot_rows = drive.drained_slot_state(live, res.frozen_quota)
+                    hooks["on_pause"](accum, slot_rows, pass_idx, k_pass)
+                pool = drive.thaw_pool(live, res.frozen_quota, park_k=park_k)
+                cycle0 = res.cycles
 
     pass_runner.last_cancelled = False
     pass_runner.last_partial_counts = None

@@ -1,46 +1,164 @@
-"""Timing and throughput instrumentation.
+"""Instrumentation: the render statistics, spans on the device trace's
+clock, and the CLI's profiler trace.
 
-Counterpart of ``path_tracer_tpu.utils.profiling``: wall-clock scopes
-(``Timer``, ``timed``), the render statistics (Mray/s is the headline
-metric: traced ray segments per wall second), and ``profiler_trace``, a
-``torch.profiler`` trace written as a Chrome trace (the JAX package's
-``jax.profiler`` trace).
+Counterpart of ``path_tracer_tpu.utils.profiling``: the render statistics
+(Mray/s is the headline metric: traced ray segments per wall second) and
+``profiler_trace``, a ``torch.profiler`` trace written as a Chrome trace
+(the JAX package's ``jax.profiler`` trace).
+
+Spans are on exactly while a torch profiler runs (the CLI's ``--profile
+DIR``, or any ``torch.profiler.profile`` around the calls) and cost one
+flag read otherwise. ``span(name)`` then opens a host range ``pt.<name>``
+on the profiler's timeline, so a gap in the device's work is labelled by
+the span the host was in, and appends a record to an in-memory log
+(``spans()``). Each record belongs to a unit, the call it was part of:
+``("render", n)`` for a ``render()``, ``("frame", renderer, n)`` for a
+preview frame. A span whose name ends in ``.wait`` blocks on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+
+def tracing() -> bool:
+    """Whether a torch profiler records: the flag its start sets and its
+    stop clears."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Off:
+    """The span while no profiler runs: one shared object that does
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, typ, val, tb):
+        return None
+
+
+_OFF = _Off()
+
 
 @dataclass
-class Timer:
-    name: str = ""
-    elapsed: float = 0.0
-    _start: float | None = None
+class SpanRecord:
+    """A span: ``start_ns`` and ``end_ns`` from ``time.perf_counter_ns``
+    (``end_ns`` 0 while it is open), ``parent`` the index in ``spans()`` of
+    the span it opened in on its thread (-1: none), ``size`` its amount of
+    work where it has one (a pass's samples, a batch's cycles)."""
 
-    def start(self) -> "Timer":
-        self._start = time.perf_counter()
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    unit: tuple | None
+    size: int | None
+
+
+_spans: list[SpanRecord] = []
+_lock = threading.Lock()
+_local = threading.local()
+_unit_ids = itertools.count()
+
+
+def _stack() -> list[int]:
+    st = getattr(_local, "stack", None)
+    if st is None:
+        st = _local.stack = []
+    return st
+
+
+class _Span:
+    __slots__ = ("name", "size", "unit", "index", "range")
+
+    def __init__(self, name, size, unit):
+        self.name, self.size, self.unit = name, size, unit
+
+    def __enter__(self):
+        st = _stack()
+        unit = self.unit
+        if unit is None:
+            unit = _spans[st[-1]].unit if st else None
+        elif isinstance(unit, str):
+            unit = (unit, next(_unit_ids))
+        rec = SpanRecord(self.name, 0, 0, st[-1] if st else -1, unit, self.size)
+        with _lock:
+            self.index = len(_spans)
+            _spans.append(rec)
+        st.append(self.index)
+        self.range = _RecordFunctionFast("pt." + self.name)
+        self.range.__enter__()
+        rec.start_ns = time.perf_counter_ns()
         return self
 
-    def stop(self) -> float:
-        if self._start is not None:
-            self.elapsed += time.perf_counter() - self._start
-            self._start = None
-        return self.elapsed
+    def __exit__(self, *exc):
+        _spans[self.index].end_ns = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        _stack().pop()
+        return False
 
 
-@contextlib.contextmanager
-def timed(name: str = "", verbose: bool = False):
-    t = Timer(name).start()
-    try:
-        yield t
-    finally:
-        t.stop()
-        if verbose:
-            print(f"Elapsed time ({name}): {t.elapsed:.4f}s")
+def span(name: str, size: int | None = None, unit: tuple | str | None = None):
+    """A context manager around the host's work ``name``. While a profiler
+    runs: a host range ``pt.<name>`` and a record in ``spans()`` with
+    ``size``, in ``unit`` when it is a tuple, in a new unit ``(unit, n)``
+    when it is a str, else in the unit of the span it opens in. Otherwise
+    one shared no-op, with nothing built."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, size, unit)
+
+
+def spanned(name: str, unit: str | None = None):
+    """A decorator: each call of the function inside ``span(name, None,
+    unit)`` while a profiler runs, a plain call otherwise."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def traced(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name, None, unit):
+                return fn(*args, **kwargs)
+
+        return traced
+
+    return wrap
+
+
+def sync_span(name: str, device) -> None:
+    """While a profiler runs, a span ``name`` (a ``.wait``) around a sync of
+    ``device``'s current stream, so that the device's tail of a call shows
+    apart from the host's work after it. Otherwise nothing at all."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with span(name):
+        if torch.device(device).type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+
+
+def spans() -> list[SpanRecord]:
+    """The span log, in the order the spans opened."""
+    return _spans
+
+
+def clear() -> None:
+    """Empty the span log (with no span open)."""
+    with _lock:
+        _spans.clear()
 
 
 TRACE_FILE = "trace.json"
@@ -48,14 +166,12 @@ TRACE_FILE = "trace.json"
 
 @contextlib.contextmanager
 def profiler_trace(log_dir: str | None):
-    """Capture a torch.profiler trace (host, and the card's kernels when
-    CUDA is present) into ``log_dir``/trace.json, a Chrome trace, when
-    log_dir is given."""
+    """Capture a torch.profiler trace (host, with the ``pt.*`` spans, and
+    the card's kernels when CUDA is present) into ``log_dir``/trace.json,
+    a Chrome trace, when log_dir is given."""
     if not log_dir:
         yield
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -67,10 +183,12 @@ def profiler_trace(log_dir: str | None):
 
 @dataclass
 class RenderStats:
-    """Accumulated over a render: wall time, samples, traced ray segments."""
+    """Accumulated over a render: wall time, samples, traced ray segments
+    and dispatches: the program's kernel launches on the kernel routes (one
+    a pass on ``regen`` and ``prim``, two a cycle on the portal
+    schedulers), the pixel chunks of every pass on the wavefront."""
 
     wall_seconds: float = 0.0
-    device_seconds: float = 0.0
     num_samples: int = 0  # camera samples (pixels x spp)
     num_rays: int = 0  # traced ray segments (sum of live lanes per step)
     num_dispatches: int = 0

@@ -30,6 +30,7 @@ neither.
 
 from __future__ import annotations
 
+import itertools
 import threading
 
 import numpy as np
@@ -41,6 +42,7 @@ from path_tracer_tpu_torch.render import integrator
 from path_tracer_tpu_torch.render.image import Image
 from path_tracer_tpu_torch.render.pipeline import prepare_render, resolve_device
 from path_tracer_tpu_torch.render.raygen import camera_arrays
+from path_tracer_tpu_torch.utils import profiling
 from path_tracer_tpu_torch.utils.config import Resolution
 
 
@@ -48,7 +50,13 @@ class ProgressiveRenderer:
     """Accumulates samples frame by frame on ``device``; ``reset()`` or
     ``move_camera()`` restart it. ``device`` defaults to ``"cuda"`` and
     raises when CUDA is missing; ``"cpu"`` runs the kernels' plain
-    versions. ``backend`` as ``RenderConfig.backend``."""
+    versions. ``backend`` as ``RenderConfig.backend``.
+
+    While a profiler runs, each frame is a unit of ``utils.profiling``'s
+    spans, ``("frame", renderer, n)``, n counting this renderer's frames;
+    a camera move belongs to the frame after it."""
+
+    _ids = itertools.count()
 
     def __init__(
         self,
@@ -67,6 +75,8 @@ class ProgressiveRenderer:
         self.max_depth = max_depth
         self.device = resolve_device(device)
         self._lock = threading.Lock()
+        self._id = next(self._ids)
+        self._unit = ("frame", self._id, 0)  # the next frame's span unit
         self.prep = prepare_render(scene, resolution, self.device, regen=False,
                                    backend=backend)
         self._pixels = torch.arange(
@@ -91,10 +101,13 @@ class ProgressiveRenderer:
 
     def step(self) -> Image:
         """Render one frame's worth of samples; returns the running image."""
-        with self._lock:
-            self._advance_locked()
-            img = integrator.finalize(self._accum, self.samples_done)
-            return Image.new(img.cpu().numpy(), self.resolution)
+        with self._lock, profiling.span("preview.frame", None, self._unit):
+            with profiling.span("preview.issue"):
+                self._advance_locked()
+                img = integrator.finalize(self._accum, self.samples_done)
+            with profiling.span("preview.fetch"):
+                pixels = img.cpu().numpy()
+            return Image.new(pixels, self.resolution)
 
     def step_u8(self) -> np.ndarray:
         """One frame, fetched gamma-quantized as uint8 ``[npix, 3]``: gamma
@@ -102,12 +115,14 @@ class ProgressiveRenderer:
         to_int_with_gamma_correction``, float64 pow), byte-equal to
         ``quantize_np`` of the running image, and the frame crosses to the
         host at one byte a channel."""
-        with self._lock:
-            self._advance_locked()
-            img8 = tonemap.to_int_with_gamma_correction(
-                integrator.finalize(self._accum, self.samples_done)
-            ).to(torch.uint8)
-            return img8.cpu().numpy()
+        with self._lock, profiling.span("preview.frame", None, self._unit):
+            with profiling.span("preview.issue"):
+                self._advance_locked()
+                img8 = tonemap.to_int_with_gamma_correction(
+                    integrator.finalize(self._accum, self.samples_done)
+                ).to(torch.uint8)
+            with profiling.span("preview.fetch"):
+                return img8.cpu().numpy()
 
     def _advance_locked(self) -> None:
         res = self.resolution
@@ -118,8 +133,9 @@ class ProgressiveRenderer:
             quota=self.spp_per_frame, max_depth=self.max_depth,
             cam=self._cam, width=res.width, height=res.height, rays=self._rays)
         self._frame += 1
+        self._unit = ("frame", self._id, self._unit[2] + 1)
 
     def move_camera(self, camera) -> None:
-        with self._lock:
+        with self._lock, profiling.span("preview.move", None, self._unit):
             self.scene.camera = camera
             self._reset_locked()

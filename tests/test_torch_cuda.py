@@ -34,6 +34,9 @@ Whether FMA contraction moves images: K1 at 512 spp, the v2 portal render
 of a random portal scene and K5's preview, each against the CPU render of
 the same seed, within a quarter of the CPU's noise between two seeds.
 
+The program's spans under a profiler with CUDA activity: host ranges
+only, none on the device timeline.
+
 Tolerance of the default build: at least 99.5% of pixels (K2, K3: pool
 columns) within |Δ|₁ < 1e-3, channel means within rtol 1e-3 and atol 1e-3,
 per-pixel sample counts exactly equal to the quota, segment totals within
@@ -306,6 +309,45 @@ def test_cuda_render_matches_cpu_render(cuda_device):
     noise = np.abs(cpu1.image.pixels - cpu.image.pixels).mean()
     assert same <= 0.25 * noise, (same, noise)
     assert gpu.stats.num_rays == pytest.approx(cpu.stats.num_rays, rel=5e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_spans_stay_off_the_device_timeline(cuda_device):
+    """Under a profiler with CUDA activity, a portal render's and a preview
+    frame's ``pt.*`` spans are host ranges only: no user annotation and no
+    CUDA-side event of the name, so a device trace counts none of them as
+    device work. The render's ``num_dispatches`` equals its K2 and K3
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from path_tracer_tpu_torch.utils import profiling
+
+    mesh = _scene("mesh")
+    cfg = RenderConfig(samples_per_pixel=16, resolution=Resolution(36, 48))
+    tpt.render(mesh, cfg, device=cuda_device, out_dir=None, verbose=False)
+    r = ProgressiveRenderer(mesh, Resolution(36, 48), device=cuda_device)
+    r.step_u8()
+    k2, k3 = portal.trace_cheap_regen.launches, portal.trace_resolve_pool.launches
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        done = tpt.render(mesh, cfg, device=cuda_device, out_dir=None,
+                          verbose=False)
+        r.move_camera(r.scene.camera)
+        r.step_u8()
+    names = {s.name for s in profiling.spans()}
+    profiling.clear()
+    assert {"render", "render.wait", "portal.issue", "portal.wait",
+            "preview.move", "preview.frame", "preview.fetch"} <= names
+    events = prof.events()
+    host = [e for e in events
+            if e.name.startswith("pt.") and e.device_type == DeviceType.CPU]
+    assert host and not any(e.is_user_annotation for e in host)
+    assert not [e.name for e in events if e.name.startswith("pt.")
+                and e.device_type == DeviceType.CUDA]
+    launches = (portal.trace_cheap_regen.launches - k2
+                + portal.trace_resolve_pool.launches - k3)
+    assert done.stats.num_dispatches == launches == 2 * done.stats.extra["cycles"]
 
 
 @pytest.mark.cuda

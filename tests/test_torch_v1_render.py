@@ -14,12 +14,14 @@ the image against the JAX package within Monte Carlo noise.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import path_tracer_tpu as jpt
 import path_tracer_tpu_torch as tpt
 from path_tracer_tpu_torch.ops.kernels import trace_kernel as t_tk
 from path_tracer_tpu_torch.render import pipeline as t_pipeline
 from path_tracer_tpu_torch.render import portal as t_rp
+from path_tracer_tpu_torch.utils import profiling
 from tests.test_torch_host import load_both
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
@@ -145,10 +147,17 @@ def test_v1_checkpointing_caps_passes_at_64_spp(mesh, monkeypatch, tmp_path):
     monkeypatch.setenv("PT_TPU_PORTAL_V1", "1")
     cfg = tpt.RenderConfig(samples_per_pixel=128,
                            resolution=tpt.Resolution(2, 3), max_depth=1)
-    plain = _render(mesh, cfg)
-    ck = _render(mesh, cfg, checkpoint_path=str(tmp_path / "c.npz"),
-                 checkpoint_every=1)
-    assert (plain.stats.num_dispatches, ck.stats.num_dispatches) == (1, 2)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):  # logs the render.pass spans
+        plain = _render(mesh, cfg)
+        ck = _render(mesh, cfg, checkpoint_path=str(tmp_path / "c.npz"),
+                     checkpoint_every=1)
+    passes = {}
+    for s in profiling.spans():
+        if s.name == "render.pass":
+            passes.setdefault(s.unit, []).append(s.size)
+    profiling.clear()
+    assert list(passes.values()) == [[128], [64, 64]]
     assert plain.stats.num_samples == ck.stats.num_samples == 128 * 6
 
 

@@ -307,13 +307,27 @@ class ScenePacked:
         }
 
 
+def _unit_normals(v: np.ndarray) -> np.ndarray:
+    """e1 x e2 over its length for triangles [n, 3, 3] float32, left as it is
+    where the length is 0 (zero-area triangles). Each row's squared length
+    is a [1,3] @ [3,1] product: numpy hands that to BLAS's dot, as it does
+    ``np.dot(n, n)`` of one row, so the bits are the JAX package's per-row
+    ones; ``(n * n).sum(-1)`` rounds differently in ~10% of random rows. A
+    length past float32's range is inf, as the per-row dot gives it, but
+    silently."""
+    n = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]).astype(np.float32)
+    with np.errstate(over="ignore"):
+        norm = np.sqrt(n[:, None, :] @ n[:, :, None])[:, 0]
+    return np.divide(n, norm, out=n.copy(), where=norm > 0)
+
+
 def pack_scene(
     scene: SceneDescriptor, sphere_pad: int = 8, tri_pad: int = 32
 ) -> ScenePacked:
     """Flatten a scene into ScenePacked (see class docstring for layout)."""
     n_obj = len(scene.objects)
     spheres: list[tuple] = []  # (center, radius, mat, order, obj_idx)
-    tris: list[tuple] = []  # (verts[3,3], mat, order, obj_idx, mesh_idx)
+    meshes: list[tuple] = []  # (verts[n,3,3], mat, order, obj_idx, mesh_idx)
     bounds: list[tuple] = []  # (center, radius)
 
     # Reversed object order = the reference's scan order; `order` is the rank
@@ -331,11 +345,12 @@ def pack_scene(
                 )
             )
             moved = obj.mesh.triangles + obj.position[None, None, :]
-            for t in moved.astype(np.float32):
-                tris.append((t, obj.material, order, obj_idx, mesh_idx))
+            meshes.append((moved.astype(np.float32), obj.material, order,
+                           obj_idx, mesh_idx))
+    n_tris = sum(len(m[0]) for m in meshes)
 
     S = max(_round_up(len(spheres), sphere_pad), sphere_pad)
-    T = max(_round_up(len(tris), tri_pad), tri_pad)
+    T = max(_round_up(n_tris, tri_pad), tri_pad)
     M = max(_round_up(len(bounds), sphere_pad), sphere_pad)
 
     sph_center = np.full((S, 3), FAR_AWAY, np.float32)
@@ -362,19 +377,18 @@ def pack_scene(
     tri_order = np.full(T, 2**30, np.int32)
     tri_obj = np.full(T, -1, np.int32)
     tri_mesh = np.full(T, M - 1 if len(bounds) < M else 0, np.int32)
-    for i, (v, mat, order, obj_idx, mesh_idx) in enumerate(tris):
-        tri_v[i] = v
-        e1 = v[1] - v[0]
-        e2 = v[2] - v[0]
-        n = np.cross(e1, e2).astype(np.float32)
-        norm = np.float32(np.sqrt(np.dot(n, n)))
-        tri_normal[i] = n / norm if norm > 0 else n
-        tri_color[i] = mat.color
-        tri_emis[i] = mat.emission
-        tri_rtype[i] = int(mat.reflect_type)
-        tri_order[i] = order
-        tri_obj[i] = obj_idx
-        tri_mesh[i] = mesh_idx
+    i = 0
+    for v, mat, order, obj_idx, mesh_idx in meshes:
+        rows = slice(i, i + len(v))
+        i += len(v)
+        tri_v[rows] = v
+        tri_normal[rows] = _unit_normals(v)
+        tri_color[rows] = mat.color
+        tri_emis[rows] = mat.emission
+        tri_rtype[rows] = int(mat.reflect_type)
+        tri_order[rows] = order
+        tri_obj[rows] = obj_idx
+        tri_mesh[rows] = mesh_idx
 
     bnd_center = np.full((M, 3), FAR_AWAY, np.float32)
     bnd_radius = np.zeros(M, np.float32)
@@ -384,7 +398,7 @@ def pack_scene(
 
     return ScenePacked(
         num_spheres=len(spheres),
-        num_triangles=len(tris),
+        num_triangles=n_tris,
         num_meshes=len(bounds),
         num_objects=n_obj,
         sph_center=sph_center,

@@ -72,6 +72,57 @@ _ONE_MINUS_R0 = float(np.float32(1.0) - _R0)
 _INV_IOR = float(np.float32(1.0 / 1.5))
 
 
+def _eq3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Exact equality of the 3-vectors on the last axis (broadcast)."""
+    return ((a[..., 0] == b[..., 0]) & (a[..., 1] == b[..., 1])
+            & (a[..., 2] == b[..., 2]))
+
+
+def quad_pair_arrays(packed: ScenePacked) -> tuple[np.ndarray, np.ndarray]:
+    """``detect_quad_pairs`` as arrays: the pairs' first packed indices,
+    ascending [Q] int64, and their rotated vertices [Q, 3, 3] float32.
+
+    Vertices compare by exact float32 equality (``-0.0 == 0.0``, a NaN
+    equals nothing), as the loop's tuple sets compare them. A pair (i, i+1)
+    is a candidate when it shares mesh, color, emission and reflect type,
+    exactly one vertex of A is not among B's (the corner p0, followed by p1
+    and p2 in A's cyclic order), exactly one vertex of B is neither p1 nor
+    p2, and that vertex equals p1 + p2 - p0 in float32. The loop takes
+    candidates greedily from the left, each consuming its partner: within a
+    run of consecutive candidates starting at s, those at an even distance
+    from s."""
+    nt = packed.num_triangles
+    if nt < 2:
+        return np.zeros(0, np.int64), np.zeros((0, 3, 3), np.float32)
+    tv = np.asarray(packed.tri_v[:nt], np.float32)
+    color = np.asarray(packed.tri_color[:nt])
+    emis = np.asarray(packed.tri_emis[:nt])
+    rtype = np.asarray(packed.tri_rtype[:nt])
+    mesh = np.asarray(packed.tri_mesh[:nt])
+    A, B = tv[:-1], tv[1:]
+    cand = ((mesh[:-1] == mesh[1:]) & (rtype[:-1] == rtype[1:])
+            & _eq3(color[:-1], color[1:]) & _eq3(emis[:-1], emis[1:]))
+    # same[p, k, l]: vertex k of A equals vertex l of B
+    same = _eq3(A[:, :, None], B[:, None])
+    uniq_a = ~same.any(2)
+    cand &= uniq_a.sum(1) == 1
+    k = uniq_a.argmax(1)
+    rows = np.arange(nt - 1)
+    rot = A[rows[:, None], (k[:, None] + np.arange(3)) % 3]  # p0, p1, p2
+    p0, p1, p2 = rot[:, 0], rot[:, 1], rot[:, 2]
+    uniq_b = ~(_eq3(B, p1[:, None]) | _eq3(B, p2[:, None]))
+    cand &= uniq_b.sum(1) == 1
+    q = p1 + p2 - p0  # f32 arithmetic, exact-match required
+    cand &= _eq3(B[rows, uniq_b.argmax(1)], q)
+    # greedy pairing: the distance of each candidate from its run's start
+    idx = np.flatnonzero(cand)
+    starts = np.ones(len(idx), bool)
+    starts[1:] = idx[1:] != idx[:-1] + 1
+    run_start = idx[starts][np.cumsum(starts) - 1]
+    first = idx[(idx - run_start) % 2 == 0]
+    return first, np.ascontiguousarray(rot[first])
+
+
 def detect_quad_pairs(packed: ScenePacked):
     """Find consecutive triangle pairs (in packed order) that form a
     parallelogram with identical material — collapsible into ONE quad
@@ -87,41 +138,12 @@ def detect_quad_pairs(packed: ScenePacked):
     exact f32 (conservative: approximate quads stay as triangles).
 
     Returns (quads, covered): quads maps first-triangle packed index →
-    rotated [3,3] vertices; covered is the set of consumed indices."""
-    nt = packed.num_triangles
-    tv = np.asarray(packed.tri_v[:nt], np.float32)
-    color = np.asarray(packed.tri_color[:nt])
-    emis = np.asarray(packed.tri_emis[:nt])
-    rtype = np.asarray(packed.tri_rtype[:nt])
-    mesh = np.asarray(packed.tri_mesh[:nt])
-    quads: dict[int, np.ndarray] = {}
-    covered: set[int] = set()
-    i = 0
-    while i + 1 < nt:
-        j = i + 1
-        if (
-            mesh[i] == mesh[j]
-            and np.array_equal(color[i], color[j])
-            and np.array_equal(emis[i], emis[j])
-            and rtype[i] == rtype[j]
-        ):
-            A, B = tv[i], tv[j]
-            bset = {tuple(v) for v in B}
-            uniq = [k for k in range(3) if tuple(A[k]) not in bset]
-            if len(uniq) == 1:
-                k = uniq[0]
-                p0, p1, p2 = A[k], A[(k + 1) % 3], A[(k + 2) % 3]
-                shared = {tuple(p1), tuple(p2)}
-                uniq_b = [tuple(v) for v in B if tuple(v) not in shared]
-                q = p1 + p2 - p0  # f32 arithmetic, exact-match required
-                if len(uniq_b) == 1 and np.array_equal(
-                    np.asarray(uniq_b[0], np.float32), q
-                ):
-                    quads[i] = np.stack([p0, p1, p2])
-                    covered.update((i, j))
-                    i += 2
-                    continue
-        i += 1
+    rotated [3,3] vertices; covered is the set of consumed indices
+    (``quad_pair_arrays`` finds them)."""
+    first, verts = quad_pair_arrays(packed)
+    keys = first.tolist()
+    quads = dict(zip(keys, verts))
+    covered = set(keys) | {i + 1 for i in keys}
     return quads, covered
 
 
@@ -421,31 +443,32 @@ def kernel_scene_buffers(packed: ScenePacked) -> dict[str, np.ndarray]:
             contained = False
             break
 
-    quads, covered = detect_quad_pairs(sc)
-    keep = [i for i in range(sc.num_triangles)
-            if i not in covered or i in quads]
+    first, quad_v = quad_pair_arrays(sc)
+    keep_mask = np.ones(sc.num_triangles, bool)
+    keep_mask[first + 1] = False  # a pair's second triangle is consumed
+    keep = np.flatnonzero(keep_mask)
+    quad_rows = np.searchsorted(keep, first)
     nt = len(keep)
     T = max(((nt + 7) // 8) * 8, 8)
 
-    def collapse(src, fill, verts=False):
+    def collapse(src, fill):
         a = np.asarray(src, np.float32)
         out = np.full((T,) + a.shape[1:], fill, np.float32)
-        for row, i in enumerate(keep):
-            out[row] = quads[i] if (verts and i in quads) else a[i]
+        out[:nt] = a[keep]
         return out
 
-    tri_v = collapse(sc.tri_v, 1e30, verts=True)
+    tri_v = collapse(sc.tri_v, 1e30)
+    tri_v[quad_rows] = quad_v
     tri_normal = collapse(sc.tri_normal, 0.0)
     tri_color = collapse(sc.tri_color, 0.0)
     tri_emis = collapse(sc.tri_emis, 0.0)
     tri_rtype = collapse(sc.tri_rtype, 0.0)
     tri_order = collapse(np.minimum(np.asarray(sc.tri_order), 2**24), 1.0e9)
     tri_quad = np.zeros(T, np.float32)
+    tri_quad[quad_rows] = 1.0
     tri_pid = np.full(T, -2.0, np.float32)
-    for row, i in enumerate(keep):
-        tri_quad[row] = 1.0 if i in quads else 0.0
-        tri_pid[row] = float(i)
-    tri_mesh_c = np.asarray(sc.tri_mesh)[keep] if nt else np.zeros(0, np.int64)
+    tri_pid[:nt] = keep
+    tri_mesh_c = np.asarray(sc.tri_mesh)[keep]
 
     tiles = None
     if contained and nt > TILE_THRESHOLD:
@@ -486,18 +509,20 @@ def kernel_scene_buffers(packed: ScenePacked) -> dict[str, np.ndarray]:
         tri_quad = reorder(tri_quad)
         tri_pid = reorder(tri_pid, -2.0)
 
+        # each tile's box over its real rows (padding rows sit at 1e30);
         # slop keeps the cull conservative under float32 rounding
+        verts = tri_v[base_pad:].reshape(C, TRI_TILE, 3, 3)
+        real = verts[:, :, 0, 0] < 1e29
+        inside = real[:, :, None, None]
+        v_lo = np.where(inside, verts, np.inf).min(axis=(1, 2))
+        v_hi = np.where(inside, verts, -np.inf).max(axis=(1, 2))
+        v_abs = np.where(inside, np.abs(verts), 0.0).max(axis=(1, 2, 3))
+        slop = np.maximum(v_hi - v_lo, v_abs[:, None]) * 1e-5 + 1e-6
+        filled = real.any(axis=1)
         tile_lo = np.full((C, 3), 1e30, np.float32)
         tile_hi = np.full((C, 3), -1e30, np.float32)
-        for c in range(C):
-            verts = tri_v[base_pad + c * TRI_TILE: base_pad + (c + 1) * TRI_TILE]
-            verts = verts[verts[:, 0, 0] < 1e29].reshape(-1, 3)
-            if len(verts) == 0:
-                continue
-            span = verts.max(0) - verts.min(0)
-            slop = np.maximum(span, np.abs(verts).max()) * 1e-5 + 1e-6
-            tile_lo[c] = verts.min(axis=0) - slop
-            tile_hi[c] = verts.max(axis=0) + slop
+        tile_lo[filled] = (v_lo - slop)[filled]
+        tile_hi[filled] = (v_hi + slop)[filled]
         tiles = (tile_lo, tile_hi)
 
     coeffs = triangle_coeffs_np(tri_v)
@@ -530,8 +555,7 @@ def kernel_scene_buffers(packed: ScenePacked) -> dict[str, np.ndarray]:
         bufs["tile_hi"] = prep(tile_hi, tile_hi.shape[0])
     if not contained:
         gate = np.zeros((M, T), np.float32)
-        for t in range(nt):
-            gate[tri_mesh_c[t], t] = 1.0
+        gate[tri_mesh_c, np.arange(nt)] = 1.0
         bufs["bnd_center"] = prep(sc.bnd_center, M, 1e30)
         bufs["bnd_rad2"] = prep(np.asarray(sc.bnd_radius) ** 2, M)
         bufs["gate"] = gate
@@ -645,9 +669,11 @@ def kernel_scene_from_jax(bufs: dict) -> KernelScene:
     if "aabb_lo" in bufs:
         box = {k: tuple(float(x) for x in np.asarray(bufs[k], np.float32).ravel())
                for k in ("aabb_lo", "aabb_inv_span")}
+    hit = np.zeros((T, HIT_F), np.float32)
+    hit[:, :len(HIT_COLS)] = tri[:, HIT_COLS]
     return KernelScene(torch.from_numpy(sph), torch.from_numpy(bnd),
                        torch.from_numpy(tri), torch.from_numpy(tiles),
-                       int(tile_base), **box)
+                       int(tile_base), **box, hit=torch.from_numpy(hit))
 
 
 def build_kernel_scene(packed: ScenePacked) -> KernelScene:

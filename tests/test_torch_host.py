@@ -173,9 +173,189 @@ def lone_triangle_scene(pkg):
 SYNTH = {"gated": gated_scene, "lone-triangle": lone_triangle_scene}
 
 
-@pytest.mark.parametrize("sid", SCENE_IDS)
+# Scenes for the host builders' array forms (pack_scene, detect_quad_pairs,
+# kernel_scene_buffers, build_portal_consts): each a list of meshes
+# (triangles, position, material) that both packages build alike.
+def _material(pkg, color=0.8, emis=0.0, rtype="DIFFUSE"):
+    return pkg.Material(np.full(3, color, np.float32),
+                        np.full(3, emis, np.float32),
+                        getattr(pkg.ReflectType, rtype))
+
+
+def _random_tris(seed, n, lo=-1.0, hi=1.0):
+    """n triangles with every vertex uniform in [lo, hi]^3: float32
+    mantissas in full, where a reassociated normal length shows."""
+    g = np.random.default_rng(seed)
+    return g.uniform(lo, hi, (n, 3, 3)).astype(np.float32)
+
+
+def _strip(n, origin, u, v):
+    """The first n triangles of a strip of parallelograms along u, v:
+    (a_m, b_m, a_m+1), (b_m, b_m+1, a_m+1), ... with a_m = origin + m*u and
+    b_m = a_m + v in float32. Every consecutive pair is a quad candidate
+    where the float32 sums are exact, so the candidates overlap in one run
+    of n - 1."""
+    o, u, v = (np.asarray(x, np.float32) for x in (origin, u, v))
+    a = [o + np.float32(m) * u for m in range(n // 2 + 2)]
+    b = [x + v for x in a]
+    tris = []
+    for m in range(n // 2 + 1):
+        tris += [(a[m], b[m], a[m + 1]), (b[m], b[m + 1], a[m + 1])]
+    return np.asarray(tris[:n], np.float32)
+
+
+def _pair(p0, p1, p2, q=None):
+    """A parallelogram split into (p0, p1, p2) and (p1, q, p2), q = p1 + p2
+    - p0 in float32 unless given."""
+    p0, p1, p2 = (np.asarray(x, np.float32) for x in (p0, p1, p2))
+    q = p1 + p2 - p0 if q is None else np.asarray(q, np.float32)
+    return np.asarray([(p0, p1, p2), (p1, q, p2)], np.float32)
+
+
+def _random_mesh(pkg):
+    return [(_random_tris(15, 3000), (0.5, 0.25, -3.0), _material(pkg))]
+
+
+def _strips(pkg):
+    axis = ((0.25, 0.0, 0.0), (0.0, 0.75, 0.0))
+    skew = ((0.1, 0.2, 0.3), (0.7, 0.5, 0.25))  # inexact sums: pairs fail
+    return [
+        (np.concatenate([_strip(4, (0, 0, 0), *axis),  # runs of 3 and 6
+                         _strip(7, (0, 2, 0), *axis)]), (0, 0, 0),
+         _material(pkg)),
+        (np.concatenate([_strip(5, (0, 4, 0), *axis),  # runs of 4 and 5
+                         _strip(6, (0, 6, 0), *axis)]), (0, 0, 0),
+         _material(pkg, 0.5)),
+        (np.concatenate([_strip(2, (3, 0, 0), *axis), _strip(3, (3, 2, 0), *axis),
+                         _strip(1, (3, 4, 0), *axis)]), (0, 0, 0),
+         _material(pkg, 0.3)),
+        (_strip(12, (0.3, 0.1, 0.7), *skew), (0, 0, 0), _material(pkg, 0.6)),
+    ]
+
+
+def _material_pairs(pkg):
+    """Five parallelograms, each split into two triangles, in one mesh
+    (the first object), and one whose triangles lie in two meshes of one
+    material, next to each other in packed order. One mesh has one
+    material, so ``edit_material_pairs`` gives the second triangles of the
+    mesh's pairs 1, 2 and 3 another color, emission and reflect type in the
+    packed scene; pairs 0 and 4 collapse."""
+    tris = np.concatenate([_pair((k, 0, 0), (k + 1, 0, 0), (k, 1, 0))
+                           for k in range(0, 10, 2)])
+    split = _pair((0, 3, 0), (1, 3, 0), (0, 4, 0))
+    return [(tris, (0, 0, 0), _material(pkg)),
+            (split[:1], (0, 0, 0), _material(pkg)),
+            (split[1:], (0, 0, 0), _material(pkg))]
+
+
+def edit_material_pairs(packed):
+    rows = np.flatnonzero(packed.tri_obj == 0)
+    packed.tri_color[rows[3]] *= np.float32(0.5)
+    packed.tri_emis[rows[5]] = np.float32(1.0)
+    packed.tri_rtype[rows[7]] = 2
+
+
+def _ulp_pair(pkg):
+    p0, p1, p2 = (np.float32([0.1, 0.2, 0.3]), np.float32([1.7, 0.2, 0.3]),
+                  np.float32([0.1, 1.3, 0.9]))
+    q = p1 + p2 - p0
+    off = q.copy()
+    off[1] = np.nextafter(q[1], np.float32(np.inf))
+    return [(np.concatenate([_pair(p0, p1, p2, off),
+                             _pair(p0 + 3, p1 + 3, p2 + 3)]), (0, 0, 0),
+             _material(pkg))]
+
+
+def _degenerate(pkg):
+    a, b, c = ([0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    tris = np.asarray([
+        [[0, 0, 0], [1, 1, 1], [2, 2, 2]],  # zero area, distinct vertices
+        [[0, 0, 0], [1, 1, 1], [2, 2, 2]],  # the same again
+        [a, a, b], [a, a, a],  # repeated vertices
+        [a, b, b], [b, c, b],  # A (a, b, b) against B (b, c, b)
+        [a, b, b], [b, [2, 0, 0], [2, 0, 0]],  # B's p1 + p2 - p0 twice
+        [a, b, c], [b, c, c],  # B has no vertex outside A's edge
+        [a, b, c], [[1, 1, 0], [1, 1, 0], b],  # B's vertex outside twice
+        *_pair([0, 0, 5], [1, 0, 5], [2, 0, 5]),  # a collinear "parallelogram"
+        *_pair([0, 0, 6], [0, 0, 6], [1, 0, 6]),  # a corner repeated
+    ], np.float32)
+    return [(tris, (0, 0, 0), _material(pkg))]
+
+
+def _signed_zeros(pkg):
+    """Shared vertices stored as 0.0 in one triangle and -0.0 in its
+    partner (the position -0.0 keeps the signs through the offset)."""
+    z = np.float32(-0.0)
+    p0, p1, p2 = ([1.0, 1.0, 0.0], [0.0, 1.0, 0.0], [1.0, 0.0, 0.0])
+    tris = np.asarray([
+        (p0, p1, p2), ([z, 1.0, z], [0.0, 0.0, z], [1.0, z, 0.0]),
+        ([z, z, z], [1.0, z, z], [2.0, z, z]),  # zero area in -0.0
+        ([0, 0, 2], [1, 0, 2], [0, 1, 2]), ([1, 0, 2], [1, 1, 2], [z, 1, 2]),
+    ], np.float32)
+    return [(tris, (z, z, z), _material(pkg))]
+
+
+def _two_offset_meshes(pkg):
+    """A mesh its bounding sphere holds and one whose buggy sphere leaves a
+    corner out (gated), each moved by its position."""
+    return [(_random_tris(16, 250), (0.5, 0.25, -3.0), _material(pkg)),
+            (_random_tris(17, 40, 4.0, 10.0) * np.float32([1, -1, 0.5]),
+             (-2.0, 1.25, 0.75), _material(pkg, 0.4, 0.5))]
+
+
+PREP_SCENES = {
+    "random-mesh": _random_mesh, "strips": _strips,
+    "material-pairs": _material_pairs, "ulp-pair": _ulp_pair,
+    "degenerate": _degenerate, "signed-zeros": _signed_zeros,
+    "two-offset-meshes": _two_offset_meshes,
+}
+
+
+def prep_scene(pkg, sid, heavy=False):
+    """PREP_SCENES[sid] as a scene with a light; ``heavy`` adds a mesh of
+    100 random triangles when no mesh has PORTAL_MIN_TRIS (65), so that the
+    scene takes the portal route with the rest as its cheap scene."""
+    meshes = PREP_SCENES[sid](pkg)
+    if heavy and max(len(m[0]) for m in meshes) < 65:
+        meshes.append((_random_tris(18, 100), (0.0, 0.0, -2.0),
+                       _material(pkg)))
+    objs = [pkg.SceneObject.from_mesh(
+        np.asarray(pos, np.float32),
+        pkg.Mesh.from_triangles(np.asarray(tris, np.float32)), mat)
+        for tris, pos, mat in meshes]
+    objs.append(pkg.SceneObject.sphere(
+        np.array([6.0, -4.0, 4.0], np.float32), 1.5, _material(pkg, 0.0, 6.0)))
+    return pkg.SceneDescriptor(id="t", objects=objs,
+                               camera=pkg.Camera.looking([7.0, -4.0, 12.0],
+                                                         [0.0, 0.0, -1.0]))
+
+
+PACKED_EDITS = {"material-pairs": edit_material_pairs}
+
+
+def packed_both(sid, js, ts):
+    """pack_scene of the JAX and the port descriptor, each with
+    PACKED_EDITS[sid] applied."""
+    jp, tp = jpt.pack_scene(js), tpt.pack_scene(ts)
+    if sid in PACKED_EDITS:
+        PACKED_EDITS[sid](jp)
+        PACKED_EDITS[sid](tp)
+    return jp, tp
+
+
+def both_scenes(sid, repo_root, heavy=False):
+    """(JAX, port) descriptors of a scene file, a SYNTH or a PREP_SCENES
+    scene."""
+    if sid in SYNTH:
+        return SYNTH[sid](jpt), SYNTH[sid](tpt)
+    if sid in PREP_SCENES:
+        return prep_scene(jpt, sid, heavy), prep_scene(tpt, sid, heavy)
+    return load_both(sid, repo_root)
+
+
+@pytest.mark.parametrize("sid", SCENE_IDS + list(PREP_SCENES))
 def test_pack_scene_byte_equal(repo_root, sid):
-    js, ts = load_both(sid, repo_root)
+    js, ts = both_scenes(sid, repo_root)
     jp, tp = jpt.pack_scene(js), tpt.pack_scene(ts)
     jb, tb = jp.buffers(), tp.buffers()
     assert jb.keys() == tb.keys()
@@ -249,17 +429,11 @@ def test_morton_pixel_order_equal(wh):
     np.testing.assert_array_equal(ji, ti)
 
 
-def _both_small(sid, repo_root):
-    if sid in SYNTH:
-        return SYNTH[sid](jpt), SYNTH[sid](tpt)
-    return load_both(sid, repo_root)
-
-
 @pytest.mark.parametrize("sid", SMALL_IDS + list(SYNTH))
 def test_kernel_consts_bit_equal(repo_root, sid):
     """detect_quad_pairs, build_scene_consts and build_camera_consts: the
     port's tensors equal the JAX package's constants carried across."""
-    js, ts = _both_small(sid, repo_root)
+    js, ts = both_scenes(sid, repo_root)
     jp, tp = jpt.pack_scene(js), tpt.pack_scene(ts)
 
     jq, jc = j_tk.detect_quad_pairs(jp)
@@ -295,3 +469,44 @@ def test_mesh_scene_is_too_big_for_the_static_scan(repo_root):
     js, ts = load_both("mesh", repo_root)
     assert j_tv2.build_scene_consts(jpt.pack_scene(js)) is None
     assert t_tv2.build_scene_consts(tpt.pack_scene(ts)) is None
+
+
+def _prepared_tables(prep):
+    """Every table a Prepared holds, as CPU tensors."""
+    out = []
+    if prep.scene is not None:
+        out += [prep.scene.prims, prep.scene.gates]
+    if prep.kscene is not None:
+        ks = prep.kscene
+        out += [ks.sph, ks.bnd, ks.tri, ks.tiles, ks.hit]
+    if prep.portal is not None:
+        out += [prep.portal.scene.prims, prep.portal.scene.gates]
+    return [t.cpu() for t in out]
+
+
+def _same_tables(a, b):
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("sid", ["mesh", "cornell"])
+def test_prepare_render_rebuilds_its_tables_every_call(repo_root, sid):
+    """prepare_render keeps nothing across calls: on one descriptor, edited
+    in place between calls, a moved vertex of one triangle and then one
+    material's color each give other tables."""
+    _, ts = load_both(sid, repo_root)
+    res = tpt.Resolution(height=12, width=18)
+
+    def tables():
+        return _prepared_tables(t_pipeline.prepare_render(ts, res, "cpu"))
+
+    first = tables()
+    assert _same_tables(first, tables())
+    obj = max((o for o in ts.objects if not o.is_sphere),
+              key=lambda o: o.mesh.num_triangles)
+    tri = obj.mesh.triangles
+    tri[0, 0] = (tri[0, 0] + tri[0, 1] + tri[0, 2]) / np.float32(3.0)
+    moved = tables()
+    assert not _same_tables(first, moved)
+    obj.material.color = obj.material.color * np.float32(0.5)
+    assert not _same_tables(moved, tables())

@@ -2,7 +2,9 @@
 
 1. Host: ``build_portal_consts`` equal to the JAX package's (the cheap
    scene's tables, the padded AABB bit for bit) for every built-in scene
-   and the synthetic portal scene of tests/test_portal.py:529.
+   and the synthetic portal scene of tests/test_portal.py:529; it and
+   ``detect_quad_pairs`` also on the host builders' scenes
+   (``test_torch_host.PREP_SCENES``).
 2. K2 ``trace_cheap_regen_plain`` against the JAX ``trace_cheap_regen`` in
    interpret mode (PRNG stub: zeros; the port given a table of zeros), park
    depths 1 and 3, step cap 4, two successive calls from a fresh pool; K3
@@ -37,11 +39,14 @@ import torch
 import path_tracer_tpu as jpt
 import path_tracer_tpu_torch as tpt
 from path_tracer_tpu.ops.pallas import portal as j_pm
+from path_tracer_tpu.ops.pallas import trace_kernel as j_tk
 from path_tracer_tpu_torch.ops.kernels import portal as t_pm
 from path_tracer_tpu_torch.ops.kernels import trace_kernel as t_tk
 from path_tracer_tpu_torch.ops.kernels import trace_v2 as t_tv2
 from path_tracer_tpu_torch.render import portal as t_rp
-from tests.test_torch_host import SCENE_IDS, load_both
+from tests.test_torch_host import (
+    PREP_SCENES, SCENE_IDS, both_scenes, load_both, packed_both,
+)
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,8 +82,27 @@ def test_portal_consts_equal(repo_root, sid):
     t = t_pm.build_portal_consts(tpt.pack_scene(ts))
     assert (j is None) == (t is None)
     assert (t is not None) == (sid in ("mesh", "synth-portal"))
-    if t is None:
-        return
+    if t is not None:
+        _assert_portal_equal(j, t)
+
+
+@pytest.mark.parametrize("sid", list(PREP_SCENES))
+def test_quad_pairs_and_portal_consts_equal(repo_root, sid):
+    """detect_quad_pairs over the whole scene, and build_portal_consts,
+    whose cheap scene runs it again, equal the JAX package's; each scene
+    gets a heavy mesh where it has none, so that it takes the portal."""
+    jp, tp = packed_both(sid, *both_scenes(sid, repo_root, heavy=True))
+    jq, jc = j_tk.detect_quad_pairs(jp)
+    tq, tc = t_tk.detect_quad_pairs(tp)
+    assert jc == tc and list(jq) == list(tq)
+    for k in jq:
+        assert jq[k].dtype == tq[k].dtype and jq[k].tobytes() == tq[k].tobytes()
+    j, t = j_pm.build_portal_consts(jp), t_pm.build_portal_consts(tp)
+    assert j is not None and t is not None
+    _assert_portal_equal(j, t)
+
+
+def _assert_portal_equal(j, t):
     (jconsts, jheavy), (tconsts, theavy) = j, t
     assert jheavy == theavy
     want = t_pm.portal_consts_from_jax(jconsts)

@@ -31,7 +31,7 @@ from path_tracer_tpu.ops.pallas import trace_kernel as j_tk
 from path_tracer_tpu.ops.pallas import trace_v2 as j_tv2
 from path_tracer_tpu_torch.ops.kernels import trace_kernel as t_tk
 from path_tracer_tpu_torch.ops.kernels import trace_v2 as t_tv2
-from tests.test_torch_host import SYNTH, load_both
+from tests.test_torch_host import PREP_SCENES, both_scenes, load_both, packed_both
 from tests.test_torch_portal import synthetic_portal
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 from tests.test_torch_k4 import two_mesh_scene
@@ -41,22 +41,21 @@ LANE_FRAC = 0.995
 
 
 def _scenes(sid, repo_root):
-    if sid in SYNTH:
-        return SYNTH[sid](jpt), SYNTH[sid](tpt)
     if sid == "synth-portal":
         return synthetic_portal(jpt), synthetic_portal(tpt)
-    return load_both(sid, repo_root)
+    return both_scenes(sid, repo_root)
 
 
 def _lists(a):
     return [torch.from_numpy(np.ascontiguousarray(a[k])) for k in range(a.shape[0])]
 
 
-@pytest.mark.parametrize("sid", ["mesh", "cornell", "synth-portal", "gated"])
+@pytest.mark.parametrize(
+    "sid", ["mesh", "cornell", "synth-portal", "gated"] + list(PREP_SCENES))
 def test_kernel_scene_buffers_byte_equal(repo_root, sid):
-    js, ts = _scenes(sid, repo_root)
-    jb = j_tk.kernel_scene_buffers(jpt.pack_scene(js))
-    tb = t_tk.kernel_scene_buffers(tpt.pack_scene(ts))
+    jp, tp = packed_both(sid, *_scenes(sid, repo_root))
+    jb = j_tk.kernel_scene_buffers(jp)
+    tb = t_tk.kernel_scene_buffers(tp)
     assert set(jb) == set(tb)
     for k in jb:
         a = np.asarray(jb[k])
@@ -68,11 +67,15 @@ def test_kernel_scene_buffers_byte_equal(repo_root, sid):
     if sid == "gated":  # the bounding sphere leaves a corner out: gate matrix
         assert "gate" in tb and "tile_lo" not in tb
     ks_j = t_tk.kernel_scene_from_jax({k: np.asarray(v) for k, v in jb.items()})
-    ks_t = t_tk.build_kernel_scene(tpt.pack_scene(ts))
-    for a, b in zip((ks_j.sph, ks_j.bnd, ks_j.tri, ks_j.tiles),
-                    (ks_t.sph, ks_t.bnd, ks_t.tri, ks_t.tiles)):
+    ks_t = t_tk.build_kernel_scene(tp)
+    for a, b in zip((ks_j.sph, ks_j.bnd, ks_j.tri, ks_j.tiles, ks_j.hit),
+                    (ks_t.sph, ks_t.bnd, ks_t.tri, ks_t.tiles, ks_t.hit)):
         assert torch.equal(a, b)
     assert ks_j.tile_base == ks_t.tile_base
+    # the hit table built with the rows equals the one built from them
+    gathered = t_tk.KernelScene(ks_t.sph, ks_t.bnd, ks_t.tri, ks_t.tiles,
+                                ks_t.tile_base).hit
+    assert torch.equal(gathered, ks_t.hit)
 
 
 def _random_rays(g, n, packed):

@@ -343,6 +343,10 @@ def render(
         accum = torch.zeros((npix_pad, 3), dtype=torch.float32, device=dev)
     samples_done = 0
     pass_start = 0
+    # K3's segments, a share of num_rays, kept in a checkpoint beside it;
+    # None (-1 in the file) once a resume from a file without them leaves
+    # the render's count unknown
+    resolve_segments: int | None = 0
 
     def unpermute(arr: np.ndarray) -> np.ndarray:
         return arr if inv_perm is None else arr[inv_perm]
@@ -374,6 +378,9 @@ def render(
             samples_done = int(ck["samples_done"])
             pass_start = int(ck["next_pass"])
             stats.num_rays = int(ck["num_rays"])
+            got = (int(ck["resolve_segments"])
+                   if "resolve_segments" in ck.files else -1)
+            resolve_segments = got if got >= 0 else None
             stats.resumed_samples = samples_done
             if mid_pass:
                 # resume INTO pass `pass_start`: every remaining sample id
@@ -398,9 +405,17 @@ def render(
     ray_handles: list[torch.Tensor] = []
 
     def drain_rays():
-        nonlocal ray_handles
+        nonlocal ray_handles, resolve_segments
         if ray_handles:
-            stats.num_rays += int(torch.stack(ray_handles).sum().item())
+            counts = torch.stack(ray_handles)
+            if runner is not None and runner.resolve_table is not None:
+                # a v2 portal pass with K3 counts [K2's, the resolve's]
+                cheap, resolve = counts.sum(0).tolist()
+                stats.num_rays += cheap + resolve
+                if resolve_segments is not None:
+                    resolve_segments += resolve
+            else:
+                stats.num_rays += int(counts.sum().item())
         ray_handles = []
 
     last_update = 0.0
@@ -472,6 +487,8 @@ def render(
                     next_pass=pass_idx,
                     seed=config.seed, spp=spp, npix=npix, k=k,
                     num_rays=stats.num_rays,
+                    resolve_segments=(-1 if resolve_segments is None
+                                      else resolve_segments),
                     mid_pass=1,
                     cycle0=int(runner.last_pause_cycles),
                     slot_layout=runner.slot_layout,
@@ -551,6 +568,8 @@ def render(
                     npix=npix,
                     k=k,
                     num_rays=stats.num_rays,
+                    resolve_segments=(-1 if resolve_segments is None
+                                      else resolve_segments),
                 )
 
     # ---- finalize ----
@@ -571,6 +590,11 @@ def render(
     stats.wall_seconds = duration
     if runner is not None:
         stats.extra.update(cycles=runner.total_cycles, polls=runner.total_polls)
+        if runner.resolve_table is not None and resolve_segments is not None:
+            stats.extra.update(resolve_segments=resolve_segments,
+                               resolve_table=runner.resolve_table)
+            profiling.note("render.resolve", resolve_segments,
+                           runner.resolve_table)
         # two launches a cycle: K2 and K3 (or K7) on v2, K8 and K7 on v1
         stats.num_dispatches = 2 * runner.total_cycles
 

@@ -180,6 +180,16 @@ def portal_resolve_phase(pool, ks, *, seed: int, park_k: int, max_depth: int,
     return pool, rays, _unfinished(pool)
 
 
+def resolve_table(ks, device) -> str:
+    """Where K3 reads the compact hit table of ``ks`` from: ``"shared"``
+    (staged in a block's shared memory) or ``"global"`` (the read-only
+    path from device memory), as ``resolve_pool_config`` decides on the
+    current card; ``"plain"`` off the card, where the plain version runs."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "shared" if pm.resolve_pool_config(ks)["shared_table"] else "global"
+
+
 def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
                     seed: int, step_cap: int, park_k: int, max_depth: int,
                     rr_start_depth: int, pool_resolve: bool = True):
@@ -187,7 +197,8 @@ def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
     samples or step-capped, then the resolve phase (K3, or K7 and torch with
     ``pool_resolve=False``). A capped but unfrozen path just has its next
     segment traced by the full scene (which contains the cheap scene).
-    Returns (pool', segments traced, unfinished slots)."""
+    Returns (pool', segments traced, unfinished slots): the segments an
+    int64 [2] tensor, K2's and the resolve's, the slots a scalar tensor."""
     pool, c1 = trace_cheap_regen(
         pc, cam, pool, seed=seed, quota=quota, sample_base=sample_base,
         step_cap=step_cap, park_k=park_k, max_depth=max_depth,
@@ -195,7 +206,7 @@ def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
     pool, c2, unfin = portal_resolve_phase(
         pool, ks, seed=seed, park_k=park_k, max_depth=max_depth,
         rr_start_depth=rr_start_depth, pool_resolve=pool_resolve)
-    return pool, c1.sum(dtype=torch.int64) + c2, unfin
+    return pool, torch.stack([c1.sum(dtype=torch.int64), c2]), unfin
 
 
 def _redist_min(quota: int) -> int:
@@ -407,8 +418,10 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
 
     Returns the drive.DriveResult: its stages (the original pool and one per
     compaction) and its redistribution flush, merged by merge_stages,
-    reconstruct the retired radiance exactly. ``on_check(cycle, width,
-    unfin[, snapshot])`` is the poll hook (see render.drive)."""
+    reconstruct the retired radiance exactly; its rays are the segments
+    traced as portal_cycle_v2 counts them, [K2's, the resolve's].
+    ``on_check(cycle, width, unfin[, snapshot])`` is the poll hook (see
+    render.drive)."""
     step_cap = STEP_CAP
     pool_resolve = POOL_RESOLVE
     redist_min = _redist_min(k_pass)
@@ -483,7 +496,9 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
     every pixel slot a quota of k_pass samples (global indices pass_idx *
     k_full ..), cycles the pool until every slot retires its quota, adds the
     retired radiance into accum [npix, 3] (pixel order) and returns (accum,
-    segments traced).
+    segments traced), the segments an int64 [2] tensor: K2's and the
+    resolve's. ``.resolve_table`` says where the last pass's K3 read its
+    rows (``resolve_table``), None where the glue branch resolved.
 
     on_check(cycle, width, unfin): the poll hook. Falsy continues; "pause"
     asks for a mid-pass checkpoint; any other truthy value cancels. Both
@@ -528,7 +543,9 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
             pool = make_pool_v2(npix, n_pad, k_pass, park_k=park_k,
                                 device=device)
 
-        rays = torch.zeros((), dtype=torch.int64, device=device)
+        pass_runner.resolve_table = (resolve_table(ks, device)
+                                     if POOL_RESOLVE else None)
+        rays = torch.zeros(2, dtype=torch.int64, device=device)
         cnt_pass = None  # retired counts of stages merged at pauses
         while True:
             res = drive_pool_v2(
@@ -577,6 +594,7 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
     pass_runner.last_pause_cycles = 0
     pass_runner.total_cycles = 0  # cycles and polls over every pass
     pass_runner.total_polls = 0
+    pass_runner.resolve_table = None
     pass_runner.set_hooks = set_hooks
     pass_runner.total_slots = npix
     pass_runner.slot_layout = "single"
@@ -726,6 +744,7 @@ def make_portal_pass_runner(pc, cam, ks, *, npix: int, k_full: int,
     pass_runner.last_cancelled = False  # v1 cancels only between passes
     pass_runner.last_partial_counts = None
     pass_runner.last_counts = None
+    pass_runner.resolve_table = None  # K7 resolves, not K3
     pass_runner.total_cycles = 0  # cycles and polls over every pass
     pass_runner.total_polls = 0
     pass_runner.total_slots = npix

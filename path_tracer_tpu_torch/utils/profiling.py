@@ -14,6 +14,9 @@ the span the host was in, and appends a record to an in-memory log
 (``spans()``). Each record belongs to a unit, the call it was part of:
 ``("render", n)`` for a ``render()``, ``("frame", renderer, n)`` for a
 preview frame. A span whose name ends in ``.wait`` blocks on the device.
+``note(name, size, tag)`` logs a record of no length in the same way, for a
+count known only once the work is done (``render.resolve``: a portal
+render's resolve segments, tagged with where K3 read its rows).
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ class SpanRecord:
     """A span: ``start_ns`` and ``end_ns`` from ``time.perf_counter_ns``
     (``end_ns`` 0 while it is open), ``parent`` the index in ``spans()`` of
     the span it opened in on its thread (-1: none), ``size`` its amount of
-    work where it has one (a pass's samples, a batch's cycles)."""
+    work where it has one (a pass's samples, a batch's cycles), ``tag`` a
+    note's label."""
 
     name: str
     start_ns: int
@@ -66,6 +70,7 @@ class SpanRecord:
     parent: int
     unit: tuple | None
     size: int | None
+    tag: str | None = None
 
 
 _spans: list[SpanRecord] = []
@@ -150,6 +155,21 @@ def sync_span(name: str, device) -> None:
             torch.cuda.current_stream(device).synchronize()
 
 
+def note(name: str, size: int, tag: str | None = None) -> None:
+    """While a profiler runs, a record ``name`` of no length in the span
+    log, in the unit of the span open on this thread, with ``size`` and
+    ``tag``: a count that is known only after the work it counts.
+    Otherwise nothing at all."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    st = _stack()
+    now = time.perf_counter_ns()
+    rec = SpanRecord(name, now, now, st[-1] if st else -1,
+                     _spans[st[-1]].unit if st else None, size, tag)
+    with _lock:
+        _spans.append(rec)
+
+
 def spans() -> list[SpanRecord]:
     """The span log, in the order the spans opened."""
     return _spans
@@ -194,6 +214,10 @@ class RenderStats:
     num_dispatches: int = 0
     # per-pixel samples restored from a checkpoint (0 = fresh render)
     resumed_samples: int = 0
+    # route; on the portal routes cycles and polls; on v2 with K3
+    # resolve_segments (the resolve's share of num_rays, restored with it
+    # from a checkpoint; left out after a resume from a file without it)
+    # and resolve_table (render.portal.resolve_table)
     extra: dict = field(default_factory=dict)
 
     @property

@@ -30,6 +30,9 @@ in a row with rays that enter them all (the sort pad); K7 trace_resolve
 its shared-memory budget), K8 trace_cheap_blocked (also at vote groups of
 32 to 1024) and K9 trace_sorted (mesh) and the v1 and glue portal routes.
 
+render() of the benchmark's two meshes (K3 on shared rows and on rows
+from device memory) against the benchmark's plain reference.
+
 Whether FMA contraction moves images: K1 at 512 spp, the v2 portal render
 of a random portal scene and K5's preview, each against the CPU render of
 the same seed, within a quarter of the CPU's noise between two seeds.
@@ -808,6 +811,50 @@ def test_cuda_mesh_renders_match_cpu(cuda_device, monkeypatch):
         same = np.abs(gpu.image.pixels - cpu.image.pixels).mean()
         assert same <= 0.25 * noise, (env, same, noise)
         assert gpu.stats.num_samples == cpu.stats.num_samples
+
+
+def _bench_scene(config):
+    """The program's scene of a benchmark configuration, MeshFile paths
+    taken from beside its scene file; and that file's path."""
+    path = os.path.join(ROOT, "bench_torch", "configs", config, f"{config}.json")
+    with open(path) as fh:
+        desc = json.load(fh)
+    return tpt.SceneDescriptor.from_json_dict(desc, base_dir=os.path.dirname(path)), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,table", [("mesh", "shared"), ("mesh13k", "global")])
+def test_cuda_portal_render_reads_k3_rows_from_its_table(cuda_device, config, table):
+    """render() of a benchmark mesh at 450x300 takes the portal route with
+    K3 reading its rows from shared memory (mesh, 810 triangles) or from
+    device memory (mesh13k, 12,716: its compact table exceeds a block's
+    shared memory), and 256 pixels drawn from a seed are within the
+    render cell's ``mean_gap`` limit of the benchmark's plain reference
+    at the same spp."""
+    ref_mod = importlib.util.spec_from_file_location(
+        "bench_reference", os.path.join(ROOT, "bench_torch", "reference.py"))
+    ref = importlib.util.module_from_spec(ref_mod)
+    ref_mod.loader.exec_module(ref)
+    with open(os.path.join(ROOT, "bench_torch", "checks",
+                           f"{config}.render-450x300-500spp.json")) as fh:
+        limit = json.load(fh)["mean_gap"]["limit"]
+    scene, path = _bench_scene(config)
+    w, h, spp, seed = 450, 300, 8, 2026
+    cfg = RenderConfig(samples_per_pixel=spp, resolution=Resolution(h, w), seed=seed)
+    before = portal.trace_resolve_pool.launches
+    done = tpt.render(scene, cfg, device=cuda_device, out_dir=None, verbose=False)
+    extra = done.stats.extra
+    assert extra["route"] == "portal" and extra["resolve_table"] == table
+    assert portal.trace_resolve_pool.launches - before == extra["cycles"]
+    assert 0 < extra["resolve_segments"] < done.stats.num_rays
+    pix = np.sort(np.random.default_rng(seed).choice(w * h, 256, replace=False))
+    sc = ref.to_device(ref.load_scene(path), cuda_device, torch.float32)
+    want = torch.clamp(ref.pixel_sums(
+        sc, torch.from_numpy(pix).to(cuda_device), 0, spp, seed=seed, width=w,
+        height=h, max_depth=cfg.max_depth, rr_start_depth=cfg.rr_start_depth) / spp,
+        0.0, 1.0).cpu().numpy()
+    gap = float(np.abs(done.image.pixels[pix].astype(np.float64) - want).mean())
+    assert gap <= limit, (gap, limit)
 
 
 def _preview_rays(scene, res, spp, dev):

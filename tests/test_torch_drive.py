@@ -344,11 +344,11 @@ def test_cancel_after_pause_carries_discarded_stage_counts(monkeypatch):
     pause = t_drive.DriveResult(
         stages=[_stage([0, 1, 2, 3], [2] * 4, [2] * 4, acc=1.0),
                 _stage([4, 5, 6, 7], [1] * 4, [1] * 4)],
-        rays=12, flush=None, outcome=t_drive.PAUSE, cycles=7,
+        rays=torch.tensor([9, 3]), flush=None, outcome=t_drive.PAUSE, cycles=7,
         frozen_quota=torch.full((4,), 4.0), polls=2)
     cancel = t_drive.DriveResult(
         stages=[_stage([4, 5, 6, 7], [2] * 4, [2] * 4, acc=0.5)],
-        rays=4, flush=None, outcome=t_drive.CANCEL, cycles=11,
+        rays=torch.tensor([3, 1]), flush=None, outcome=t_drive.CANCEL, cycles=11,
         frozen_quota=torch.full((4,), 4.0), polls=1)
     runner, seen = _scripted_runner(monkeypatch, [pause, cancel])
     paused = {}
@@ -359,7 +359,7 @@ def test_cancel_after_pause_carries_discarded_stage_counts(monkeypatch):
     np.testing.assert_array_equal(runner.last_partial_counts.numpy(), [2.0] * 8)
     np.testing.assert_allclose(accum[:4, 0].numpy(), 1.0)
     np.testing.assert_allclose(accum[4:, 0].numpy(), 0.5)
-    assert int(rays) == 16
+    assert rays.tolist() == [12, 4]  # K2's and the resolve's, over both drives
     assert runner.last_pause_cycles == 7 and len(paused["rows"]) == 3
     assert seen["cycle0"] == [0, 7]
     assert runner.total_cycles == 11 and runner.total_polls == 3
@@ -367,8 +367,8 @@ def test_cancel_after_pause_carries_discarded_stage_counts(monkeypatch):
 
 def test_resume_continues_cycle_counter(monkeypatch):
     done = t_drive.DriveResult(
-        stages=[_stage([0, 1], [4, 4], [4, 4])], rays=8, flush=None,
-        outcome=t_drive.DONE, cycles=900)
+        stages=[_stage([0, 1], [4, 4], [4, 4])], rays=torch.tensor([6, 2]),
+        flush=None, outcome=t_drive.DONE, cycles=900)
     runner, seen = _scripted_runner(monkeypatch, [done])
     runner.resume_slots = (np.array([0.0, 1.0]), np.array([2.0, 2.0]),
                            np.array([4.0, 4.0]))

@@ -26,6 +26,12 @@
    flight carries a distinct sample index below its slot's started count.
 3. Per-slot independence, which makes one CUDA thread per slot faithful:
    K2 and K3 give a slot the same result in any pool of slots.
+4. The benchmark's 12,716-triangle mesh (``bench_torch/configs/mesh13k``):
+   the converter (scripts/stl_to_off.py) reproduces the committed OFF file
+   from its public STL and keeps every triangle bit for bit; the port
+   packs the scene to the portal route; the plain portal route renders
+   it, with tiles far outnumbering the sort key's, as the benchmark's
+   plain reference does and within Monte Carlo noise of the JAX package.
 The CUDA kernels against these plain versions are in test_torch_cuda.py.
 """
 
@@ -284,3 +290,171 @@ def test_portal_kernels_reject_bad_arguments(bad):
             t_pm.trace_cheap_regen(pc, cam, pool, **kw)
     with pytest.raises(ValueError):
         t_pm.trace_resolve_pool(ks, pool, **rkw)
+
+
+# ---------------------------------------------------------------------------
+# The benchmark's mesh13k configuration: a public 12,716-triangle CAD mesh
+# ---------------------------------------------------------------------------
+
+MESH13K = os.path.join(ROOT, "bench_torch", "configs", "mesh13k")
+MESH13K_OFF = os.path.join(MESH13K, "meshes", "panda_link2.off")
+# the binary STL the OFF file is converted from, as Gymnasium-Robotics 1.4.1
+# ships it (bench_torch/configs/mesh13k.json names it under "assumed")
+PANDA_STL = ("envs", "assets", "kitchen_franka", "franka_assets", "meshes",
+             "visual", "link2.stl")
+PANDA_STL_SHA256 = "f6455febcb22ed165b462f337c73c9dc428aa82b4e46f35f860f5c860705d528"
+
+
+def _module(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+STL_TO_OFF = _module("stl_to_off", os.path.join(ROOT, "scripts", "stl_to_off.py"))
+
+
+def _scene_at(path):
+    """The program's scene from a scene file, MeshFile paths taken from
+    beside it (as the benchmark loads a configuration's scene)."""
+    import json
+
+    with open(path) as fh:
+        desc = json.load(fh)
+    return tpt.SceneDescriptor.from_json_dict(desc, base_dir=os.path.dirname(path))
+
+
+def test_stl_converter_reproduces_the_committed_mesh():
+    import hashlib
+
+    spec = importlib.util.find_spec("gymnasium_robotics")
+    if spec is None:
+        pytest.skip("gymnasium_robotics, which ships the source STL, is not installed")
+    stl = os.path.join(os.path.dirname(spec.origin), *PANDA_STL)
+    with open(stl, "rb") as fh:
+        data = fh.read()
+    if hashlib.sha256(data).hexdigest() != PANDA_STL_SHA256:
+        pytest.skip("the installed gymnasium_robotics ships another link2.stl")
+    with open(MESH13K_OFF, "rb") as fh:
+        committed = fh.read()
+    out = STL_TO_OFF.convert(data).encode()
+    assert out == committed
+    assert out.splitlines()[:2] == [b"OFF", b"6360 12716 0"]
+
+
+def test_stl_converter_keeps_every_triangle_bit_for_bit():
+    """Triangles come back from the OFF text in order and bit for bit:
+    corners shared by their bits only (``-0.0`` and ``0.0`` stay apart),
+    numbered by first use; coordinates that need all nine digits too. A
+    truncated file is refused."""
+    import struct
+
+    from path_tracer_tpu_torch.models.off import parse_off
+
+    rng = np.random.default_rng(5)
+    pts = rng.standard_normal((6, 3)).astype(np.float32)
+    pts[4] = [0.0, 1.0, 2.0]
+    pts[5] = [-0.0, 1.0, 2.0]
+    faces = [(0, 1, 2), (2, 1, 3), (3, 4, 0), (5, 1, 2), (0, 1, 2)]
+    tris = pts[np.asarray(faces)]
+    data = bytes(80) + struct.pack("<I", len(faces)) + b"".join(
+        np.zeros(3, "<f4").tobytes() + t.astype("<f4").tobytes() + bytes(2)
+        for t in tris)
+    text = STL_TO_OFF.convert(data)
+    assert text.splitlines()[1] == "6 5 0"
+    assert text.splitlines()[2 + 6:] == ["3 0 1 2", "3 2 1 3", "3 3 4 0",
+                                         "3 5 1 2", "3 0 1 2"]
+    assert parse_off(text).tobytes() == tris.tobytes()
+    with pytest.raises(ValueError):
+        STL_TO_OFF.read_stl(data[:-1])
+
+
+def test_mesh13k_packs_to_the_portal_route():
+    from path_tracer_tpu_torch.render.pipeline import prepare_render
+
+    prep = prepare_render(_scene_at(os.path.join(MESH13K, "mesh13k.json")),
+                          tpt.Resolution(300, 450), "cpu")
+    assert prep.route == "portal"
+    assert prep.kscene.tiles.shape[0] == 199
+    assert prep.kscene.tri.shape[0] == 12744  # 12,716 triangles, 28 of the box
+    assert prep.kscene.hit.numel() * 4 == 1019520  # K3's compact table, bytes
+
+
+MESH13K_CFG = dict(w=24, h=16, spp=4, seed=7)
+
+
+@pytest.fixture(scope="module")
+def mesh13k_render():
+    """The port's plain portal render of mesh13k at 24x16, 4 spp, seed 7,
+    and its scene's file."""
+    from path_tracer_tpu_torch.render.pipeline import prepare_render
+
+    path = os.path.join(MESH13K, "mesh13k.json")
+    c = MESH13K_CFG
+    scene = _scene_at(path)
+    res = tpt.Resolution(c["h"], c["w"])
+    ks = prepare_render(scene, res, "cpu").kscene
+    assert ks.tiles.shape[0] > t_tk.KEY_TILES  # the sort key holds few
+    cfg = tpt.RenderConfig(samples_per_pixel=c["spp"], resolution=res, seed=c["seed"])
+    done = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
+    assert done.stats.extra["route"] == "portal"
+    return done, cfg, path
+
+
+def test_plain_portal_route_matches_reference_on_mesh13k(mesh13k_render):
+    """mesh13k (199 tiles, more than the sort key's KEY_TILES) through the
+    port's plain portal route against the benchmark's plain reference
+    (``bench_torch/reference.py``), 128 of the 24x16 pixels at 4 spp, drawn
+    from a seed as the benchmark's check draws its pixels (the brute-force
+    reference takes ~0.1 s a pixel on a CPU here). Tolerance: a mean |difference| of 1e-4 and 99% of pixels within 1e-5
+    in every channel. Reason: both draw the same keyed numbers and so
+    trace the same paths; they part only by float32 rounding in operations
+    ordered differently (a few ulps on this scene), while a path lost or
+    traced wrong moves its pixel by the Monte Carlo noise between two
+    seeds, ~0.2 here."""
+    done, cfg, path = mesh13k_render
+    ref = _module("bench_reference", os.path.join(ROOT, "bench_torch", "reference.py"))
+    c = MESH13K_CFG
+    pix = np.sort(np.random.default_rng(c["seed"]).choice(c["w"] * c["h"], 128,
+                                                          replace=False))
+    sc = ref.to_device(ref.load_scene(path), "cpu", torch.float32)
+    want = torch.clamp(ref.pixel_sums(
+        sc, torch.from_numpy(pix), 0, c["spp"], seed=c["seed"],
+        width=c["w"], height=c["h"], max_depth=cfg.max_depth,
+        rr_start_depth=cfg.rr_start_depth) / c["spp"], 0.0, 1.0).numpy()
+    gap = np.abs(done.image.pixels[pix].astype(np.float64) - want)
+    assert gap.mean() <= 1e-4, gap.mean()
+    assert (gap.max(axis=1) <= 1e-5).mean() >= 0.99, np.sort(gap.max(axis=1))[-5:]
+    assert want.mean() > 0.05  # the image is lit
+
+
+def test_plain_portal_route_within_mc_noise_of_jax_on_mesh13k(mesh13k_render):
+    """The same render against the JAX package's render() of the same scene
+    file and configuration (on the CPU the JAX side takes its XLA mode,
+    whose random stream differs): the gate of test_torch_render.py,
+    RMSE(port, JAX seed 7) <= 1.5 x RMSE(JAX seed 7, JAX seed 8) and every
+    channel mean within 4 standard errors."""
+    import json
+
+    done, cfg, path = mesh13k_render
+    with open(path) as fh:
+        js = jpt.SceneDescriptor.from_json_dict(json.load(fh),
+                                                base_dir=os.path.dirname(path))
+    c = MESH13K_CFG
+    jcfg = jpt.RenderConfig(samples_per_pixel=c["spp"], seed=c["seed"],
+                            resolution=jpt.Resolution(c["h"], c["w"]))
+    j0 = jpt.render(js, jcfg, out_dir=None, verbose=False).image.pixels
+    j1 = jpt.render(js, jcfg.with_(seed=c["seed"] + 1), out_dir=None,
+                    verbose=False).image.pixels
+    t0 = done.image.pixels
+
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2)))
+
+    noise = rmse(j0, j1)
+    assert noise > 0
+    assert rmse(t0, j0) <= 1.5 * noise, (rmse(t0, j0), noise)
+    se = (j0 - j1).std(axis=0) / np.sqrt(j0.shape[0])
+    assert (np.abs(t0.mean(0) - j0.mean(0)) <= 4 * se).all(), (
+        t0.mean(0), j0.mean(0), se)

@@ -112,6 +112,70 @@ def test_portal_render_logs_a_wait_a_poll(scenes):
             assert log[s.parent].name in ("render.pass", "portal.merge")
 
 
+def test_portal_render_counts_its_resolve_segments(scenes, monkeypatch):
+    """``resolve_segments`` is the sum of K3's counts over the render (its
+    plain version here), a share of ``num_rays``; a traced render logs it
+    as the size of a ``render.resolve`` note, tagged with where K3 read
+    its rows."""
+    k3 = []
+    real = t_rp.trace_resolve_pool
+
+    def counted(*a, **kw):
+        pool, counts = real(*a, **kw)
+        k3.append(int(counts.sum()))
+        return pool, counts
+
+    monkeypatch.setattr(t_rp, "trace_resolve_pool", counted)
+    done = _render(scenes["mesh"], spp=2, res=(4, 6))
+    extra = done.stats.extra
+    assert extra["resolve_segments"] == sum(k3) > 0
+    assert extra["resolve_segments"] <= done.stats.num_rays
+    assert extra["resolve_table"] == "plain"
+    assert profiling.spans() == []  # no note without a profiler
+    with _profiled():
+        again = _render(scenes["mesh"], spp=2, res=(4, 6))
+    log = profiling.spans()
+    (note,) = [s for s in log if s.name == "render.resolve"]
+    assert (note.size, note.tag) == (extra["resolve_segments"], "plain")
+    assert again.stats.extra["resolve_segments"] == note.size
+    assert log[note.parent].name == "render" and note.unit == log[0].unit
+    assert note.start_ns == note.end_ns > 0
+
+
+def test_resumed_render_restores_its_resolve_segments(scenes, tmp_path):
+    """A checkpoint keeps ``resolve_segments`` beside ``num_rays``: a portal
+    render resumed after its first pass counts what an uninterrupted one
+    does. A file without them, as checkpoints were written before they
+    were kept, leaves the count out rather than report the resumed part."""
+    import numpy as np
+
+    cfg = tpt.RenderConfig(samples_per_pixel=4, samples_per_pass=2,
+                           resolution=tpt.Resolution(4, 6))
+
+    def render(path, cancel=None):
+        return tpt.render(scenes["mesh"], cfg, device="cpu", out_dir=None,
+                          verbose=False, checkpoint_path=path,
+                          checkpoint_every=1, cancel=cancel)
+
+    full = render(None)
+    ck = str(tmp_path / "ck.npz")
+    part = render(ck, cancel=lambda: os.path.exists(ck))
+    assert part.cancelled
+    with np.load(ck) as z:
+        files = {k: z[k] for k in z.files}
+    assert 0 < int(files["resolve_segments"]) < full.stats.extra["resolve_segments"]
+    old = str(tmp_path / "old.npz")
+    np.savez(old, **{k: v for k, v in files.items() if k != "resolve_segments"})
+    resumed = render(ck)
+    assert resumed.stats.resumed_samples == 2
+    assert resumed.stats.num_rays == full.stats.num_rays
+    assert resumed.stats.extra["resolve_segments"] == full.stats.extra["resolve_segments"]
+    from_old = render(old)
+    assert from_old.stats.resumed_samples == 2
+    assert from_old.stats.num_rays == full.stats.num_rays
+    assert "resolve_segments" not in from_old.stats.extra
+
+
 def test_preview_frames_and_moves_share_units(scenes):
     r = ProgressiveRenderer(scenes["mesh"], tpt.Resolution(6, 8), device="cpu")
     with _profiled():

@@ -41,7 +41,14 @@
 //     bounces them and writes their parts' state rows; the acc and whether
 //     the path lives go to the item's slot in shared memory. The per-lane
 //     cull is exactly isect_full's, so a lane's result does not depend on
-//     its warp;
+//     its warp. In a scene of more tiles than the key holds (the build
+//     resolve_pool_kernel<GlobalRows, true>, chosen from n_tiles at
+//     launch), the key cannot group a warp's lanes by the tiles past it,
+//     and a warp of 32 sorted items ran the union of their tiles (57.5
+//     tiles against 5.2 an item on mesh13k's 199, scripts/k3_coherence.py);
+//     there each item whose line enters a tile is traced by K3_GROUP (32)
+//     lanes over a tile-major copy of the compact rows (scan_group_tiled),
+//     the rest one a lane (scan_lane): trace_split below;
 //  4. columns: one thread per column adds the parts' acc in part order 0,
 //     1, 2, 3, bumps done, and writes every row that no item wrote, once.
 // The compact hit-test table (KernelScene.hit, [T, 20], 67 KB for mesh), the
@@ -89,10 +96,15 @@ constexpr int ROW_O = 0, ROW_D = 3, ROW_THR = 6, ROW_ACC = 9, ROW_ALIVE = 12,
 #define K3_SORT 1  // 0: trace each chunk's items in column order
 #endif
 #ifndef K3_GROUP_ORDER
-#define K3_GROUP_ORDER 1  // 1: warps take the groups with most key tiles first
+#define K3_GROUP_ORDER 1  // 1: the one-lane trace's warps take the groups with
+                          // most key tiles first
 #endif
 #ifndef K3_SHARED_TABLE
 #define K3_SHARED_TABLE 1  // 0: every scene reads its rows from device memory
+#endif
+#ifndef K3_GROUP
+#define K3_GROUP 32  // lanes that trace an item whose line enters a tile,
+                     // in a scene of more tiles than the key holds
 #endif
 constexpr int WARPS = K3_THREADS / 32;
 constexpr int MAX_PARTS = MAX_PARK_K + 1;  // an item is (part << 14) | column
@@ -101,6 +113,12 @@ static_assert(K3_WINDOW >= 32 && K3_WINDOW <= MAX_WINDOW &&
                   (K3_WINDOW & (K3_WINDOW - 1)) == 0,
               "K3_WINDOW: a power of two, 32 .. 4096");
 static_assert(K3_THREADS % 32 == 0 && K3_THREADS <= 1024, "K3_THREADS");
+static_assert(K3_GROUP == 4 || K3_GROUP == 8 || K3_GROUP == 16 ||
+                  K3_GROUP == 32,
+              "K3_GROUP: 4, 8, 16 or 32 lanes an item");
+constexpr int SLOTS = K3_WINDOW * MAX_PARTS;
+constexpr int PER = 32 / K3_GROUP;  // tile queries a warp takes at a time
+constexpr int ROUNDS = (SLOTS + K3_THREADS - 1) / K3_THREADS;
 
 // Dynamic shared memory of a block, in bytes from its start. For each of
 // the chunk's window * MAX_PARTS item slots: a key and an item, by packed
@@ -152,15 +170,16 @@ __device__ __forceinline__ int depth_row(int part) {
 }
 
 // One bounce of a live path. Returns whether it lives on; o, d, thr, acc,
-// prev and depth are updated in place.
-template <class R>
-__device__ __forceinline__ bool bounce(const FullScene& sc, float o[3],
-                                       float d[3], float thr[3], float acc[3],
+// prev and depth are updated in place. isect(o, d, prev, h) gives the
+// closest hit as isect_full gives it for a live path.
+template <class Isect>
+__device__ __forceinline__ bool bounce(Isect isect, float o[3], float d[3],
+                                       float thr[3], float acc[3],
                                        float& prev, float& depth,
                                        const float u[4], int max_depth,
                                        int rr_start_depth) {
   Hit h;
-  isect_full<R>(sc, o, d, prev, true, h);
+  isect(o, d, prev, h);
   const float new_depth = depth + 1.0f;
   bool alive_new = false;
   float dn[3], thr_new[3];
@@ -180,20 +199,333 @@ __device__ __forceinline__ bool bounce(const FullScene& sc, float o[3],
   return alive_new;
 }
 
-template <class R>
+// What a chunk's trace reads and writes besides the scene and the pools
+struct Chunk {
+  size_t N;
+  int base, jax_rows;
+  size_t u_stride;
+  uint32_t seed;
+  int max_depth, rr_start_depth;
+  const float* uniforms;
+  float* acc_out;  // [3][slots]
+  uint8_t* lives;
+};
+
+// An item's ray: the origin, direction and departed triangle of its part
+__device__ __forceinline__ void item_ray(const float* __restrict__ in,
+                                         const Chunk& c, int v, float o[3],
+                                         float d[3], float& prev) {
+  const int col = c.base + (v & 0x3fff), part = v >> 14;
+  const int b = part_base(part);
+  for (int k = 0; k < 3; ++k) {
+    o[k] = in[(b + k) * c.N + col];
+    d[k] = in[(b + 3 + k) * c.N + col];
+  }
+  prev = in[prev_row(part) * c.N + col];
+}
+
+// Bounce item v ((part << 14) | column in chunk) with isect, write its
+// part's state rows, and put its acc and whether it lives at its slot
+template <class Isect>
+__device__ __forceinline__ void resolve_item(const float* __restrict__ in,
+                                             float* __restrict__ out,
+                                             const Chunk& c, int v,
+                                             Isect isect) {
+  constexpr int slots = K3_WINDOW * MAX_PARTS;
+  const size_t N = c.N;
+  const int cl = v & 0x3fff;
+  const int part = v >> 14;
+  const int slot = part * K3_WINDOW + cl;
+  const int col = c.base + cl;
+  const int b = part_base(part);
+  float o[3], d[3], thr[3], acc[3];
+  for (int k = 0; k < 3; ++k) {
+    o[k] = in[(b + k) * N + col];
+    d[k] = in[(b + 3 + k) * N + col];
+    thr[k] = in[(b + 6 + k) * N + col];
+    acc[k] = part == 0 ? in[(ROW_ACC + k) * N + col] : 0.0f;
+  }
+  float prev = in[prev_row(part) * N + col];
+  float depth = in[depth_row(part) * N + col];
+  float u[4];
+  const uint32_t key = mix32(
+      pixel_key(c.seed, static_cast<int>(in[V2_ROW_PIX * N + col])),
+      static_cast<uint32_t>(
+          static_cast<int>(in[(c.jax_rows + part) * N + col])));
+  for (int k = 0; k < 4; ++k)
+    u[k] = c.uniforms != nullptr
+               ? c.uniforms[k * c.u_stride + static_cast<size_t>(part) * N +
+                            col]
+               : draw(nullptr, 0, 0, key, static_cast<int>(depth), k);
+  const bool alive = bounce(isect, o, d, thr, acc, prev, depth, u,
+                            c.max_depth, c.rr_start_depth);
+  for (int k = 0; k < 3; ++k) {
+    out[(b + k) * N + col] = o[k];
+    out[(b + 3 + k) * N + col] = d[k];
+    out[(b + 6 + k) * N + col] = thr[k];
+  }
+  out[prev_row(part) * N + col] = prev;
+  out[depth_row(part) * N + col] = depth;
+  if (part == 0)
+    out[ROW_ALIVE * N + col] = alive ? 1.0f : 0.0f;
+  else
+    out[(b - BUF_O + BUF_STATE) * N + col] = alive ? 2.0f : 0.0f;
+  for (int k = 0; k < 3; ++k) c.acc_out[k * slots + slot] = acc[k];
+  c.lives[slot] = alive ? 1 : 0;
+}
+
+// ---- the group split's scan on GlobalRows ----
+// A group's W lanes test W consecutive rows of one tile at a time. In
+// KernelScene.tri's rows (128 bytes each) one field of W rows lies in W
+// sectors, so the scan streamed ~1,216 sectors from L2 a tile and was
+// bound by them (6.9 ms at W 8 against the one-lane trace's 6.8, PERF.md);
+// KernelScene.hit_tiles holds the tiles' compact rows field by field
+// ([C, HIT_F, TRI_TILE]: field f of row j of tile c at (c * HIT_F + f) *
+// TRI_TILE + j), where one field of W rows is W consecutive floats.
+
+// tri_t on a row of hit_tiles: the same operations in the same order
+template <class Ops>
+__device__ __forceinline__ float tile_tri_t(const float* r, const float o[3],
+                                            const float d[3], const float m[3],
+                                            float prevf, uint32_t gate_ok) {
+  using S = SharedRows;  // the compact rows' field order
+  const auto ld = [&](int f) { return __ldg(r + f * TRI_TILE); };
+  const auto dot = [&](int f, const float v[3]) {
+    return ld(f) * v[0] + ld(f + 1) * v[1] + ld(f + 2) * v[2];
+  };
+  const float det = -dot(S::N, d);
+  const float udet = dot(S::E2, m) - dot(S::E2XA, d);
+  const float vdet = -dot(S::E1, m) - dot(S::AXE1, d);
+  const float tdet = dot(S::N, o) - ld(S::NA);
+  const bool dvalid = fabsf(det) >= EPS;
+  const float inv = Ops::rcp(dvalid ? det : 1.0f);
+  const float u = udet * inv;
+  const float v = vdet * inv;
+  const float t = tdet * inv;
+  const float uv_hi = ld(S::QUAD) > 0.5f ? v : u + v;
+  bool valid = dvalid && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+               uv_hi <= 1.0f && t > EPS && ld(S::PID) != prevf;
+  const float gate = ld(S::GATE);
+  if (gate != GATE_NONE)
+    valid = valid && gate >= 0.0f &&
+            ((gate_ok >> static_cast<int>(gate)) & 1u) != 0u;
+  return valid ? t : BIG;
+}
+
+// group_rows over tile c's rows (lo its first row in the full table)
+template <int W, class Ops>
+__device__ __forceinline__ void tile_group_rows(
+    const float* tile, int lo, int g, const float o[3], const float d[3],
+    const float m[3], float prevf, uint32_t gate_ok, bool take, float& d_t,
+    int& r_t) {
+  float bt = BIG;
+  int br = 0x7fffffff;
+  for (int j = g; j < TRI_TILE; j += W) {
+    const float t = tile_tri_t<Ops>(tile + j, o, d, m, prevf, gate_ok);
+    if (t < bt) {
+      bt = t;
+      br = lo + j;
+    }
+  }
+  for (int off = W / 2; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, bt, off);
+    const int r2 = __shfl_xor_sync(0xffffffffu, br, off);
+    if (t2 < bt || (t2 == bt && r2 < br)) {
+      bt = t2;
+      br = r2;
+    }
+  }
+  if (take && bt < d_t) {
+    d_t = bt;
+    r_t = br;
+  }
+}
+
+// scan_group<W, GlobalRows, Ops> with each tile's rows read from
+// hit_tiles: the same result, bit for bit
+template <int W, class Ops>
+__device__ __forceinline__ float scan_group_tiled(const FullScene& sc,
+                                                  const float* hit_tiles,
+                                                  const float o[3],
+                                                  const float d[3],
+                                                  float prevf, bool has,
+                                                  int lane, int& code) {
+  using R = GlobalRows;
+  const int g = lane & (W - 1), first = lane & ~(W - 1);
+  float d_s;
+  int i_s;
+  uint32_t gate_ok;
+  scan_spheres<R, Ops>(sc, o, d, d_s, i_s, gate_ok);
+  const float m[3] = {o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+                      o[0] * d[1] - o[1] * d[0]};
+  float d_t = BIG;
+  int r_t = 0;
+  group_rows<W, R, Ops>(R::rows(sc), 0, sc.tile_base, g, o, d, m, prevf,
+                        gate_ok, true, d_t, r_t);
+  float inv[3];
+  inv_dir(d, inv);
+  for (int c0 = 0; c0 < sc.n_tiles; c0 += W) {
+    float t_en = 0.0f;
+    const bool in =
+        has && c0 + g < sc.n_tiles &&
+        tile_slab<R>(sc.tiles + (c0 + g) * TILE_F, o, inv, t_en);
+    const unsigned ball = __ballot_sync(0xffffffffu, in);
+    unsigned any = ball;  // tile c0 + k is bit k: entered by some group
+    if constexpr (W < 32)
+      for (int s = W; s < 32; s <<= 1) any |= any >> s;
+    if constexpr (W < 32) any &= (1u << W) - 1u;
+    for (; any; any &= any - 1) {
+      const int k = __ffs(any) - 1;
+      const float te = __shfl_sync(0xffffffffu, t_en, first + k);
+      const bool mine = ((ball >> (first + k)) & 1u) && te < fminf(d_t, d_s);
+      if (__any_sync(0xffffffffu, mine))
+        tile_group_rows<W, Ops>(
+            hit_tiles + static_cast<size_t>(c0 + k) * HIT_F * TRI_TILE,
+            sc.tile_base + (c0 + k) * TRI_TILE, g, o, d, m, prevf, gate_ok,
+            mine, d_t, r_t);
+    }
+  }
+  return scan_winner<R>(sc, d_s, i_s, d_t, r_t, code);
+}
+
+// Step 3 of a scene with more tiles than the key holds (kGroup): the key
+// cannot group a warp's lanes by tiles past the 31st, so a warp that traced
+// one sorted item a lane would run the union of its lanes' tiles. Instead:
+//  a. each sorted item is filed: a tile query where its line enters a tile
+//     (a key bit, or enters_a_tile past them), else a lane query; a stable
+//     partition puts the lane queries at [0, nl) and the tile queries, in
+//     their sorted order, at [nl, total);
+//  b. warps take the tile queries PER at a time in that order (taking
+//     them most key tiles first, as the one-lane trace takes its groups,
+//     was 4% slower: neighbours in key order share tiles, in L1); each is
+//     traced by a group of K3_GROUP lanes that split the base set's and
+//     each tile's rows (scan_group_tiled), and lane 0 of the group keeps
+//     the winner at the item's slot;
+//  c. each thread takes the items tid, tid + K3_THREADS, ..: scans a lane
+//     query itself (scan_lane), reads a tile query's winner, and bounces
+//     the item as a lane does after isect_full (with the group's owner
+//     bouncing its item at once, the 31 other lanes idled through it: 11%
+//     slower). The scans give isect_full's result bit for bit, and the
+//     draws are keyed by the item, so no result depends on its thread.
+// The group split reads its rows on the read-only path: a scene of more
+// tiles than the key holds has at least 2,048 rows, whose compact table
+// (160 KB) does not fit beside the chunk's arrays in a block's shared
+// memory on Hopper. group_items (if not null) gets the chunk's tile
+// queries.
+__device__ __forceinline__ void trace_split(const FullScene& sc,
+                                            const float* __restrict__ in,
+                                            float* __restrict__ out,
+                                            const Chunk& ch,
+                                            const uint32_t* keys,
+                                            uint16_t* vals, int total,
+                                            int* warp_sum, int* next_item,
+                                            const float* hit_tiles,
+                                            int* group_items) {
+  using R = GlobalRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  // ---- a. file: thread tid holds items tid, tid + K3_THREADS, .. ----
+  uint16_t v_r[ROUNDS];
+  int before_r[ROUNDS];  // the lane queries before the item
+  bool lane_r[ROUNDS];
+  int nl = 0;
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    if (r * K3_THREADS >= total) continue;  // uniform over the block
+    const int i = r * K3_THREADS + tid;
+    uint16_t v = 0;
+    bool lq = false;
+    if (i < total) {
+      v = vals[i];
+      if (keys[i] == 0u) {
+        float o[3], d[3], prev;
+        item_ray(in, ch, v, o, d, prev);
+        lq = !enters_a_tile<R>(sc, o, d);
+      }
+    }
+    const unsigned ml = __ballot_sync(0xffffffffu, lq);
+    if (lane == 0) warp_sum[warp] = __popc(ml);
+    __syncthreads();
+    int before = nl + __popc(ml & below);
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = warp_sum[w];
+      if (w < warp) before += c;
+      nl += c;
+    }
+    __syncthreads();  // every item is read and warp_sum too
+    v_r[r] = v;
+    before_r[r] = before;
+    lane_r[r] = lq;
+  }
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int i = r * K3_THREADS + tid;
+    if (i >= total) continue;
+    vals[lane_r[r] ? before_r[r] : nl + i - before_r[r]] = v_r[r];
+  }
+  const int tile_tasks = (total - nl + PER - 1) / PER;
+  if (tid == 0 && group_items != nullptr) atomicAdd(group_items, total - nl);
+  __syncthreads();
+  // ---- b. trace the tile queries; each owner keeps its item's winner
+  // (distance, code) in the acc rows of its slot until c. ----
+  constexpr int slots = K3_WINDOW * MAX_PARTS;
+  for (;;) {
+    int q = 0;
+    if (lane == 0) q = atomicAdd(next_item, 1);
+    q = __shfl_sync(0xffffffffu, q, 0);
+    if (q >= tile_tasks) break;
+    const int first = nl + q * PER;
+    const int at = first + lane / K3_GROUP;
+    const bool has = at < total;
+    const int v = vals[has ? at : first];
+    float o[3], d[3], prev;
+    item_ray(in, ch, v, o, d, prev);
+    int code;
+    const float t = scan_group_tiled<K3_GROUP, IeeeOps>(sc, hit_tiles, o, d,
+                                                        prev, has, lane, code);
+    if (has && (lane & (K3_GROUP - 1)) == 0) {
+      const int slot = (v >> 14) * K3_WINDOW + (v & 0x3fff);
+      ch.acc_out[slot] = t;
+      ch.acc_out[slots + slot] = __int_as_float(code);
+    }
+  }
+  __syncthreads();
+  // ---- c. bounce every item, one a thread: a lane query's scan here ----
+  for (int i = tid; i < total; i += K3_THREADS) {
+    const int v = vals[i];
+    const int slot = (v >> 14) * K3_WINDOW + (v & 0x3fff);
+    resolve_item(in, out, ch, v,
+                 [&](const float ro[3], const float rd[3], float prev,
+                     Hit& h) {
+                   int code;
+                   float t;
+                   if (i < nl) {
+                     t = scan_lane<R, IeeeOps>(sc, ro, rd, prev, code);
+                   } else {
+                     t = ch.acc_out[slot];
+                     code = __float_as_int(ch.acc_out[slots + slot]);
+                   }
+                   isect_surface<R>(sc, ro, rd, t, code, h);
+                 });
+  }
+}
+
+template <class R, bool kGroup>
 __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
 resolve_pool_kernel(FullScene g, const float* __restrict__ in,
                     float* __restrict__ out, int n, int rows, int park_k,
                     int parts, uint32_t seed, int max_depth,
                     int rr_start_depth, const float* __restrict__ uniforms,
-                    int* __restrict__ counts_out) {
+                    int* __restrict__ counts_out,
+                    const float* __restrict__ hit_tiles,
+                    int* __restrict__ group_items) {
   constexpr int window = K3_WINDOW;
   constexpr bool kShared = R::F == HIT_F;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t table_bar;
   __shared__ int warp_sum[WARPS];
   __shared__ int next_item;
-  __shared__ uint16_t group_order[K3_WINDOW * MAX_PARTS / 32];
+  __shared__ uint16_t group_order[SLOTS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Layout lay =
       layout(g.n_tri, g.n_sph, g.n_bnd, g.n_tiles, kShared);
@@ -306,7 +638,7 @@ resolve_pool_kernel(FullScene g, const float* __restrict__ in,
     // number of tiles the group's rays enter, most first, so that the
     // chunk's last groups are short (a counting sort by warp 0)
     const int groups = (total + 31) / 32;
-    if (K3_GROUP_ORDER && tid < 32) {
+    if (!kGroup && K3_GROUP_ORDER && tid < 32) {
       int start[33];
       for (int c = 0; c <= 32; ++c) start[c] = 0;
       for (int g = 0; g < groups; ++g) {
@@ -336,54 +668,25 @@ resolve_pool_kernel(FullScene g, const float* __restrict__ in,
     }
     __syncthreads();
 
-    // ---- 3. trace every item: a warp takes the next group of 32 until
-    // none are left, so warps that drew cheap groups take more ----
-    for (;;) {
-      int q = 0;
-      if (lane == 0) q = atomicAdd(&next_item, 1);
-      q = __shfl_sync(0xffffffffu, q, 0);
-      if (q >= groups) break;
-      const int i = (K3_GROUP_ORDER ? group_order[q] : q) * 32 + lane;
-      if (i >= total) continue;
-      const int v = vals[i];
-      const int cl = v & 0x3fff;
-      const int part = v >> 14;
-      const int slot = part * window + cl;
-      const int col = base + cl;
-      const int b = part_base(part);
-      float o[3], d[3], thr[3], acc[3];
-      for (int k = 0; k < 3; ++k) {
-        o[k] = in[(b + k) * N + col];
-        d[k] = in[(b + 3 + k) * N + col];
-        thr[k] = in[(b + 6 + k) * N + col];
-        acc[k] = part == 0 ? in[(ROW_ACC + k) * N + col] : 0.0f;
+    const Chunk ch{N,         base,           jax_rows, u_stride, seed,
+                   max_depth, rr_start_depth, uniforms, acc_out,  lives};
+    if constexpr (kGroup) {
+      trace_split(sc, in, out, ch, keys, vals, total, warp_sum, &next_item,
+                     hit_tiles, group_items);
+    } else {
+      // ---- 3. trace every item: a warp takes the next group of 32 until
+      // none are left, so warps that drew cheap groups take more ----
+      for (;;) {
+        int q = 0;
+        if (lane == 0) q = atomicAdd(&next_item, 1);
+        q = __shfl_sync(0xffffffffu, q, 0);
+        if (q >= groups) break;
+        const int i = (K3_GROUP_ORDER ? group_order[q] : q) * 32 + lane;
+        if (i >= total) continue;
+        resolve_item(in, out, ch, vals[i],
+                     [&](const float o[3], const float d[3], float prev,
+                         Hit& h) { isect_full<R>(sc, o, d, prev, true, h); });
       }
-      float prev = in[prev_row(part) * N + col];
-      float depth = in[depth_row(part) * N + col];
-      float u[4];
-      const uint32_t key = mix32(
-          pixel_key(seed, static_cast<int>(in[V2_ROW_PIX * N + col])),
-          static_cast<uint32_t>(
-              static_cast<int>(in[(jax_rows + part) * N + col])));
-      for (int k = 0; k < 4; ++k)
-        u[k] = uniforms != nullptr
-                   ? uniforms[k * u_stride + static_cast<size_t>(part) * N + col]
-                   : draw(nullptr, 0, 0, key, static_cast<int>(depth), k);
-      const bool alive = bounce<R>(sc, o, d, thr, acc, prev, depth, u,
-                                   max_depth, rr_start_depth);
-      for (int k = 0; k < 3; ++k) {
-        out[(b + k) * N + col] = o[k];
-        out[(b + 3 + k) * N + col] = d[k];
-        out[(b + 6 + k) * N + col] = thr[k];
-      }
-      out[prev_row(part) * N + col] = prev;
-      out[depth_row(part) * N + col] = depth;
-      if (part == 0)
-        out[ROW_ALIVE * N + col] = alive ? 1.0f : 0.0f;
-      else
-        out[(b - BUF_O + BUF_STATE) * N + col] = alive ? 2.0f : 0.0f;
-      for (int k = 0; k < 3; ++k) acc_out[k * slots + slot] = acc[k];
-      lives[slot] = alive ? 1 : 0;
     }
     __syncthreads();
 
@@ -431,9 +734,20 @@ resolve_pool_kernel(FullScene g, const float* __restrict__ in,
   if (!table_ready) wait_bulk(&table_bar);  // no copy outlives its block
 }
 
-template <class R>
-cudaError_t configure(size_t smem, int* blocks_per_sm) {
-  auto* fn = resolve_pool_kernel<R>;
+using ResolveKernel = void (*)(FullScene, const float*, float*, int, int,
+                               int, int, uint32_t, int, int, const float*,
+                               int*, const float*, int*);
+
+// The build for a scene: the group split where the tiles outnumber the
+// key (on the read-only path), else the one-lane trace, whose key sees
+// every tile, with rows from shared or device memory
+ResolveKernel kernel_for(bool shared, int n_tiles) {
+  if (n_tiles > KEY_TILES) return resolve_pool_kernel<GlobalRows, true>;
+  return shared ? resolve_pool_kernel<SharedRows, false>
+                : resolve_pool_kernel<GlobalRows, false>;
+}
+
+cudaError_t configure(ResolveKernel fn, size_t smem, int* blocks_per_sm) {
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -451,7 +765,7 @@ bool table_fits(int n_sph, int n_bnd, int n_tri, int n_tiles) {
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess ||
-      cudaFuncGetAttributes(&fa, resolve_pool_kernel<SharedRows>) !=
+      cudaFuncGetAttributes(&fa, resolve_pool_kernel<SharedRows, false>) !=
           cudaSuccess)
     return false;
   const Layout lay = layout(n_tri, n_sph, n_bnd, n_tiles, true);
@@ -465,21 +779,22 @@ bool table_fits(int n_sph, int n_bnd, int n_tri, int n_tiles) {
 // compact table is staged in shared memory (else its rows are read from
 // device memory: the scene's tables and the chunk's arrays do not fit in a
 // block's shared memory, or `has_hit` is 0), out[3] the pool columns a
-// chunk. Returns a CUDA error code (cudaErrorInvalidConfiguration: no block
-// fits on an SM).
+// chunk, out[4] the lanes that trace an item whose line enters a tile
+// (K3_GROUP where the tiles outnumber the key, else 1). Returns a CUDA
+// error code (cudaErrorInvalidConfiguration: no block fits on an SM).
 extern "C" int pt_resolve_pool_config(int n_sph, int n_bnd, int n_tri,
                                       int n_tiles, int has_hit, int* out) {
-  const bool shared =
-      K3_SHARED_TABLE && has_hit && table_fits(n_sph, n_bnd, n_tri, n_tiles);
+  const bool shared = K3_SHARED_TABLE && has_hit && n_tiles <= KEY_TILES &&
+                      table_fits(n_sph, n_bnd, n_tri, n_tiles);
   const Layout lay = layout(n_tri, n_sph, n_bnd, n_tiles, shared);
   int blocks = 0;
   const cudaError_t e =
-      shared ? configure<SharedRows>(lay.bytes, &blocks)
-             : configure<GlobalRows>(lay.bytes, &blocks);
+      configure(kernel_for(shared, n_tiles), lay.bytes, &blocks);
   out[0] = lay.bytes;
   out[1] = blocks;
   out[2] = shared ? 1 : 0;
   out[3] = K3_WINDOW;
+  out[4] = n_tiles > KEY_TILES ? K3_GROUP : 1;
   return static_cast<int>(e);
 }
 
@@ -487,25 +802,31 @@ extern "C" int pt_resolve_pool_config(int n_sph, int n_bnd, int n_tri,
 // matrices in the port's layout for park_k; parts - 1 <= park_k buffers are
 // resolved. hit is KernelScene.hit ([n_tri, 20], 16-byte aligned) or NULL
 // for the read-only path. uniforms is NULL for the counter generator, else
-// [4, parts*n]. Returns cudaGetLastError(), or the error that refused the
-// configuration.
+// [4, parts*n]. hit_tiles is KernelScene.hit_tiles ([n_tiles, 20, 64]),
+// which the group split reads its tiles' rows from on the read-only path
+// (NULL only for a scene of up to KEY_TILES tiles). group_items, NULL or
+// one int32, gets the live items traced by a group of lanes (the scene's
+// tiles outnumber the key, and the item's line enters one). Returns
+// cudaGetLastError(), or the error that refused the configuration.
 extern "C" int pt_resolve_pool(const float* sph, int n_sph, const float* bnd,
                                int n_bnd, const float* tri, int n_tri,
-                               const float* hit, const float* tiles,
+                               const float* hit, const float* hit_tiles,
+                               const float* tiles,
                                int n_tiles, int tile_base,
                                const float* pool_in, float* pool_out, int n,
                                int park_k, int parts, uint32_t seed,
                                int max_depth, int rr_start_depth,
                                const float* uniforms, int* counts,
-                               void* stream) {
+                               int* group_items, void* stream) {
   if (n <= 0) return 0;
   const FullScene sc{sph,   n_sph,   bnd,       n_bnd, tri,
                      n_tri, tiles,   n_tiles,   tile_base, hit};
   if (!full_scene_ok(sc) || park_k < 0 || park_k > MAX_PARK_K || parts < 1 ||
       parts > park_k + 1 || pool_in == pool_out ||
-      (hit != nullptr && (reinterpret_cast<uintptr_t>(hit) & 15u)))
+      (hit != nullptr && (reinterpret_cast<uintptr_t>(hit) & 15u)) ||
+      (n_tiles > KEY_TILES && hit_tiles == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  int cfg[4];
+  int cfg[5];
   const cudaError_t e = static_cast<cudaError_t>(pt_resolve_pool_config(
       n_sph, n_bnd, n_tri, n_tiles, hit != nullptr, cfg));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -516,15 +837,10 @@ extern "C" int pt_resolve_pool(const float* sph, int n_sph, const float* bnd,
   const int grid = n_chunks < cfg[1] * sms ? n_chunks : cfg[1] * sms;
   const int rows =
       (park_k ? V3_BUF_BASE + park_k * BUF_ROWS : V2_ROWS) + 1 + park_k;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cfg[2])
-    resolve_pool_kernel<SharedRows><<<grid, K3_THREADS, cfg[0], st>>>(
-        sc, pool_in, pool_out, n, rows, park_k, parts, seed, max_depth,
-        rr_start_depth, uniforms, counts);
-  else
-    resolve_pool_kernel<GlobalRows><<<grid, K3_THREADS, cfg[0], st>>>(
-        sc, pool_in, pool_out, n, rows, park_k, parts, seed, max_depth,
-        rr_start_depth, uniforms, counts);
+  kernel_for(cfg[2] != 0, n_tiles)<<<grid, K3_THREADS, cfg[0],
+                                     static_cast<cudaStream_t>(stream)>>>(
+      sc, pool_in, pool_out, n, rows, park_k, parts, seed, max_depth,
+      rr_start_depth, uniforms, counts, hit_tiles, group_items);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,8 +56,8 @@ from path_tracer_tpu_torch.models.scene import ScenePacked
 from path_tracer_tpu_torch.ops import rng
 from path_tracer_tpu_torch.ops.kernels.build import check_launch, load_kernel
 from path_tracer_tpu_torch.ops.kernels.trace_kernel import (
-    BIG, KernelScene, make_raygen, path_uniforms, shade_phase,
-    trace_resolve_plain,
+    BIG, KEY_TILES, KernelScene, _inv_dir, _tile_slab, make_raygen,
+    path_uniforms, shade_phase, trace_resolve_plain,
 )
 from path_tracer_tpu_torch.ops.kernels.trace_v2 import (
     CameraConsts, SceneConsts, build_scene_consts, f, prim_scan,
@@ -558,6 +558,26 @@ def live_items(pool: torch.Tensor, *, parts: int, park_k: int):
     return cols, part
 
 
+def group_items_plain(ks: KernelScene, pool: torch.Tensor, *, parts: int,
+                      park_k: int) -> torch.Tensor:
+    """The live items K3 traces with a group of lanes: where the scene's
+    tiles outnumber the sort key's KEY_TILES, those whose line enters a
+    tile (the slab test of every tile, without the distance cull); none
+    otherwise. Returns a scalar int64 tensor on the pool's device."""
+    n_tiles = ks.tiles.shape[0]
+    if n_tiles <= KEY_TILES:
+        return torch.zeros((), dtype=torch.int64, device=pool.device)
+    cols, part = live_items(pool, parts=parts, park_k=park_k)
+    base = torch.where(part == 0, ROW_O, buf_row(0) + (part - 1) * BUF_ROWS
+                       + BUF_O)
+    o = [pool[base + k, cols] for k in range(3)]
+    inv = _inv_dir([pool[base + 3 + k, cols] for k in range(3)])
+    enters = torch.zeros(cols.shape[0], dtype=torch.bool, device=pool.device)
+    for c in range(n_tiles):
+        enters |= _tile_slab(ks.tiles[c], o, inv)[1]
+    return enters.sum()
+
+
 def trace_resolve_pool_plain(ks: KernelScene, pool: torch.Tensor, *,
                              seed: int, parts: int, park_k: int,
                              max_depth: int = 12, rr_start_depth: int = 5,
@@ -714,11 +734,13 @@ def bind_resolve(built):
         ctypes.c_void_p, ctypes.c_int,  # sph, S
         ctypes.c_void_p, ctypes.c_int,  # bnd, M
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # tri, T, hit
+        ctypes.c_void_p,  # hit_tiles
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pool in, out, n
         ctypes.c_int, ctypes.c_int, ctypes.c_uint32,  # park_k, parts, seed
         ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts, stream
+        ctypes.c_void_p, ctypes.c_void_p,  # uniforms, counts
+        ctypes.c_void_p, ctypes.c_void_p,  # group_items, stream
     ]
     fn = built.lib.pt_resolve_pool_config
     fn.restype = ctypes.c_int
@@ -785,32 +807,44 @@ def resolve_pool_config(ks: KernelScene, *, fmad: bool = True,
     dynamic shared memory of a block (bytes), resident blocks per SM,
     whether the compact table is staged in shared memory (else the scene's
     tables do not fit beside the chunk's arrays, and its rows are read
-    from device memory) and the pool columns a chunk. Raises if no block
-    fits. ``library``: another build's ``bind_resolve``."""
+    from device memory), the pool columns a chunk and the lanes that trace
+    an item whose line enters a tile (the build's K3_GROUP where the tiles
+    outnumber KEY_TILES, else 1). Raises if no block fits. ``library``:
+    another build's ``bind_resolve``."""
     built = library or resolve_library(fmad)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     code = built.lib.pt_resolve_pool_config(
         ks.sph.shape[0], ks.bnd.shape[0], ks.tri.shape[0], ks.tiles.shape[0],
         1, out)
     check_launch(built, code, "trace_resolve_pool")
     return {"smem_bytes": out[0], "blocks_per_sm": out[1],
-            "shared_table": bool(out[2]), "window": out[3]}
+            "shared_table": bool(out[2]), "window": out[3], "group": out[4]}
 
 
 def trace_resolve_pool(ks: KernelScene, pool: torch.Tensor, *, seed: int,
                        parts: int, park_k: int, max_depth: int = 12,
                        rr_start_depth: int = 5,
                        uniforms: torch.Tensor | None = None,
+                       group_items: torch.Tensor | None = None,
                        fmad: bool = True, library=None):
     """K3 (see trace_resolve_pool_plain for the contract). CPU tensors run
     the plain version; CUDA tensors launch ``csrc/portal_resolve.cu`` or
-    raise. ``fmad=False`` builds the kernel without FMA contraction;
-    ``library`` launches another build's ``bind_resolve`` instead
-    (scripts/ablate_k3.py)."""
+    raise. ``group_items``, an int32 [1] tensor on the pool's device, gets
+    the live items the kernel traces with a group of lanes added
+    (``group_items_plain``; on the CPU that count). ``fmad=False`` builds
+    the kernel without FMA contraction; ``library`` launches another
+    build's ``bind_resolve`` instead (scripts/ablate_k3.py)."""
     dev = pool.device
     kw = dict(seed=seed, parts=parts, park_k=park_k, max_depth=max_depth,
               rr_start_depth=rr_start_depth, uniforms=uniforms)
+    if group_items is not None and (
+            group_items.device != dev or group_items.dtype != torch.int32
+            or group_items.shape != (1,)):
+        raise ValueError(f"group_items must be an int32 [1] tensor on {dev}")
     if dev.type == "cpu":
+        if group_items is not None:
+            group_items += group_items_plain(ks, pool, parts=parts,
+                                             park_k=park_k).to(torch.int32)
         return trace_resolve_pool_plain(ks, pool, **kw)
     if dev.type != "cuda":
         raise ValueError(f"trace_resolve_pool runs on cpu or cuda, not {dev}")
@@ -832,10 +866,11 @@ def trace_resolve_pool(ks: KernelScene, pool: torch.Tensor, *, seed: int,
         code = built.lib.pt_resolve_pool(
             ks.sph.data_ptr(), ks.sph.shape[0], _ptr(ks.bnd), ks.bnd.shape[0],
             ks.tri.data_ptr(), ks.tri.shape[0], ks.hit.data_ptr(),
+            _ptr(ks.hit_tiles) if ks.tiles.shape[0] > KEY_TILES else None,
             _ptr(ks.tiles), ks.tiles.shape[0], ks.tile_base,
             pool.data_ptr(), out.data_ptr(), n, park_k, parts,
             int(seed) & rng.MASK32, int(max_depth), int(rr_start_depth),
-            _ptr(uniforms), counts.data_ptr(), stream)
+            _ptr(uniforms), counts.data_ptr(), _ptr(group_items), stream)
     check_launch(built, code, "trace_resolve_pool")
     trace_resolve_pool.launches += 1
     return out, counts

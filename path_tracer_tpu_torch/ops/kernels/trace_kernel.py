@@ -590,7 +590,8 @@ class KernelScene:
       K9's sort keys grid;
     - ``hit`` [T, HIT_F]: ``tri``'s HIT_COLS and a zero pad, the compact
       rows K3 reads its distance tests from (built from ``tri`` when not
-      given).
+      given); ``hit_tiles`` [C, HIT_F, TRI_TILE] the tiles' rows of it
+      field by field, made on first use on the scene's device.
     """
 
     sph: torch.Tensor
@@ -616,6 +617,16 @@ class KernelScene:
         of these rows finds what a scan of all finds."""
         real = torch.nonzero(self.sph[:, S_RAD2] > 0.0)
         return int(real.max()) + 1 if real.numel() else 1
+
+    @functools.cached_property
+    def hit_tiles(self) -> torch.Tensor:
+        """The tiles' compact rows field by field, [C, HIT_F, TRI_TILE]:
+        field f of row ``tile_base + c*TRI_TILE + j`` at [c, f, j], so that
+        K3's lanes reading one field of consecutive rows read consecutive
+        floats (csrc/portal_resolve.cu's group split)."""
+        c = self.tiles.shape[0]
+        rows = self.hit[self.tile_base:self.tile_base + c * TRI_TILE]
+        return rows.reshape(c, TRI_TILE, HIT_F).transpose(1, 2).contiguous()
 
     def to(self, device) -> "KernelScene":
         return KernelScene(self.sph.to(device), self.bnd.to(device),

@@ -343,10 +343,12 @@ def render(
         accum = torch.zeros((npix_pad, 3), dtype=torch.float32, device=dev)
     samples_done = 0
     pass_start = 0
-    # K3's segments, a share of num_rays, kept in a checkpoint beside it;
-    # None (-1 in the file) once a resume from a file without them leaves
-    # the render's count unknown
+    # K3's segments, a share of num_rays, and the items it traced with a
+    # group of lanes, kept in a checkpoint beside it; None (-1 in the file)
+    # once a resume from a file without them leaves the render's count
+    # unknown
     resolve_segments: int | None = 0
+    resolve_group_items: int | None = 0
 
     def unpermute(arr: np.ndarray) -> np.ndarray:
         return arr if inv_perm is None else arr[inv_perm]
@@ -381,6 +383,9 @@ def render(
             got = (int(ck["resolve_segments"])
                    if "resolve_segments" in ck.files else -1)
             resolve_segments = got if got >= 0 else None
+            got = (int(ck["resolve_group_items"])
+                   if "resolve_group_items" in ck.files else -1)
+            resolve_group_items = got if got >= 0 else None
             stats.resumed_samples = samples_done
             if mid_pass:
                 # resume INTO pass `pass_start`: every remaining sample id
@@ -405,15 +410,21 @@ def render(
     ray_handles: list[torch.Tensor] = []
 
     def drain_rays():
-        nonlocal ray_handles, resolve_segments
+        nonlocal ray_handles, resolve_segments, resolve_group_items
         if ray_handles:
             counts = torch.stack(ray_handles)
             if runner is not None and runner.resolve_table is not None:
-                # a v2 portal pass with K3 counts [K2's, the resolve's]
-                cheap, resolve = counts.sum(0).tolist()
+                # a v2 portal pass with K3 counts [K2's, the resolve's],
+                # read in one with the items K3 traced with a group of
+                # lanes (every launch so far), whose counter restarts
+                cheap, resolve, group = torch.cat([
+                    counts.sum(0), runner.group_items.to(torch.int64)]).tolist()
+                runner.group_items.zero_()
                 stats.num_rays += cheap + resolve
                 if resolve_segments is not None:
                     resolve_segments += resolve
+                if resolve_group_items is not None:
+                    resolve_group_items += group
             else:
                 stats.num_rays += int(counts.sum().item())
         ray_handles = []
@@ -489,6 +500,8 @@ def render(
                     num_rays=stats.num_rays,
                     resolve_segments=(-1 if resolve_segments is None
                                       else resolve_segments),
+                    resolve_group_items=(-1 if resolve_group_items is None
+                                         else resolve_group_items),
                     mid_pass=1,
                     cycle0=int(runner.last_pause_cycles),
                     slot_layout=runner.slot_layout,
@@ -570,6 +583,8 @@ def render(
                     num_rays=stats.num_rays,
                     resolve_segments=(-1 if resolve_segments is None
                                       else resolve_segments),
+                    resolve_group_items=(-1 if resolve_group_items is None
+                                         else resolve_group_items),
                 )
 
     # ---- finalize ----
@@ -595,6 +610,10 @@ def render(
                                resolve_table=runner.resolve_table)
             profiling.note("render.resolve", resolve_segments,
                            runner.resolve_table)
+            if resolve_group_items is not None:
+                stats.extra["resolve_group_items"] = resolve_group_items
+                profiling.note("render.resolve.group", resolve_group_items,
+                               runner.resolve_group)
         # two launches a cycle: K2 and K3 (or K7) on v2, K8 and K7 on v1
         stats.num_dispatches = 2 * runner.total_cycles
 

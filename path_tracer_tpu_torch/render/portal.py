@@ -160,17 +160,19 @@ def _resolve_glue(pool, ks, *, seed: int, park_k: int, max_depth: int,
 
 def portal_resolve_phase(pool, ks, *, seed: int, park_k: int, max_depth: int,
                          rr_start_depth: int, pool_resolve: bool = True,
-                         uniforms=None):
+                         uniforms=None, group_items=None):
     """The resolve half of a cycle over the active path and every parked
     buffer: K3, or with ``pool_resolve=False`` or injected ``uniforms`` (K3's
     [4, (park_k + 1) * n] layout) the glue branch, K7 and torch
-    (``_resolve_glue``), as the JAX package chooses. Returns (pool',
-    segments traced, unfinished slots), the last two as scalar tensors on
-    the pool's device."""
+    (``_resolve_glue``), as the JAX package chooses. K3 adds the items it
+    traces with a group of lanes to ``group_items`` (``trace_resolve_pool``)
+    where given. Returns (pool', segments traced, unfinished slots), the
+    last two as scalar tensors on the pool's device."""
     if pool_resolve and uniforms is None:
         pool, counts = trace_resolve_pool(
             ks, pool, seed=seed, parts=park_k + 1, park_k=park_k,
-            max_depth=max_depth, rr_start_depth=rr_start_depth)
+            max_depth=max_depth, rr_start_depth=rr_start_depth,
+            group_items=group_items)
         rays = counts.sum(dtype=torch.int64)
     else:
         pool, rays = _resolve_glue(pool, ks, seed=seed, park_k=park_k,
@@ -190,9 +192,20 @@ def resolve_table(ks, device) -> str:
     return "shared" if pm.resolve_pool_config(ks)["shared_table"] else "global"
 
 
+def resolve_group(ks, device) -> str:
+    """The lanes K3 traces an item whose line enters a tile with on the
+    current card (``resolve_pool_config``'s ``group``: the build's K3_GROUP
+    where the tiles of ``ks`` outnumber the key, else 1); ``"plain"`` off
+    the card."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return str(pm.resolve_pool_config(ks)["group"])
+
+
 def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
                     seed: int, step_cap: int, park_k: int, max_depth: int,
-                    rr_start_depth: int, pool_resolve: bool = True):
+                    rr_start_depth: int, pool_resolve: bool = True,
+                    group_items=None):
     """One cycle: K2 until every slot is frozen (parked park_k deep), out of
     samples or step-capped, then the resolve phase (K3, or K7 and torch with
     ``pool_resolve=False``). A capped but unfrozen path just has its next
@@ -205,7 +218,8 @@ def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
         rr_start_depth=rr_start_depth)
     pool, c2, unfin = portal_resolve_phase(
         pool, ks, seed=seed, park_k=park_k, max_depth=max_depth,
-        rr_start_depth=rr_start_depth, pool_resolve=pool_resolve)
+        rr_start_depth=rr_start_depth, pool_resolve=pool_resolve,
+        group_items=group_items)
     return pool, torch.stack([c1.sum(dtype=torch.int64), c2]), unfin
 
 
@@ -411,7 +425,8 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
                   seed: int, max_depth: int, rr_start_depth: int,
                   check_every: int = 4, ladder=TAIL_LADDER, park_k: int,
                   adaptive_polls: bool = True, on_check=None, cycle0: int = 0,
-                  npix: int | None = None, cnt_base=None):
+                  npix: int | None = None, cnt_base=None,
+                  group_items=None):
     """Cycle a pixel-pinned pool until every slot retires its quota,
     compacting the unfinished tail down the width ``ladder`` as it shrinks
     and redistributing samples when no rung fits.
@@ -421,7 +436,8 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
     reconstruct the retired radiance exactly; its rays are the segments
     traced as portal_cycle_v2 counts them, [K2's, the resolve's].
     ``on_check(cycle, width, unfin[, snapshot])`` is the poll hook (see
-    render.drive)."""
+    render.drive); ``group_items`` goes to every K3 launch
+    (``portal_resolve_phase``)."""
     step_cap = STEP_CAP
     pool_resolve = POOL_RESOLVE
     redist_min = _redist_min(k_pass)
@@ -439,7 +455,7 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
                 pool, pc, cam, ks, quota=k_pass, sample_base=sample_base,
                 seed=seed, step_cap=step_cap, park_k=park_k,
                 max_depth=max_depth, rr_start_depth=rr_start_depth,
-                pool_resolve=pool_resolve)
+                pool_resolve=pool_resolve, group_items=group_items)
             rays = rays + r
         return pool, rays, unfin
 
@@ -498,7 +514,11 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
     retired radiance into accum [npix, 3] (pixel order) and returns (accum,
     segments traced), the segments an int64 [2] tensor: K2's and the
     resolve's. ``.resolve_table`` says where the last pass's K3 read its
-    rows (``resolve_table``), None where the glue branch resolved.
+    rows (``resolve_table``), None where the glue branch resolved, and
+    ``.resolve_group`` the lanes it traced a tile-entering item with
+    (``resolve_group``). ``.group_items``, an int32 [1] tensor on the
+    device, gathers the items K3 traced with a group of lanes; the render
+    reads and zeroes it where it drains the segment counts.
 
     on_check(cycle, width, unfin): the poll hook. Falsy continues; "pause"
     asks for a mid-pass checkpoint; any other truthy value cancels. Both
@@ -545,6 +565,8 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
 
         pass_runner.resolve_table = (resolve_table(ks, device)
                                      if POOL_RESOLVE else None)
+        pass_runner.resolve_group = (resolve_group(ks, device)
+                                     if POOL_RESOLVE else None)
         rays = torch.zeros(2, dtype=torch.int64, device=device)
         cnt_pass = None  # retired counts of stages merged at pauses
         while True:
@@ -557,6 +579,7 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
                 adaptive_polls=device.type == "cuda",
                 on_check=hooks["on_check"], cycle0=cycle0,
                 npix=npix, cnt_base=cnt_pass,
+                group_items=pass_runner.group_items,
             )
             rays = rays + res.rays
             pass_runner.total_cycles += res.cycles - cycle0
@@ -595,6 +618,8 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
     pass_runner.total_cycles = 0  # cycles and polls over every pass
     pass_runner.total_polls = 0
     pass_runner.resolve_table = None
+    pass_runner.resolve_group = None
+    pass_runner.group_items = torch.zeros(1, dtype=torch.int32, device=device)
     pass_runner.set_hooks = set_hooks
     pass_runner.total_slots = npix
     pass_runner.slot_layout = "single"

@@ -216,8 +216,9 @@ class RenderStats:
     resumed_samples: int = 0
     # route; on the portal routes cycles and polls; on v2 with K3
     # resolve_segments (the resolve's share of num_rays, restored with it
-    # from a checkpoint; left out after a resume from a file without it)
-    # and resolve_table (render.portal.resolve_table)
+    # from a checkpoint; left out after a resume from a file without it),
+    # resolve_table (render.portal.resolve_table) and resolve_group_items
+    # (the live items K3 traced with a group of lanes, kept likewise)
     extra: dict = field(default_factory=dict)
 
     @property

@@ -3,7 +3,9 @@
 
 Builds K3's input pool on cycle 2 of a fresh mesh 1024x768 drive (park
 depth 3, step cap 64, seed 7; chip_smoke.py's phase 3 shape) with the
-kernels, then times csrc/portal_resolve.cu's launch (CUDA events, warm,
+kernels, or with ``--scene mesh13k`` of the benchmark's mesh13k render
+(450x300, 199 tiles: rows from device memory, the group split), then
+times csrc/portal_resolve.cu's launch (CUDA events, warm,
 ``--reps`` launches, in turns over ``--rounds`` rounds) with its parts
 switched on in turn (build-time -D choices of the kernel, PARTS below):
 
@@ -15,7 +17,9 @@ switched on in turn (build-time -D choices of the kernel, PARTS below):
   production       all three;
 
 then the production build's neighbours (no group order, chunks of 512 and
-2,048 columns, 512 threads a block), any --builds given and, with
+2,048 columns, 512 threads a block, and K3_GROUP 4, 8 and 16 lanes an
+item where the tiles outnumber the key: production's is 32; on mesh the
+group builds run the one-lane trace), any --builds given and, with
 ``--parent DIR`` (a checkout of the commit before the redesign), that
 commit's one-thread-per-column kernel on the same pool. Every build with
 --fmad=false must equal the plain version bit for bit (a lane's arithmetic
@@ -25,7 +29,9 @@ ms, resident blocks per SM and shared memory, the registers that
 ``-Xptxas -v`` reports, and the card's name and power limit.
 
   python3 scripts/ablate_k3.py [--parent DIR] [--builds K3_THREADS=768 ...]
-      [--reps 10] [--rounds 2]
+      [--reps 10] [--rounds 2] [--scene mesh13k] [--parts-only]
+
+``--parts-only`` times production, the group builds and the parent only.
 """
 
 import argparse
@@ -47,6 +53,7 @@ from path_tracer_tpu_torch.ops.kernels import portal as pk  # noqa: E402
 from path_tracer_tpu_torch.render import portal as rp  # noqa: E402
 from path_tracer_tpu_torch.render.pipeline import prepare_render  # noqa: E402
 from path_tracer_tpu_torch.utils.config import Resolution  # noqa: E402
+from scripts.k3_coherence import load_named_scene  # noqa: E402
 
 PARK_K, STEP_CAP, SEED, MAX_DEPTH = 3, 64, 7, 12
 
@@ -63,13 +70,14 @@ def ptxas_registers(log: str) -> list[str]:
 
 
 def parent_launcher(parent: str, ks, pool, kw):
-    """A launch of the parent commit's K3 (its pt_resolve_pool signature)."""
+    """A launch of the parent commit's K3 (its pt_resolve_pool signature:
+    the compact table, no group counter)."""
     built = kbuild.build(os.path.join(parent, "path_tracer_tpu_torch", "csrc",
                                       "portal_resolve.cu"))
     fn = built.lib.pt_resolve_pool
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -83,9 +91,9 @@ def parent_launcher(parent: str, ks, pool, kw):
     def launch():
         code = fn(ks.sph.data_ptr(), ks.sph.shape[0], pk._ptr(ks.bnd),
                   ks.bnd.shape[0], ks.tri.data_ptr(), ks.tri.shape[0],
-                  pk._ptr(ks.tiles), ks.tiles.shape[0], ks.tile_base,
-                  pool.data_ptr(), out.data_ptr(), n, kw["park_k"],
-                  kw["parts"], kw["seed"], kw["max_depth"],
+                  ks.hit.data_ptr(), pk._ptr(ks.tiles), ks.tiles.shape[0],
+                  ks.tile_base, pool.data_ptr(), out.data_ptr(), n,
+                  kw["park_k"], kw["parts"], kw["seed"], kw["max_depth"],
                   kw["rr_start_depth"], None, counts.data_ptr(),
                   torch.cuda.current_stream().cuda_stream)
         kbuild.check_launch(built, code, "parent trace_resolve_pool")
@@ -104,7 +112,11 @@ PARTS = {
     "window 512": "K3_WINDOW=512",
     "window 2048": "K3_WINDOW=2048",
     "512 threads": "K3_THREADS=512",
+    "group 4": "K3_GROUP=4",
+    "group 8": "K3_GROUP=8",
+    "group 16": "K3_GROUP=16",
 }
+GROUPS = ("production", "group 4", "group 8", "group 16")
 
 
 def variant_build(defines: str, fmad: bool):
@@ -127,14 +139,22 @@ def main() -> int:
     ap.add_argument("--builds", nargs="*", default=[],
                     help="more builds to time, each a comma list of the "
                     "kernel's -D choices, e.g. K3_THREADS=512,K3_WINDOW=512")
+    ap.add_argument("--scene", default="mesh",
+                    help="mesh (1024x768) or mesh13k (450x300)")
+    ap.add_argument("--parts-only", action="store_true",
+                    help="time production, the group builds and the parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ablate_k3: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    scene = pt.load_scene("mesh", os.path.join(ROOT, "scenes"),
-                          os.path.join(ROOT, "meshes"))
-    res = Resolution(768, 1024)
+    if args.scene == "mesh":
+        scene = pt.load_scene("mesh", os.path.join(ROOT, "scenes"),
+                              os.path.join(ROOT, "meshes"))
+        res = Resolution(768, 1024)
+    else:
+        scene = load_named_scene(args.scene)
+        res = Resolution(300, 450)
     prep = prepare_render(scene, res, dev)
     ks = prep.kscene
     npix = res.num_pixels
@@ -150,7 +170,8 @@ def main() -> int:
         if cyc < 2:
             pool = pk.trace_resolve_pool(ks, pool, **kw)[0]
 
-    variants = dict(PARTS)
+    variants = ({k: PARTS[k] for k in GROUPS} if args.parts_only
+                else dict(PARTS))
     variants.update({d: d for d in args.builds})
     with concurrent.futures.ThreadPoolExecutor(8) as ex:
         futs = {(d, fmad): ex.submit(variant_build, d, fmad)
@@ -200,16 +221,17 @@ def main() -> int:
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / args.reps)
     items = int(plain[1].sum())
-    print(f"ablate_k3: mesh 1024x768 pool, cycle 2: {pool.shape[1]} columns, "
-          f"{items} live items ({card()})")
+    print(f"ablate_k3: {args.scene} {res.width}x{res.height} pool, cycle 2: "
+          f"{pool.shape[1]} columns, {items} live items, "
+          f"{ks.tiles.shape[0]} tiles ({card()})")
     for name, ts in times.items():
         print(f"  {name:24s} {min(ts):.3f}-{max(ts):.3f} ms, columns within "
               f"1e-3 of plain {shares[name]:.5f}, "
               f"{json.dumps(configs.get(name, {}))}")
     for name, built in logs.items():
         print(f"  ptxas {name}: {' | '.join(ptxas_registers(built.log))}")
-    print(json.dumps({"card": card(), "items": items, "ms": times,
-                      "configs": configs}))
+    print(json.dumps({"card": card(), "scene": args.scene, "items": items,
+                      "ms": times, "configs": configs}))
     return 1 if failed else 0
 
 

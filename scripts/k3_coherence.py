@@ -17,7 +17,16 @@ then K2 of cycle 2, which gives K3's input pool on cycle 2. For every live
   3. the same two shares under csrc/portal_resolve.cu's schedule: the live
      items packed in column order, in chunks of ``window`` columns, each
      chunk sorted by the tile-entry key (``tile_entry_keys``), warps of 32
-     consecutive items; and with the packing alone (no sort).
+     consecutive items; and with the packing alone (no sort);
+  4. the group-split model (``group_union``, chunks of 1,024 columns
+     sorted as in 3): the mean number of tiles in the union of the tiles
+     tested by R consecutive sorted items, for R in 1, 2, 4, 8, 16 and 32
+     (R = 32 is a warp of today's one-lane-an-item trace; a warp that
+     traces R items with 32 / R lanes each runs 2 x that union of row
+     iterations an item), over every live item (``all``) and over the
+     items whose line enters a tile (``tile_queries``), in the order the
+     kernel traces them where the tiles outnumber the key: those with an
+     empty key first, in column order, then the others by key.
 
 Everything counts rows (a triangle distance test each), not time: the gap
 between these shares and the kernel's measured time is what latency and
@@ -26,6 +35,11 @@ one (plain versions on CUDA tensors):
 
   python3 scripts/k3_coherence.py --res 128x96 --device cpu
   python3 scripts/k3_coherence.py --res 1024x768 --device cuda
+  python3 scripts/k3_coherence.py --scene mesh13k --res 64x48 --device cpu
+
+``--scene`` takes ``mesh`` (scenes/mesh.json, the default) or a benchmark
+configuration's scene (``mesh13k``: bench_torch/configs/mesh13k/, 199
+tiles, past the key's 31).
 """
 
 import argparse
@@ -40,12 +54,30 @@ sys.path.insert(0, ROOT)
 
 from path_tracer_tpu_torch.ops.kernels import portal as pk  # noqa: E402
 from path_tracer_tpu_torch.ops.kernels.trace_kernel import (  # noqa: E402
-    KEY_TILES, TRI_TILE, isect_full_plain, tile_entry_keys,
+    KEY_TILES, TRI_TILE, _inv_dir, _tile_slab, isect_full_plain,
+    tile_entry_keys,
 )
 
 PARK_K, STEP_CAP, SEED, MAX_DEPTH = 3, 64, 7, 12
 WARP = 32
 BATCH = 1 << 18  # items per isect_full_plain call (bounds its temporaries)
+GROUP_WINDOW = 1024  # csrc/portal_resolve.cu's K3_WINDOW
+GROUP_RS = (1, 2, 4, 8, 16, 32)
+
+
+def load_named_scene(name: str):
+    """``mesh`` from scenes/, or a benchmark configuration's scene
+    (bench_torch/configs/<name>/<name>.json, its meshes beside it)."""
+    import path_tracer_tpu_torch as pt
+
+    path = os.path.join(ROOT, "bench_torch", "configs", name, f"{name}.json")
+    if name == "mesh" or not os.path.exists(path):
+        return pt.load_scene(name, os.path.join(ROOT, "scenes"),
+                             os.path.join(ROOT, "meshes"))
+    with open(path) as fh:
+        desc = json.load(fh)
+    return pt.SceneDescriptor.from_json_dict(desc,
+                                             base_dir=os.path.dirname(path))
 
 
 def k3_input_pool(scene, res, dev, cycle: int = 2):
@@ -95,6 +127,50 @@ def item_tiles(ks, pool, cols, parts):
     return torch.cat(out)
 
 
+def line_tiles(ks, pool, cols, parts):
+    """[L, C] bool: the tiles each item's line enters (the slab test
+    without the distance cull, every tile; the key holds the first 31)."""
+    o, d, _ = _item_rays(pool, cols, parts)
+    inv = _inv_dir(d)
+    out = [_tile_slab(ks.tiles[c], o, inv)[1] for c in range(ks.tiles.shape[0])]
+    return (torch.stack(out, dim=1) if out else
+            torch.zeros((cols.shape[0], 0), dtype=torch.bool, device=pool.device))
+
+
+def union_tiles(chunk, tiles, r):
+    """The mean number of tiles in the union of ``tiles`` [L, C] over each
+    group of ``r`` consecutive items of a chunk (``chunk`` [L], items in
+    trace order, each chunk's items together)."""
+    if not chunk.numel():
+        return 0.0
+    per_chunk = torch.bincount(chunk)
+    start = torch.cumsum(per_chunk, 0) - per_chunk
+    rank = torch.arange(chunk.shape[0], device=chunk.device) - start[chunk]
+    n_groups = -(-per_chunk // r)
+    group = (torch.cumsum(n_groups, 0) - n_groups)[chunk] + rank // r
+    union = torch.zeros((int(n_groups.sum()), tiles.shape[1]),
+                        dtype=torch.int32, device=tiles.device)
+    union.index_add_(0, group, tiles.to(torch.int32))
+    return float((union > 0).sum()) / union.shape[0]
+
+
+def group_union(ks, pool, cols, part, tiles, keys, *,
+                window: int = GROUP_WINDOW, rs=GROUP_RS) -> dict:
+    """The group-split model (see the module doc, 4.)."""
+    chunk = cols // window
+    order = torch.argsort(chunk * (1 << 33) + keys, stable=True)
+    enters = line_tiles(ks, pool, cols, part).any(dim=1)
+    tq = order[enters[order]]  # empty keys first, in column order
+    L = max(cols.shape[0], 1)
+    return {
+        "window": window,
+        "tile_query_share": float(enters.sum()) / L,
+        "empty_key_tile_query_share": float((enters & (keys == 0)).sum()) / L,
+        "all": {r: union_tiles(chunk[order], tiles[order], r) for r in rs},
+        "tile_queries": {r: union_tiles(chunk[tq], tiles[tq], r) for r in rs},
+    }
+
+
 def _executed_rows(group, tiles, base_rows):
     """Σ over groups (warps) of 32 × (base rows + 64 × tiles of the union)."""
     n_groups = int(group.max()) + 1 if group.numel() else 0
@@ -129,6 +205,8 @@ def coherence(ks, pool, *, parts: int = PARK_K + 1, park_k: int = PARK_K,
     keys = tile_entry_keys(ks, o, d)
     out["key_tiles_per_item"] = float(sum(
         ((keys >> c) & 1).sum() for c in range(min(ks.tiles.shape[0], KEY_TILES)))) / max(L, 1)
+    out["line_tiles_per_item"] = float(
+        line_tiles(ks, pool, cols, part).sum()) / max(L, 1)
     for window in windows:
         chunk = cols // window
         for sort in (False, True):
@@ -146,6 +224,7 @@ def coherence(ks, pool, *, parts: int = PARK_K + 1, park_k: int = PARK_K,
                 "lane_slot_share": L / (WARP * warps),
                 "useful_row_share": needed / rows,
             }
+    out["group_union"] = group_union(ks, pool, cols, part, tiles, keys)
     return out
 
 
@@ -154,8 +233,9 @@ def main() -> int:
     ap.add_argument("--res", default="128x96", help="WIDTHxHEIGHT")
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--windows", type=int, nargs="+", default=[256, 512, 1024])
+    ap.add_argument("--scene", default="mesh",
+                    help="mesh, or a benchmark configuration (mesh13k)")
     args = ap.parse_args()
-    import path_tracer_tpu_torch as pt
     from path_tracer_tpu_torch.utils.config import Resolution
 
     w, h = (int(x) for x in args.res.split("x"))
@@ -163,10 +243,10 @@ def main() -> int:
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("k3_coherence: no CUDA device", file=sys.stderr)
         return 1
-    scene = pt.load_scene("mesh", os.path.join(ROOT, "scenes"),
-                          os.path.join(ROOT, "meshes"))
+    scene = load_named_scene(args.scene)
     ks, pool = k3_input_pool(scene, Resolution(h, w), dev)
     res = coherence(ks, pool, windows=args.windows)
+    res["scene"] = args.scene
     res["res"] = args.res
     res["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu")

@@ -18,7 +18,10 @@ threads and narrower, of a width no multiple of the block, with every slot
 stalled at entry, with slots that reach the step budget and on a scene of
 128 cheap primitives, the most it takes; K3 also on
 pools with every mix of live parts, with none, and on a scene whose table
-is too large for shared memory),
+is too large for shared memory; its group split, where the tiles outnumber
+the sort key's 31, on mesh13k's 199 tiles with every mix of live parts,
+with lane queries only and tile queries only, on a strip of 70 tiles, and
+its group counter),
 K5 and K6 trace_stepped (cornell and mesh preview rays), K6's design
 variants (the -D choices of csrc/trace_stepped.cu) on a full preview frame,
 the camera entries of K5 and K6 (trace_camera) against camera_rays and the
@@ -534,20 +537,160 @@ def test_cuda_k3_every_mix_of_live_parts(cuda_device, source, parts):
     parts (column i keeps the parts of i mod 16 that are live), of a width
     that is no multiple of the kernel's chunk, under both uniform sources."""
     ks, pool = _k3_pool(cuda_device)
+    _k3_every_mix(ks, _mixed(pool), source, parts)
+
+
+def _mixed(pool):
+    """``pool`` cut to a width no multiple of K3's chunk, column i keeping
+    the parts of i mod 16 that are live."""
     pool = pool[:, :pool.shape[1] - 100].contiguous()
-    n = pool.shape[1]
-    want = torch.arange(n, device=cuda_device) % 16
+    want = torch.arange(pool.shape[1], device=pool.device) % 16
     pool[portal.ROW_ALIVE] = torch.where(want & 1 > 0, pool[portal.ROW_ALIVE], 0.0)
     for j in range(1, 4):
         r = portal.buf_row(j - 1, portal.BUF_STATE)
         pool[r] = torch.where((want >> j) & 1 > 0, pool[r], 0.0)
+    return pool
+
+
+def _k3_every_mix(ks, pool, source, parts):
+    n = pool.shape[1]
     assert n % portal.resolve_pool_config(ks)["window"]
     assert set(_live_mask(pool, 4).tolist()) == set(range(16))
     uni = None
     if source == "table":
         uni = torch.from_numpy(np.random.default_rng(2).random(
-            (4, parts * n), dtype=np.float32)).to(cuda_device)
+            (4, parts * n), dtype=np.float32)).to(pool.device)
     _k3_equal(ks, pool, dict(seed=3, parts=parts, park_k=3, uniforms=uni))
+
+
+def _k3_13k_pool(dev, res=Resolution(48, 64)):
+    """(KernelScene, K3's input pool on cycle 2 of a mesh13k drive: 199
+    tiles, past the key's 31) from the plain versions."""
+    scene, _ = _bench_scene("mesh13k")
+    return _script("k3_coherence").k3_input_pool(scene, res, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["counter", "table"])
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_cuda_k3_group_split_every_mix_of_live_parts(cuda_device, source, parts):
+    """On mesh13k's kernel scene (199 tiles, rows from device memory) K3
+    traces each item whose line enters a tile with a group of lanes and
+    the rest one a lane; on a pool whose columns hold every mix of live
+    parts, under both uniform sources, it equals the plain version."""
+    ks, pool = _k3_13k_pool(cuda_device)
+    cfg = portal.resolve_pool_config(ks)
+    assert ks.tiles.shape[0] == 199 and not cfg["shared_table"]
+    assert cfg["group"] in (4, 8, 16, 32)
+    _k3_every_mix(ks, _mixed(pool), source, parts)
+
+
+def _aim(pool, ks, g, into: bool):
+    """Every live item's ray (each part's o, d) set to start beside the
+    tiles' box, below it in y, and head into a random tile (``into``) or
+    straight down, away from every tile."""
+    lo = ks.tiles[:, :3].min(dim=0).values
+    hi = ks.tiles[:, 3:].max(dim=0).values
+    n = pool.shape[1]
+    dev = pool.device
+    o = lo[None, :] + (hi - lo)[None, :] * torch.from_numpy(
+        g.random((n, 3), dtype=np.float32)).to(dev)
+    o[:, 1] = lo[1] - 0.05
+    if into:
+        c = torch.from_numpy(g.integers(0, ks.tiles.shape[0], n)).to(dev)
+        box = ks.tiles[c]
+        at = box[:, :3] + (box[:, 3:] - box[:, :3]) * torch.from_numpy(
+            g.uniform(0.25, 0.75, (n, 3)).astype(np.float32)).to(dev)
+        d = at - o
+    else:
+        d = torch.from_numpy(g.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)).to(dev)
+        d[:, 1] = -1.0
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    for j in range(4):
+        b = portal.ROW_O if j == 0 else portal.buf_row(j - 1, portal.BUF_O)
+        pool[b:b + 3] = o.T
+        pool[b + 3:b + 6] = d.T
+    return pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("into", [False, True])
+def test_cuda_k3_group_split_lane_or_tile_queries_only(cuda_device, into):
+    """On mesh13k's 199 tiles: a pool none of whose live items' lines
+    enters a tile (lane queries only) and one every one of whose does (tile
+    queries only) both equal the plain version, and the kernel's group
+    counter reads 0 and every live item."""
+    ks, pool = _k3_13k_pool(cuda_device)
+    pool = _aim(pool, ks, np.random.default_rng(5 + into), into)
+    kw = dict(seed=3, parts=4, park_k=3)
+    live = portal.live_items(pool, parts=4, park_k=3)[0].numel()
+    want = int(portal.group_items_plain(ks, pool, parts=4, park_k=3))
+    assert want == (live if into else 0) and live > 1000
+    _k3_equal(ks, pool, kw)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    portal.trace_resolve_pool(ks, pool, group_items=counter, **kw)
+    assert int(counter) == want
+
+
+@pytest.mark.cuda
+def test_cuda_k3_group_split_on_a_long_strip(cuda_device):
+    """The strip scene built past two 32-tile rounds of the group scan (70
+    tiles in a row), every other column's active path along the strip, so
+    its line enters every tile: K3 (--fmad=false) equals the plain version
+    bit for bit, counts included, and its group counter counts every live
+    item whose line enters a tile."""
+    scenes = _script("portal_fuzz_scenes")
+    ks, pool = _script("k3_coherence").k3_input_pool(
+        scenes.strip_scene(4480), Resolution(48, 64), cuda_device)
+    assert ks.tiles.shape[0] == 70
+    g = np.random.default_rng(13)
+    cols = torch.arange(0, pool.shape[1], 2, device=cuda_device)
+    o, d = (torch.from_numpy(a.T.copy()).to(cuda_device)
+            for a in scenes.strip_rays(cols.numel(), g))
+    pool[portal.ROW_O:portal.ROW_O + 3, cols] = o
+    pool[portal.ROW_D:portal.ROW_D + 3, cols] = d
+    pool[portal.ROW_THR:portal.ROW_THR + 3, cols] = 1.0
+    pool[portal.ROW_ALIVE, cols] = 1.0
+    pool[portal.ROW_PREV, cols] = -1.0
+    kw = dict(seed=3, parts=4, park_k=3)
+    plain = portal.trace_resolve_pool_plain(ks, pool, **kw)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    exact = portal.trace_resolve_pool(ks, pool, fmad=False, group_items=counter,
+                                      **kw)
+    torch.cuda.synchronize()
+    assert _lost(exact[0], plain[0], 0) == 0
+    assert torch.equal(exact[1], plain[1])
+    want = int(portal.group_items_plain(ks, pool, parts=4, park_k=3))
+    assert int(counter) == want >= cols.numel()
+
+
+@pytest.mark.cuda
+def test_cuda_k3_group_counter_counts_tile_entering_items(cuda_device):
+    """One launch's group counter equals the live input items whose line
+    enters a tile, by the plain slab test (``_tile_slab``) over the input
+    pool, on mesh13k at each number of parts; on mesh (13 tiles, the key
+    holds them all) it reads 0."""
+    ks, pool = _k3_13k_pool(cuda_device)
+    for parts in (1, 4):
+        cols, part = portal.live_items(pool, parts=parts, park_k=3)
+        base = torch.where(part == 0, portal.ROW_O,
+                           portal.buf_row(0) + (part - 1) * portal.BUF_ROWS)
+        o = [pool[base + k, cols] for k in range(3)]
+        inv = trace_kernel._inv_dir([pool[base + 3 + k, cols] for k in range(3)])
+        enters = torch.zeros(cols.numel(), dtype=torch.bool, device=cuda_device)
+        for c in range(ks.tiles.shape[0]):
+            enters |= trace_kernel._tile_slab(ks.tiles[c], o, inv)[1]
+        counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        portal.trace_resolve_pool(ks, pool, seed=3, parts=parts, park_k=3,
+                                  group_items=counter)
+        assert int(counter) == int(enters.sum()) > 0
+        assert int(enters.sum()) < cols.numel()
+    ks, pool = _k3_pool(cuda_device)
+    assert portal.resolve_pool_config(ks)["group"] == 1
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    portal.trace_resolve_pool(ks, pool, seed=3, parts=4, park_k=3,
+                              group_items=counter)
+    assert int(counter) == 0
 
 
 @pytest.mark.cuda

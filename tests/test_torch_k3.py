@@ -13,7 +13,13 @@ CPU:
    and every tile a lane hits in is among them.
 3. ``live_items`` enumerates exactly the live (column, part) items, each
    once, in the kernel's packing order.
-4. The coherence model (scripts/k3_coherence.py) counts consistently.
+4. The coherence model (scripts/k3_coherence.py) counts consistently,
+   its group-split model too.
+5. ``group_items_plain``, the count of items the kernel traces with a
+   group of lanes, is the numpy slab test's past the key's tiles, and 0
+   where the key holds every tile.
+6. ``KernelScene.hit_tiles``, the rows the group split reads, is ``hit``'s
+   tiled rows field by field.
 """
 
 import importlib.util
@@ -60,6 +66,19 @@ def test_hit_table_is_a_column_subset_of_tri(sid):
     np.testing.assert_array_equal(hit[:, len(cols):], 0)
     moved = ks.to("cpu")
     assert torch.equal(moved.hit, ks.hit)
+
+
+def test_hit_tiles_are_the_tiles_rows_field_by_field():
+    """``KernelScene.hit_tiles`` holds each tile's compact rows field by
+    field: [c, f, j] is ``hit``'s field f of row tile_base + c*64 + j."""
+    ks = _kscene("mesh")
+    c = ks.tiles.shape[0]
+    ht = ks.hit_tiles
+    assert ht.shape == (c, tk.HIT_F, tk.TRI_TILE) and ht.is_contiguous()
+    rows = ks.hit[ks.tile_base:ks.tile_base + c * tk.TRI_TILE]
+    for tile, f, j in ((0, 0, 0), (c - 1, tk.HIT_F - 2, 63), (c // 2, 5, 17)):
+        assert ht[tile, f, j] == rows[tile * tk.TRI_TILE + j, f]
+    assert torch.equal(ht.transpose(1, 2).reshape(-1, tk.HIT_F), rows)
 
 
 def _random_rays(g, n, ks):
@@ -199,3 +218,65 @@ def test_k3_input_pool_matches_a_drive_cycle():
         step_cap=64, park_k=3, max_depth=12)[0]
     assert torch.equal(pool, want)
     assert torch.equal(ks.hit, prep.kscene.hit)
+
+
+def test_group_union_model_spans_item_and_warp(k3_pool):
+    """The group-split model's union at R = 1 is the tiles an item tests,
+    at R = 32 a sorted warp's union as the row model counts it, and it
+    grows with R; the tile queries are the items whose line enters a
+    tile."""
+    ks, pool = k3_pool
+    res = COHERENCE.coherence(ks, pool, windows=(1024,))
+    g = res["group_union"]
+    assert g["window"] == 1024
+    assert g["all"][1] == pytest.approx(res["tiles_needed_per_item"])
+    cols, part = pk.live_items(pool, parts=4, park_k=3)
+    tiles = COHERENCE.item_tiles(ks, pool, cols, part)
+    o, d, _ = COHERENCE._item_rays(pool, cols, part)
+    keys = tk.tile_entry_keys(ks, o, d)
+    chunk = cols // 1024
+    order = torch.argsort(chunk * (1 << 33) + keys, stable=True)
+    c_sorted = chunk[order]
+    per_chunk = torch.bincount(c_sorted)
+    start = torch.cumsum(per_chunk, 0) - per_chunk
+    rank = torch.arange(cols.shape[0]) - start[c_sorted]
+    warps = -(-per_chunk // 32)
+    group = (torch.cumsum(warps, 0) - warps)[c_sorted] + rank // 32
+    rows, used = COHERENCE._executed_rows(group, tiles[order], ks.tile_base)
+    warp_union = (rows / 32 - used * ks.tile_base) / tk.TRI_TILE / used
+    assert g["all"][32] == pytest.approx(warp_union)
+    unions = [g["all"][r] for r in COHERENCE.GROUP_RS]
+    assert unions == sorted(unions) and unions[0] < unions[-1]
+    enters = COHERENCE.line_tiles(ks, pool, cols, part).any(dim=1)
+    assert g["tile_query_share"] == pytest.approx(
+        float(enters.float().mean()))
+    assert 0.0 < g["tile_query_share"] < 1.0
+    assert g["tile_queries"][1] >= g["all"][1]
+
+
+def test_group_items_plain_is_the_slab_test_past_the_key(k3_pool):
+    ks, pool = k3_pool
+    assert int(pk.group_items_plain(ks, pool, parts=4, park_k=3)) == 0
+    tiles = ks.tri[ks.tile_base:]
+    big = tk.KernelScene(ks.sph, ks.bnd,
+                         torch.cat([ks.tri[:ks.tile_base]] + [tiles] * 3),
+                         torch.cat([ks.tiles] * 3), ks.tile_base)
+    assert big.tiles.shape[0] > tk.KEY_TILES
+    for parts in (1, 4):
+        cols, part = pk.live_items(pool, parts=parts, park_k=3)
+        o, d, _ = COHERENCE._item_rays(pool, cols, part)
+        o = torch.stack(o, dim=1).numpy()
+        d = torch.stack(d, dim=1).numpy()
+        want = int(_slab_np(big.tiles.numpy(), o, d).any(axis=1).sum())
+        got = pk.group_items_plain(big, pool, parts=parts, park_k=3)
+        assert int(got) == want > 0
+        assert want < cols.shape[0]
+        counter = torch.zeros(1, dtype=torch.int32)
+        pk.trace_resolve_pool(big, pool, seed=7, parts=parts, park_k=3,
+                              group_items=counter)
+        pk.trace_resolve_pool(big, pool, seed=7, parts=parts, park_k=3,
+                              group_items=counter)
+        assert int(counter) == 2 * want
+    with pytest.raises(ValueError, match="group_items"):
+        pk.trace_resolve_pool(big, pool, seed=7, parts=4, park_k=3,
+                              group_items=torch.zeros(2, dtype=torch.int32))

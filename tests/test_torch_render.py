@@ -107,7 +107,7 @@ def test_checkpoint_resume_is_bit_exact(repo_root, tmp_path):
     with np.load(ck) as z:
         assert set(z.files) == {"accum", "samples_done", "next_pass", "seed",
                                 "spp", "npix", "k", "num_rays",
-                                "resolve_segments"}
+                                "resolve_segments", "resolve_group_items"}
         assert int(z["next_pass"]) == 2 and int(z["samples_done"]) == 8
     resumed = tpt.render(scene, cfg, device="cpu", checkpoint_path=ck,
                          checkpoint_every=1, out_dir=None, verbose=False)

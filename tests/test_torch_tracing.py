@@ -176,6 +176,60 @@ def test_resumed_render_restores_its_resolve_segments(scenes, tmp_path):
     assert "resolve_segments" not in from_old.stats.extra
 
 
+def test_portal_render_counts_its_group_items(scenes, monkeypatch, tmp_path):
+    """``resolve_group_items`` gathers what K3 adds to the runner's
+    ``group_items`` counter over the render: 0 on mesh (13 tiles, the key
+    sees them all), one a launch here where a stand-in adds one; a traced
+    render logs it as a ``render.resolve.group`` note beside
+    ``render.resolve``, and a checkpoint keeps it beside
+    ``resolve_segments``."""
+    import numpy as np
+
+    done = _render(scenes["mesh"], spp=2, res=(4, 6))
+    assert done.stats.extra["resolve_group_items"] == 0
+    calls = []
+    real = t_rp.trace_resolve_pool
+
+    def counted(*a, group_items=None, **kw):
+        calls.append(1)
+        out = real(*a, group_items=group_items, **kw)
+        group_items += 1
+        return out
+
+    monkeypatch.setattr(t_rp, "trace_resolve_pool", counted)
+    with _profiled():
+        done = _render(scenes["mesh"], spp=2, res=(4, 6))
+    extra = done.stats.extra
+    assert extra["resolve_group_items"] == len(calls) == extra["cycles"] > 0
+    log = profiling.spans()
+    (note,) = [s for s in log if s.name == "render.resolve.group"]
+    assert (note.size, note.tag) == (len(calls), "plain")
+    assert log[note.parent].name == "render"
+
+    cfg = tpt.RenderConfig(samples_per_pixel=4, samples_per_pass=2,
+                           resolution=tpt.Resolution(4, 6))
+
+    def render(path, cancel=None):
+        return tpt.render(scenes["mesh"], cfg, device="cpu", out_dir=None,
+                          verbose=False, checkpoint_path=path,
+                          checkpoint_every=1, cancel=cancel)
+
+    full = render(None)
+    ck = str(tmp_path / "ck.npz")
+    assert render(ck, cancel=lambda: os.path.exists(ck)).cancelled
+    with np.load(ck) as z:
+        files = {k: z[k] for k in z.files}
+    assert 0 < int(files["resolve_group_items"]) < \
+        full.stats.extra["resolve_group_items"]
+    resumed = render(ck)
+    assert resumed.stats.extra["resolve_group_items"] == \
+        full.stats.extra["resolve_group_items"] == full.stats.extra["cycles"]
+    old = str(tmp_path / "old.npz")
+    np.savez(old, **{k: v for k, v in files.items()
+                     if k != "resolve_group_items"})
+    assert "resolve_group_items" not in render(old).stats.extra
+
+
 def test_preview_frames_and_moves_share_units(scenes):
     r = ProgressiveRenderer(scenes["mesh"], tpt.Resolution(6, 8), device="cpu")
     with _profiled():

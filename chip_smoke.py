@@ -56,9 +56,12 @@ line):
      pool of mesh primary rays at 1024x768, K7 on its first 524,288 lanes
      after K8 and the partition (the v1 shape) and on the 4 x 786,432 lanes
      of a mid-drive park-3 pool (the glue shape, timed beside K3 on the same
-     pool), both sources, with K7's and K8's design lines: registers, shared
-     bytes, blocks an SM, time against the bound, and K7's schedule model
-     (scripts/k4_coherence.py resolve_model). K9 on the mesh preview frame,
+     pool), both sources (the lanes of the deleted v1 and glue routes, from
+     scripts/ablate_k7.py; K7, K8 and K9 have no route, so their launches
+     are those of one call each, counted from 0), with K7's and K8's
+     design lines: registers, shared bytes, blocks an SM, time against
+     the bound, and K7's schedule model (scripts/k4_coherence.py
+     resolve_model). K9 on the mesh preview frame,
      sorted every bounce, equal to K6 on the same rays, timed beside K6;
   4. the main paths through render(), each with the launch counts set to
      0 just before and read just after: cornell 1024x768 at 512 spp (K1),
@@ -66,12 +69,8 @@ line):
      mesh 1024x768 at 1024 spp through the portal (K2 and K3; per-pixel
      counts exact); mesh 1024x768 at 64 spp under PT_TPU_NO_PORTAL (K4);
      two-mesh 1024x768 at 64 spp, which the default router sends to `prim`
-     (K4 and no portal kernel; per-pixel counts exact);
-     mesh 1024x768 at 64 spp through the v2 portal, the v1 scheduler (K8
-     and K7, not K2 or K3) and the glue route (K2 and K7, not K3), each
-     within ulp flips of the v2 image, with their wall, Mray/s and cycles
-     beside those of the commit before K7's and K8's redesign (V1_BEFORE,
-     recorded); small cornell and mesh renders on
+     (K4 and no portal kernel; per-pixel counts exact); small cornell and
+     mesh renders on
      the card agree with the same renders on the CPU far inside Monte Carlo
      noise; a portal render cancelled at its first poll keeps exactly the
      samples it traced;
@@ -161,11 +160,6 @@ FLOPS_RAYGEN = 40  # a tent-filtered camera ray
 # a K5 segment: K1's cornell segment less count_flops.py's raygen share (64
 # of its 608), since K5's rays come from outside
 FLOPS_K5_SEGMENT = FLOPS_K1_SEGMENT - 64
-
-# The v1 and glue renders of phase 4 (mesh 1024x768, 64 spp) with the K7
-# and K8 of the commit before their redesign: wall s, Mray/s, cycles, as
-# its chip_smoke.py printed them (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
-V1_BEFORE = {"v1": (0.426, 1087.0, 92), "glue": (0.559, 827.0, 204)}
 
 FAILURES: list[str] = []
 
@@ -1017,12 +1011,14 @@ def k7_call(fn, ks, state, pix, smp, **kw):
 
 def check_v1(mesh, dev, card, main):
     """K8 on a fresh v1 pool of mesh primary rays at 1024x768 (1,048,576
-    lanes, as the v1 runner sizes it), K7 on the first F_cap lanes of that
-    pool after K8 and the cycle's partition, and K7 at the glue shape (the
-    4 x 786,432 lanes of a mid-drive park-3 v2 pool), each against its
-    plain version with both uniform sources. Returns the K8 and K7
-    kernels-line dicts (K7 timed at the v1 shape; the glue shape's time in
-    k7["glue_ms"])."""
+    lanes, as the deleted v1 scheduler sized it), K7 on the first F_cap
+    lanes of that pool after K8 and the v1 cycle's partition, and K7 at the
+    glue shape (the 4 x 786,432 lanes of a mid-drive park-3 v2 pool), each
+    against its plain version with both uniform sources; the lanes are
+    scripts/ablate_k7.py's. Returns the K8 and K7 kernels-line dicts (K7
+    timed at the v1 shape; the glue shape's time in k7["glue_ms"]), with
+    the launches of one call each (K8 on the v1 pool, K7 at the v1 front),
+    counted from 0 just before it."""
     import numpy as np
     import torch
 
@@ -1031,19 +1027,14 @@ def check_v1(mesh, dev, card, main):
     from path_tracer_tpu_torch.render import portal as rp
     from path_tracer_tpu_torch.render.pipeline import prepare_render
 
+    lanes_of = script_module("ablate_k7")
     seed, max_depth = 7, 12
     prep = prepare_render(mesh, main, dev)
     pc, ks = prep.portal, prep.kscene
     npix = main.num_pixels
-    C = max(min(rp.DEFAULT_POOL, rp._round_block(npix * 4)), rp.CHEAP_BLOCK)
-    F_cap = max(rp.RESOLVE_BLOCK, rp._round_resolve(C // 2))
-    pool = torch.zeros((pk.V1_PORT_ROWS, C), device=dev)
-    pool[pk.ROW_PIX] = -1.0
-    pool, _, _, _ = rp.portal_cycle(  # the refill fills every slot
-        pool, torch.zeros((npix, 3), device=dev), torch.zeros(npix, device=dev),
-        torch.zeros((), dtype=torch.int64, device=dev), limit=64 * npix,
-        sample_base=0, pc=pc, cam=prep.cam, ks=ks, seed=seed, npix=npix,
-        max_depth=max_depth, rr_start_depth=5, F_cap=F_cap)
+    C = min(lanes_of.V1_POOL, rp._round_block(npix * 4))
+    F_cap = C // 2
+    pool = lanes_of.v1_pool(prep, npix, C, limit=C, seed=seed)
     if not bool((pool[pk.ROW_ALIVE] > 0).all()):
         fail("the v1 refill left free slots")
     rng = np.random.default_rng(6)
@@ -1068,10 +1059,15 @@ def check_v1(mesh, dev, card, main):
                 work.get("scan", 0) * (FLOPS_SLAB + pc.scene.prims.shape[0] * FLOPS_TRI)
                 + work.get("shade", 0) * (FLOPS_SHADE + FLOPS_HIT))
             frozen = plain[0]
+    pk.trace_cheap_blocked.launches = 0  # one K8 call on the v1 pool
+    pk.trace_cheap_blocked(pc, pool, seed=seed, max_depth=max_depth)
+    torch.cuda.synchronize()
+    k8["launches"] = pk.trace_cheap_blocked.launches
     print(f"phase 3 K8 mesh v1 pool {C}: {int((frozen[pk.ROW_ALIVE] > 0).sum())} "
           f"lanes frozen at the portal; kernel {k8['ms']:.3f} ms, plain "
           f"{k8['plain_ms']:.1f} ms, bound {k8['bound_ms']:.3f} ms "
-          f"({k8['bound_by']}) ({card})", flush=True)
+          f"({k8['bound_by']}); {k8['launches']} launches a call ({card})",
+          flush=True)
     cfg = pk.cheap_blocked_config(pc)
     print(f"phase 3 K8 design: ptxas "
           f"{' | '.join(ptxas_registers(BUILT['portal_cheap_blocked.cu fmad=True'].log))}; "
@@ -1081,12 +1077,7 @@ def check_v1(mesh, dev, card, main):
           f"{cfg['smem_bytes']} shared bytes a block; {k8['ms']:.3f} ms "
           f"against a {k8['bound_ms']:.3f} ms bound ({card})", flush=True)
 
-    perm = torch.argsort((frozen[pk.ROW_ALIVE] <= 0.0).to(torch.int32), stable=True)
-    front = frozen[:, perm][:, :F_cap]
-    v1_state = tuple(front[a:b] for a, b in ((0, 3), (3, 6), (6, 9), (9, 12),
-                                             (12, 13), (13, 14), (14, 15)))
-    v1_lanes = (v1_state, front[pk.ROW_PIX].to(torch.int32),
-                front[pk.V1_ROW_SAMPLE].to(torch.int32))
+    v1_lanes = lanes_of.v1_front(frozen, F_cap)
     # the glue shape: a park-3 v2 pool two cycles into a drive, then K2
     park_k = 3
     n2 = rp._round_block(npix)
@@ -1098,7 +1089,7 @@ def check_v1(mesh, dev, card, main):
         pool2, _, _ = rp.portal_resolve_phase(pool2, ks, seed=seed, park_k=park_k,
                                               max_depth=max_depth, rr_start_depth=5)
     pool2, _ = pk.trace_cheap_regen(pc, prep.cam, pool2, **cheap)
-    glue_lanes = rp.glue_lanes(pool2, park_k)[:3]
+    glue_lanes = lanes_of.glue_lanes(pool2, park_k)
 
     k7 = {"max_abs_err": 0.0}
     for shape, (state, pix, smp) in (("v1 front", v1_lanes), ("glue", glue_lanes)):
@@ -1137,6 +1128,10 @@ def check_v1(mesh, dev, card, main):
             else:
                 k7["ms"], k7["plain_ms"] = ms, plain_s * 1e3
                 k7["bound_ms"], k7["bound_by"] = bound
+                trace_kernel.trace_resolve.launches = 0  # one K7 call, v1 front
+                k7_call(trace_kernel.trace_resolve, ks, state, pix, smp, **kw)
+                torch.cuda.synchronize()
+                k7["launches"] = trace_kernel.trace_resolve.launches
             k7_design(ks, shape, state, card)
     return k8, k7
 
@@ -1657,7 +1652,6 @@ def main() -> int:
     import path_tracer_tpu_torch as pt
     from path_tracer_tpu_torch.ops.kernels import portal as pk
     from path_tracer_tpu_torch.ops.kernels import trace_kernel, trace_v2
-    from path_tracer_tpu_torch.render import portal as rportal
     from path_tracer_tpu_torch.render.image import read_ppm
     from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution
 
@@ -1698,12 +1692,11 @@ def main() -> int:
                 trace_kernel.trace_resolve, pk.trace_cheap_blocked,
                 trace_kernel.trace_sorted)
 
-    def run(scene, cfg, env=None, pool_resolve=True):
+    def run(scene, cfg, env=None):
         """render() on the card with the launch counts zeroed just before
         and read just after; returns (RenderDone, launches per kernel)."""
         old = {k: os.environ.get(k) for k in (env or {})}
         os.environ.update(env or {})
-        rportal.POOL_RESOLVE = pool_resolve
         try:
             for c in counters:
                 c.launches = 0
@@ -1712,7 +1705,6 @@ def main() -> int:
                                  verbose=False)
             return done, [c.launches for c in counters]
         finally:
-            rportal.POOL_RESOLVE = True
             for k, v in old.items():
                 if v is None:
                     os.environ.pop(k, None)
@@ -1778,47 +1770,12 @@ def main() -> int:
         fail(f"the two-mesh render counted {done.stats.num_samples} samples")
     launches = {"trace_regen": l1[0], "trace_cheap_regen": lp[1],
                 "trace_resolve_pool": lp[2], "trace_regen_prim": lr[3],
+                "trace_resolve": k7["launches"],
+                "trace_cheap_blocked": k8["launches"],
                 "trace_sorted": k9["launches"]}
     diff = float(np.abs(done.image.pixels - mesh_portal).mean())
     print(f"phase 4 mesh portal {spp} spp vs prim 64 spp: mean |Δ| {diff:.4f}",
           flush=True)
-
-    # the v1 scheduler (K8, K7) and the v2 glue route (K2, K7) against the
-    # v2 route (K2, K3) of the same seed, at 64 spp: the same paths, so the
-    # images differ only where ulps part a path
-    cfg64 = RenderConfig(samples_per_pixel=64, resolution=big)
-    v2, lv2 = run(scenes["mesh"], cfg64)
-    report("mesh 1024x768 64 spp (portal v2)", v2, lv2, (0.05, 0.95))
-    v2_seed1, _ = run(scenes["mesh"], cfg64.with_(seed=1))
-    noise = float(np.abs(v2_seed1.image.pixels - v2.image.pixels).mean())
-    for name, kw, want, absent in (
-            ("v1, PT_TPU_PORTAL_V1=1", dict(env={"PT_TPU_PORTAL_V1": "1"}),
-             (6, 7), (1, 2)),
-            ("glue, POOL_RESOLVE False", dict(pool_resolve=False), (1, 6), (2,))):
-        done, lv = run(scenes["mesh"], cfg64, **kw)
-        report(f"mesh 1024x768 64 spp (portal {name})", done, lv, (0.05, 0.95))
-        same = float(np.abs(done.image.pixels - v2.image.pixels).mean())
-        print(f"phase 4 mesh {name} vs v2, 64 spp: mean |Δ| {same:.6f}, v2 seed "
-              f"0 vs 1 {noise:.5f}; Mray/s {done.stats.mrays_per_sec:.1f} vs "
-              f"{v2.stats.mrays_per_sec:.1f}", flush=True)
-        if not all(lv[i] > 0 for i in want) or any(lv[i] for i in absent):
-            fail(f"the {name} render launched {lv} (K1..K9)")
-        if done.stats.num_samples != 64 * big.num_pixels:
-            fail(f"the {name} render counted {done.stats.num_samples} samples")
-        if not same <= 0.25 * noise:
-            fail(f"the {name} render disagrees with v2 beyond ulp flips")
-        wall, mrays, cycles = V1_BEFORE[name.split(",")[0]]
-        print(f"phase 4 mesh {name} 64 spp: wall {done.stats.wall_seconds:.4f} s, "
-              f"{done.stats.mrays_per_sec:.1f} Mray/s, "
-              f"{done.stats.extra.get('cycles')} cycles; before K7's and K8's "
-              f"redesign (recorded) {wall} s, {mrays} Mray/s, {cycles} cycles "
-              f"({card})", flush=True)
-        if name.startswith("v1"):
-            launches["trace_cheap_blocked"], launches["trace_resolve"] = lv[7], lv[6]
-        else:
-            glue_k7 = lv[6]
-    print(f"phase 4 K7 launches: {launches['trace_resolve']} in the v1 render, "
-          f"{glue_k7} in the glue render", flush=True)
 
     # the same counter-based random numbers on both devices: a small render
     # on the card differs from the CPU's only where ulps part a path
@@ -1907,7 +1864,8 @@ def main() -> int:
 
     for name, _, _ in KERNELS:
         if launches.get(name, 0) <= 0:
-            fail(f"{name} was launched no time on its main path")
+            fail(f"{name} was launched no time on its main path (or, for "
+                 "K7, K8 and K9, which have no route, in phase 3)")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

@@ -9,12 +9,8 @@ known:
   (``trace_v2.trace_regen``) once over all pixels, in Morton order.
 - ``portal``: scenes with one mesh of at least 65 triangles and a cheap
   remainder of at most 128 primitives (``mesh``), unless PT_TPU_NO_PORTAL
-  is set. Each pass runs the v2 portal scheduler (``render.portal``) over
-  K2 and K3 (with ``render.portal.POOL_RESOLVE`` off, from
-  PT_TPU_POOL_RESOLVE=0, K2 and K7); progress, cancel and mid-pass
-  checkpoints ride its poll hook. With PT_TPU_PORTAL_V1 set, the v1
-  scheduler instead (K8 and K7), which cancels and checkpoints only
-  between passes, at most 64 spp a pass when checkpointing.
+  is set. Each pass runs the portal scheduler (``render.portal``) over K2
+  and K3; progress, cancel and mid-pass checkpoints ride its poll hook.
 - ``prim`` (the JAX ``pallasr:`` mode): every other scene; each pass
   launches K4 (``trace_kernel.trace_regen_prim``) over all pixels.
 
@@ -30,9 +26,12 @@ rebuilds nothing on the card:
 
 Passes: ``min(spp, 256)`` samples for ``regen`` (``samples_per_pass``
 overrides), at most 64 for ``prim`` (K4's quota cap) and at most
-PT_TPU_PORTAL_PASS_CAP (default 1024) for ``portal``, ``wavefront_pass``'s
-for ``wavefront``. The global sample base of pass i is ``i * k`` with k the
-full pass size.
+``PORTAL_PASS_CAP`` for ``portal``, ``wavefront_pass``'s for
+``wavefront``. The global sample base of pass i is ``i * k`` with k the
+full pass size. A pass runner runs a route's passes (``make_pass_runner``):
+``LanePasses`` those of ``regen``, ``prim`` and ``wavefront``,
+``render.portal.PortalPasses`` the portal's; ``render`` drives progress,
+cancel, checkpoints and the finalize through it alone.
 
 Cancellation keeps completed work: a cancelled render still produces a
 ``RenderDone`` with the partial image and still writes the PPM. A portal
@@ -64,6 +63,7 @@ host's), ``render.fetch``, ``render.finish`` (unpermute, the image's hash),
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import sys
@@ -82,7 +82,7 @@ from path_tracer_tpu_torch.render import integrator
 from path_tracer_tpu_torch.render.image import Image, write_ppm
 from path_tracer_tpu_torch.render.raygen import camera_arrays
 from path_tracer_tpu_torch.render.portal import (
-    make_portal_pass_runner, make_portal_pass_runner_v2,
+    PortalPasses, is_mid_pass, make_portal_pass_runner_v2,
 )
 from path_tracer_tpu_torch.utils import profiling
 from path_tracer_tpu_torch.utils.config import BACKENDS, RenderConfig, Resolution
@@ -92,6 +92,9 @@ from path_tracer_tpu_torch.utils.profiling import RenderStats
 # kernel takes the quota at run time, so this sets only how often progress,
 # cancel and checkpoints are looked at.
 PASS_SAMPLES = 256
+# Samples per pixel in one portal pass at most: progress, cancel and
+# checkpoints ride its polls, so a pass may be long
+PORTAL_PASS_CAP = 1024
 # Seconds between mid-pass checkpoints of a portal pass (PT_TPU_CKPT_SECS)
 CKPT_SECS = 15.0
 # Wavefront lanes (pixels x samples) in one dispatch, the JAX package's
@@ -248,9 +251,105 @@ def pass_size(route: str, spp: int, samples_per_pass: int | None) -> int:
     is ``wavefront_pass``)."""
     if route == "regen":
         return min(samples_per_pass or PASS_SAMPLES, spp)
-    cap = (trace_kernel.QUOTA_CAP_PRIM if route == "prim" else
-           int(os.environ.get("PT_TPU_PORTAL_PASS_CAP", "1024")))
+    cap = trace_kernel.QUOTA_CAP_PRIM if route == "prim" else PORTAL_PASS_CAP
     return min(samples_per_pass or cap, cap, spp)
+
+
+class LanePasses:
+    """The pass runner of the ``regen`` (K1), ``prim`` (K4) and
+    ``wavefront`` routes: a lane a pixel in Morton order
+    (``morton_pixel_order``), so that the lanes of a warp cover a compact
+    screen tile, with accum [rows, 3] in that order until ``unpermute``.
+    ``runner(accum, pass_idx, k_pass)`` runs one ``integrator.render_pass``
+    a pass, or one a pixel chunk of ``chunk`` pixels on the wavefront,
+    whose last chunk's pad lanes redo pixel 0 (their rows are cropped at
+    the end), and returns (accum, segments traced) as ``PortalPasses``
+    does. A pass runs whole: no hook stops it, no checkpoint resumes into
+    it, and the runner keeps no counter of a kernel's."""
+
+    last_partial_counts = None  # no pass stops midway
+
+    def __init__(self, prep: Prepared, res: Resolution, device, *, k: int,
+                 chunk: int = 0, **pass_kw):
+        npix = res.num_pixels
+        self.prep, self.k, self.chunk, self.pass_kw = prep, k, chunk, pass_kw
+        self.rows = -(-npix // chunk) * chunk if chunk else npix
+        perm, self.inv_perm = morton_pixel_order(res.width, res.height)
+        order = torch.zeros(self.rows, dtype=torch.int32)
+        order[:npix] = torch.from_numpy(perm)
+        self.perm = order.to(device)
+        self.dispatches = 0
+
+    def hooks(self, on_check=None, on_pause=None):
+        """No poll runs inside a lane pass: the hooks go unused."""
+        return contextlib.nullcontext()
+
+    def __call__(self, accum, pass_idx, k_pass):
+        kw = dict(self.pass_kw, sample_base=pass_idx * self.k, quota=k_pass)
+        if not self.chunk:
+            self.dispatches += 1
+            return integrator.render_pass(self.prep, accum, self.perm, **kw)
+        rays = 0
+        for start in range(0, self.rows, self.chunk):
+            accum, r = integrator.render_pass(
+                self.prep, accum, self.perm, pixel_chunk=self.chunk,
+                chunk_start=start, **kw)
+            rays = rays + r
+            self.dispatches += 1
+        return accum, rays
+
+    def segments(self, rays: list) -> int:
+        """The segments of the passes' ``rays`` (scalar tensors), read in
+        one transfer."""
+        return int(torch.stack(rays).sum().item())
+
+    def checkpoint_fields(self) -> dict:
+        """The portal route's counters, which every checkpoint keeps: none
+        of them counts on these routes."""
+        return dict.fromkeys(PortalPasses.COUNTERS, 0)
+
+    def resume_mismatches(self, ck) -> list[str]:
+        return (["mid-pass checkpoint needs the portal route (scene or "
+                 "PT_TPU_NO_PORTAL changed?)"] if is_mid_pass(ck) else [])
+
+    def resume(self, ck) -> None:
+        pass
+
+    def unpermute(self, arr: np.ndarray) -> np.ndarray:
+        """accum's rows (their first npix) in pixel order."""
+        return arr[self.inv_perm]
+
+    def report(self, stats: RenderStats) -> None:
+        stats.num_dispatches = self.dispatches
+
+
+def make_pass_runner(prep: Prepared, scene: SceneDescriptor,
+                     config: RenderConfig, device):
+    """The pass runner of ``prep``'s route, built on ``device``: the one
+    place after ``prepare_render`` that looks at the route. Either runner
+    has ``k`` (the full pass size), ``rows`` (accum's), ``runner(accum,
+    pass_idx, k_pass) -> (accum, rays)``, ``hooks``, ``segments``,
+    ``last_partial_counts``, ``checkpoint_fields``, ``resume_mismatches``,
+    ``resume``, ``unpermute`` and ``report``."""
+    res, spp = config.resolution, config.samples_per_pixel
+    kw = dict(seed=config.seed, max_depth=config.max_depth,
+              rr_start_depth=config.rr_start_depth)
+    if prep.route == "wavefront":
+        if prep.mode == "fast":
+            check_fp32_matmul(device)
+        k, chunk = wavefront_pass(res.num_pixels, spp, config.samples_per_pass,
+                                  prep.mode, prep.bufs["tri_v"].shape[0],
+                                  config.pixel_chunk)
+        return LanePasses(prep, res, device, k=k, chunk=chunk,
+                          cam=camera_arrays(scene.camera), width=res.width,
+                          height=res.height, mock_random=config.mock_random,
+                          literal=config.estimator == "literal", **kw)
+    k = pass_size(prep.route, spp, config.samples_per_pass)
+    if prep.route == "portal":
+        return make_portal_pass_runner_v2(
+            prep.portal, prep.cam, prep.kscene, npix=res.num_pixels,
+            k_full=k, device=device, **kw)
+    return LanePasses(prep, res, device, k=k, **kw)
 
 
 def _partial_image(accum, rad, cnt, samples_done: int, npix: int):
@@ -281,9 +380,9 @@ def render(
     holds a non-finite value after a pass."""
     config = config.validated()
     dev = resolve_device(device)
-    literal = config.estimator == "literal"
     backend = config.backend
-    if (config.mock_random or literal) and resolve_backend(backend) == "kernel":
+    if ((config.mock_random or config.estimator == "literal")
+            and resolve_backend(backend) == "kernel"):
         # both are wavefront semantics: the kernels bake the shipped
         # estimator and draw from the counter generator
         backend = "fast"
@@ -301,57 +400,16 @@ def render(
 
     t_start = time.perf_counter()
     prep = prepare_render(scene, res, dev, backend=backend)
-    chunk = 0
-    if prep.route == "wavefront":
-        if prep.mode == "fast":
-            check_fp32_matmul(dev)
-        k, chunk = wavefront_pass(npix, spp, config.samples_per_pass, prep.mode,
-                                  prep.bufs["tri_v"].shape[0], config.pixel_chunk)
-    else:
-        k = pass_size(prep.route, spp, config.samples_per_pass)
-    npix_pad = -(-npix // chunk) * chunk if chunk else npix
-    portal_v1 = prep.route == "portal" and bool(
-        os.environ.get("PT_TPU_PORTAL_V1"))
-    if portal_v1 and checkpoint_path and checkpoint_every:
-        # v1 has no poll hook, so it checkpoints only between passes: keep
-        # them at 64 spp, as the JAX package does (pipeline.py:361-367)
-        k = min(k, 64)
-    full_passes, remainder = divmod(spp, k)
     stats = RenderStats()
     stats.extra["route"] = prep.route
 
     with profiling.span("render.upload"):
-        runner = None
-        perm_dev = inv_perm = None
-        if prep.route == "portal":
-            # accum in pixel order: stages add into it by their pix rows
-            make_runner = (make_portal_pass_runner if portal_v1
-                           else make_portal_pass_runner_v2)
-            runner = make_runner(
-                prep.portal, prep.cam, prep.kscene, npix=npix, k_full=k,
-                seed=config.seed, max_depth=config.max_depth,
-                rr_start_depth=config.rr_start_depth, device=dev)
-            stats.extra["portal_runner"] = "v1" if portal_v1 else "v2"
-        else:
-            # Z-order lanes; accum lives in permuted order until finalize. Pad
-            # lanes of the last wavefront chunk redo pixel 0; their rows are
-            # cropped at the end.
-            perm, inv_perm = morton_pixel_order(res.width, res.height)
-            perm_dev = torch.zeros(npix_pad, dtype=torch.int32)
-            perm_dev[:npix] = torch.from_numpy(perm)
-            perm_dev = perm_dev.to(dev)
-        accum = torch.zeros((npix_pad, 3), dtype=torch.float32, device=dev)
+        runner = make_pass_runner(prep, scene, config, dev)
+        accum = torch.zeros((runner.rows, 3), dtype=torch.float32, device=dev)
+    k = runner.k
+    full_passes, remainder = divmod(spp, k)
     samples_done = 0
     pass_start = 0
-    # K3's segments, a share of num_rays, and the items it traced with a
-    # group of lanes, kept in a checkpoint beside it; None (-1 in the file)
-    # once a resume from a file without them leaves the render's count
-    # unknown
-    resolve_segments: int | None = 0
-    resolve_group_items: int | None = 0
-
-    def unpermute(arr: np.ndarray) -> np.ndarray:
-        return arr if inv_perm is None else arr[inv_perm]
 
     # ---- resume ----
     if checkpoint_path and os.path.exists(checkpoint_path):
@@ -363,39 +421,22 @@ def render(
             )
             if int(ck[name]) != want
         ]
-        if ck["accum"].shape != (npix_pad, 3):
+        if ck["accum"].shape != (runner.rows, 3):
             mismatches.append(
-                f"accum shape {ck['accum'].shape} != {(npix_pad, 3)} (chunking)")
-        mid_pass = "mid_pass" in ck.files and int(ck["mid_pass"])
-        if mid_pass and runner is None:
-            mismatches.append("mid-pass checkpoint needs the portal route "
-                              "(scene or PT_TPU_NO_PORTAL changed?)")
-        elif mid_pass:
-            got = str(ck["slot_layout"]) if "slot_layout" in ck.files \
-                else "single"
-            if got != runner.slot_layout:
-                mismatches.append(f"slot layout {got} != {runner.slot_layout}")
+                f"accum shape {ck['accum'].shape} != {(runner.rows, 3)} "
+                "(chunking)")
+        mismatches += runner.resume_mismatches(ck)
         if not mismatches:
             accum = torch.from_numpy(np.asarray(ck["accum"], np.float32)).to(dev)
             samples_done = int(ck["samples_done"])
             pass_start = int(ck["next_pass"])
             stats.num_rays = int(ck["num_rays"])
-            got = (int(ck["resolve_segments"])
-                   if "resolve_segments" in ck.files else -1)
-            resolve_segments = got if got >= 0 else None
-            got = (int(ck["resolve_group_items"])
-                   if "resolve_group_items" in ck.files else -1)
-            resolve_group_items = got if got >= 0 else None
             stats.resumed_samples = samples_done
-            if mid_pass:
-                # resume INTO pass `pass_start`: every remaining sample id
-                # renders exactly once
-                runner.resume_slots = (
-                    ck["slot_pix"], ck["slot_done"], ck["slot_quota"])
-                runner.resume_cycle0 = int(ck["cycle0"])
+            # a mid-pass file resumes INTO pass `pass_start`
+            runner.resume(ck)
             if verbose:
                 print(f"Resumed from {checkpoint_path} at {samples_done}/{spp} spp"
-                      + (" (mid-pass)" if mid_pass else ""))
+                      + (" (mid-pass)" if is_mid_pass(ck) else ""))
         else:
             # a silently dropped checkpoint would discard hours of
             # accumulation without a trace — ALWAYS say why it was ignored
@@ -410,24 +451,27 @@ def render(
     ray_handles: list[torch.Tensor] = []
 
     def drain_rays():
-        nonlocal ray_handles, resolve_segments, resolve_group_items
+        nonlocal ray_handles
         if ray_handles:
-            counts = torch.stack(ray_handles)
-            if runner is not None and runner.resolve_table is not None:
-                # a v2 portal pass with K3 counts [K2's, the resolve's],
-                # read in one with the items K3 traced with a group of
-                # lanes (every launch so far), whose counter restarts
-                cheap, resolve, group = torch.cat([
-                    counts.sum(0), runner.group_items.to(torch.int64)]).tolist()
-                runner.group_items.zero_()
-                stats.num_rays += cheap + resolve
-                if resolve_segments is not None:
-                    resolve_segments += resolve
-                if resolve_group_items is not None:
-                    resolve_group_items += group
-            else:
-                stats.num_rays += int(counts.sum().item())
+            stats.num_rays += runner.segments(ray_handles)
         ray_handles = []
+
+    def write_checkpoint(accum_dev, next_pass, **fields):
+        # every retired sample is in accum; a mid-pass file's ``fields``
+        # give each slot's remaining range, and the rays of the pass so far
+        # stay with the runner: num_rays in the file is a floor
+        with profiling.span("render.checkpoint"):
+            drain_rays()
+            np.savez(
+                checkpoint_path,
+                accum=accum_dev.cpu().numpy(),
+                samples_done=samples_done,
+                next_pass=next_pass,
+                seed=config.seed, spp=spp, npix=npix, k=k,
+                num_rays=stats.num_rays,
+                **runner.checkpoint_fields(),
+                **fields,
+            )
 
     last_update = 0.0
     last_image_t = 0.0
@@ -458,141 +502,78 @@ def render(
                 last_image_cost = last_image_t - now
         elif progress_snapshots and samples_done > 0:
             partial = integrator.finalize(accum[:npix], samples_done)
-            img = Image.new(unpermute(partial.cpu().numpy()), res)
+            img = Image.new(runner.unpermute(partial.cpu().numpy()), res)
         progress(RenderUpdate(
             progress=min((samples_done + extra_samples) / spp, 1.0), image=img,
             samples_done=samples_done, stats=stats,
         ))
 
-    if hasattr(runner, "set_hooks") and (
-            progress is not None or cancel is not None
-            or (checkpoint_path and checkpoint_every)):
-        # progress, cancel and time-based checkpoints ride the drive's poll
-        # hook: a portal pass is up to 1024 spp, far too coarse for them
-        mid_ckpt = bool(checkpoint_path and checkpoint_every)
-        ck_state = {"t": time.monotonic()}
-        ck_secs = float(os.environ.get("PT_TPU_CKPT_SECS", str(CKPT_SECS)))
+    # progress, cancel and time-based checkpoints also ride a portal pass's
+    # poll hook: a pass is up to PORTAL_PASS_CAP spp, far too coarse for them
+    mid_ckpt = bool(checkpoint_path and checkpoint_every)
+    last_ckpt = time.monotonic()
+    ck_secs = float(os.environ.get("PT_TPU_CKPT_SECS", str(CKPT_SECS)))
 
-        def portal_hook(cycle, w, unfin, *, snapshot=None):
-            if progress is not None:
-                frac = 1.0 - min(unfin / runner.total_slots, 1.0)
-                maybe_progress(extra_samples=frac * current_k_pass,
-                               snapshot=snapshot)
-            if cancel is not None and cancel():
-                return "cancel"
-            if mid_ckpt and time.monotonic() - ck_state["t"] >= ck_secs:
-                return "pause"
-            return False
+    def poll_hook(cycle, w, unfin, *, snapshot=None):
+        if progress is not None:
+            frac = 1.0 - min(unfin / npix, 1.0)
+            maybe_progress(extra_samples=frac * current_k_pass,
+                           snapshot=snapshot)
+        if cancel is not None and cancel():
+            return "cancel"
+        if mid_ckpt and time.monotonic() - last_ckpt >= ck_secs:
+            return "pause"
+        return False
 
-        def save_mid_pass(accum_dev, slot_rows, pass_idx, k_pass):
-            # accum holds every retired sample; slot_rows = (pix, done,
-            # quota) give the remaining per-slot ranges [done, quota). The
-            # current pass's rays so far stay with the runner: num_rays in
-            # the file is a floor.
-            with profiling.span("render.checkpoint"):
-                drain_rays()
-                np.savez(
-                    checkpoint_path,
-                    accum=accum_dev.cpu().numpy(),
-                    samples_done=samples_done,
-                    next_pass=pass_idx,
-                    seed=config.seed, spp=spp, npix=npix, k=k,
-                    num_rays=stats.num_rays,
-                    resolve_segments=(-1 if resolve_segments is None
-                                      else resolve_segments),
-                    resolve_group_items=(-1 if resolve_group_items is None
-                                         else resolve_group_items),
-                    mid_pass=1,
-                    cycle0=int(runner.last_pause_cycles),
-                    slot_layout=runner.slot_layout,
-                    slot_pix=slot_rows[0], slot_done=slot_rows[1],
-                    slot_quota=slot_rows[2],
-                )
-            ck_state["t"] = time.monotonic()
+    def save_mid_pass(accum_dev, pass_idx, fields):
+        nonlocal last_ckpt
+        write_checkpoint(accum_dev, pass_idx, **fields)
+        last_ckpt = time.monotonic()
 
-        runner.set_hooks(on_check=portal_hook,
-                         on_pause=save_mid_pass if mid_ckpt else None)
-
-    def run_pass(pass_idx: int, k_pass: int):
-        nonlocal accum
-        if runner is not None:
-            accum, rays = runner(accum, pass_idx, k_pass)
-            return rays
-        kw = dict(seed=config.seed, sample_base=pass_idx * k, quota=k_pass,
-                  max_depth=config.max_depth,
-                  rr_start_depth=config.rr_start_depth)
-        if prep.route != "wavefront":
-            accum, rays = integrator.render_pass(prep, accum, perm_dev, **kw)
-            return rays
-        rays = 0
-        for start in range(0, npix_pad, chunk or npix_pad):
-            accum, r = integrator.render_pass(
-                prep, accum, perm_dev, cam=cam, width=res.width,
-                height=res.height, mock_random=config.mock_random,
-                literal=literal, pixel_chunk=chunk, chunk_start=start, **kw)
-            rays = rays + r
-        return rays
-
-    cam = camera_arrays(scene.camera)
+    hooked = progress is not None or cancel is not None or mid_ckpt
 
     # ---- pass schedule: full passes of k samples, then one remainder pass ----
     schedule = [(i, k) for i in range(pass_start, full_passes)]
     if remainder and full_passes >= pass_start:
         schedule.append((full_passes, remainder))
 
-    for pass_idx, k_pass in schedule:
-        if cancel is not None and cancel():
-            if verbose:
-                print("Canceling render prematurely")
-            cancelled = True
-            break
-        current_k_pass = k_pass
-        with profiling.span("render.pass", k_pass):
-            ray_handles.append(run_pass(pass_idx, k_pass))
-        if runner is None:  # a portal render's count is its cycles'
-            stats.num_dispatches += npix_pad // chunk if chunk else 1
-        if debug_nans and not bool(torch.isfinite(accum).all()):
-            raise FloatingPointError(
-                f"non-finite radiance in the accumulator after pass {pass_idx} "
-                f"({int((~torch.isfinite(accum)).any(dim=1).sum())} pixels)")
-        if runner is not None and runner.last_cancelled:
-            # cancelled mid-pass by freeze-and-drain: every started sample
-            # is in accum, runner.last_partial_counts holds the counts
-            if verbose:
-                print("Canceling render prematurely")
-            cancelled = True
-            break
-        samples_done += k_pass
-        stats.num_samples += k_pass * npix
-        maybe_progress()
-
-        if checkpoint_path and checkpoint_every and (
-            (pass_idx + 1) % checkpoint_every == 0
-        ):
-            with profiling.span("render.checkpoint"):
-                drain_rays()  # the snapshot stores the count up to this pass
-                np.savez(
-                    checkpoint_path,
-                    accum=accum.cpu().numpy(),
-                    samples_done=samples_done,
-                    next_pass=pass_idx + 1,
-                    seed=config.seed,
-                    spp=spp,
-                    npix=npix,
-                    k=k,
-                    num_rays=stats.num_rays,
-                    resolve_segments=(-1 if resolve_segments is None
-                                      else resolve_segments),
-                    resolve_group_items=(-1 if resolve_group_items is None
-                                         else resolve_group_items),
-                )
+    with runner.hooks(on_check=poll_hook if hooked else None,
+                      on_pause=save_mid_pass if mid_ckpt else None):
+        for pass_idx, k_pass in schedule:
+            if cancel is not None and cancel():
+                if verbose:
+                    print("Canceling render prematurely")
+                cancelled = True
+                break
+            current_k_pass = k_pass
+            with profiling.span("render.pass", k_pass):
+                accum, rays = runner(accum, pass_idx, k_pass)
+                ray_handles.append(rays)
+            if debug_nans and not bool(torch.isfinite(accum).all()):
+                raise FloatingPointError(
+                    f"non-finite radiance in the accumulator after pass "
+                    f"{pass_idx} ({int((~torch.isfinite(accum)).any(dim=1).sum())} "
+                    "pixels)")
+            if runner.last_partial_counts is not None:
+                # cancelled mid-pass by freeze-and-drain: every started
+                # sample is in accum, the runner holds the counts
+                if verbose:
+                    print("Canceling render prematurely")
+                cancelled = True
+                break
+            samples_done += k_pass
+            stats.num_samples += k_pass * npix
+            maybe_progress()
+            if mid_ckpt and (pass_idx + 1) % checkpoint_every == 0:
+                # the file stores the count up to this pass
+                write_checkpoint(accum, pass_idx + 1)
 
     # ---- finalize ----
     profiling.sync_span("render.wait", dev)
-    if cancelled and runner is not None and runner.last_partial_counts is not None:
+    cnt = runner.last_partial_counts
+    if cnt is not None:
         # normalize each pixel by its exact retired count: completed passes
         # plus the cancelled pass's ragged counts
-        cnt = runner.last_partial_counts
         stats.num_samples += int(cnt.sum().item())
         final = _partial_image(accum, torch.zeros_like(accum), cnt,
                                samples_done, npix)
@@ -603,22 +584,10 @@ def render(
     drain_rays()
     duration = time.perf_counter() - t_start
     stats.wall_seconds = duration
-    if runner is not None:
-        stats.extra.update(cycles=runner.total_cycles, polls=runner.total_polls)
-        if runner.resolve_table is not None and resolve_segments is not None:
-            stats.extra.update(resolve_segments=resolve_segments,
-                               resolve_table=runner.resolve_table)
-            profiling.note("render.resolve", resolve_segments,
-                           runner.resolve_table)
-            if resolve_group_items is not None:
-                stats.extra["resolve_group_items"] = resolve_group_items
-                profiling.note("render.resolve.group", resolve_group_items,
-                               runner.resolve_group)
-        # two launches a cycle: K2 and K3 (or K7) on v2, K8 and K7 on v1
-        stats.num_dispatches = 2 * runner.total_cycles
+    runner.report(stats)
 
     with profiling.span("render.finish"):
-        image = Image.new(unpermute(final_np), res)
+        image = Image.new(runner.unpermute(final_np), res)
     if verbose:
         print("Rendering complete" if not cancelled else "Rendering cancelled")
 

@@ -1,8 +1,8 @@
-"""The portal schedulers: pools of mesh paths cycled through the portal
-kernels, the counterpart of the JAX package's ``render.portal``.
+"""The portal scheduler: a pool of mesh paths cycled through the portal
+kernels, the counterpart of the JAX package's ``render.portal`` (its v2
+scheduler).
 
-v2, the default (``make_portal_pass_runner_v2``): slot i of a pixel-pinned
-pool owns pixel ``pix`` row i; each cycle runs
+Slot i of a pixel-pinned pool owns pixel ``pix`` row i; each cycle runs
 
     K2 trace_cheap_regen  (cheap bounces, in-kernel regeneration, portal
                            freeze, parking; at most step_cap steps a slot)
@@ -14,18 +14,14 @@ drains, the unfinished tail is compacted down a ladder of narrower pools
 (``TAIL_LADDER``), and finished slots adopt the upper half of laggards'
 remaining sample ranges (``redistribute_samples``). At pass end every
 stage's acc rows add into the framebuffer keyed by their pix row; per-pixel
-sample counts are exact by construction. With ``POOL_RESOLVE`` off
-(PT_TPU_POOL_RESOLVE=0) the resolve is the glue branch instead: K7
-``trace_resolve`` over the active paths and buffers side by side, and the
-bookkeeping in torch (``glue_lanes``, ``_resolve_glue``).
-
-v1 (``make_portal_pass_runner``, PT_TPU_PORTAL_V1): a pool of free slots;
-each cycle runs K8 ``trace_cheap_blocked``, compacts the frozen paths to
-the front, resolves them with K7, retires dead paths into the framebuffer
-and refills free slots with fresh samples (``portal_cycle``). It cancels
-and checkpoints only between passes.
+sample counts are exact by construction. ``PortalPasses`` runs a render's
+passes and keeps K3's counters.
 
 Not ported, each for its reason (ROADMAP.md, Slice 2 crosswalk):
+the v1 scheduler (``portal_cycle``, ``make_portal_pass_runner``) and the
+glue resolve (K7 and torch around it), which this scheduler beat or tied
+wherever they were measured on the card (their kernels K8 and K7 stay,
+with no route);
 ``portal_cycles_v2`` (fusing cycles into one dispatch amortised a ~1.75 ms
 remote-TPU dispatch), narrow resolves (``PT_TPU_NARROW_BUFS``), the
 resolve-lane sorts (``sort_lanes``, ``_tile_slab_masks``,
@@ -37,34 +33,22 @@ option (no render passes one); the sharded runner's ``flush_pix`` and
 
 from __future__ import annotations
 
-import os
+import contextlib
 
 import numpy as np
 import torch
 
 from path_tracer_tpu_torch.ops.kernels import portal as pm
 from path_tracer_tpu_torch.ops.kernels.portal import (
-    BUF_STATE, ROW_ACC, ROW_ALIVE, ROW_PIX, ROW_PREV, V1_PORT_ROWS,
-    V1_ROW_SAMPLE, V2_ROW_DONE, V2_ROW_PIX, V2_ROW_QUOTA, V3_ROW_STARTED,
-    buf_row, port_rows, trace_cheap_blocked, trace_cheap_regen,
+    BUF_STATE, ROW_ACC, ROW_ALIVE, ROW_PREV, V2_ROW_DONE, V2_ROW_PIX,
+    V2_ROW_QUOTA, V3_ROW_STARTED, buf_row, port_rows, trace_cheap_regen,
     trace_resolve_pool,
-)
-from path_tracer_tpu_torch.ops.kernels.trace_kernel import (
-    make_raygen, path_uniforms, trace_resolve,
 )
 from path_tracer_tpu_torch.render import drive
 from path_tracer_tpu_torch.utils import profiling
 
 F32 = torch.float32
 CHEAP_BLOCK = 2048  # pool widths are multiples of this
-RESOLVE_BLOCK = 1024  # v1: K7's lane count is a multiple of this
-# v1 pool capacity (lanes): 1M lanes = 68 MB of pool state
-DEFAULT_POOL = 1 << 20
-
-# The v2 resolve: K3 (True) or the glue branch, K7 and torch (False). Read
-# once at import from PT_TPU_POOL_RESOLVE, as the JAX package does; tests
-# and chip_smoke.py set the attribute, which drive_pool_v2 reads per drive.
-POOL_RESOLVE = os.environ.get("PT_TPU_POOL_RESOLVE", "1") != "0"
 
 # tail-compaction ladder: fixed pool widths the unfinished tail is squeezed
 # into once it fits, so that late cycles cost in proportion to the tail
@@ -86,100 +70,19 @@ def _unfinished(pool):
     return (pool[V2_ROW_DONE] < pool[V2_ROW_QUOTA]).sum()
 
 
-def glue_lanes(pool, park_k: int):
-    """K7's input on the glue route: the active paths and the park_k
-    buffers of a v2 pool concatenated along the lane axis ((park_k + 1) * n
-    lanes, part-major, as the JAX package's ``render/portal.py:462-487``).
-    A buffer lane counts as alive only where it holds a frozen path, with a
-    zero acc. Returns (the seven state arrays, pixel_idx, sample_idx, the
-    buffers' frozen masks)."""
-    n = pool.shape[1]
-
-    def part_rows(r0, rb, k):
-        return torch.cat([pool[r0:r0 + k]]
-                         + [pool[buf_row(j, rb):buf_row(j, rb) + k]
-                            for j in range(park_k)], dim=1)
-
-    frozen = [(pool[buf_row(j, BUF_STATE)] > 0.5)
-              & (pool[buf_row(j, BUF_STATE)] < 1.5) for j in range(park_k)]
-    acc_in = torch.cat([pool[ROW_ACC:ROW_ACC + 3],
-                        torch.zeros((3, park_k * n), dtype=F32,
-                                    device=pool.device)], dim=1)
-    alive_in = torch.cat([pool[ROW_ALIVE]] + [f.to(F32) for f in frozen])[None]
-    state = (part_rows(pm.ROW_O, pm.BUF_O, 3), part_rows(pm.ROW_D, pm.BUF_D, 3),
-             part_rows(pm.ROW_THR, pm.BUF_THR, 3), acc_in, alive_in,
-             part_rows(ROW_PREV, pm.BUF_PREV, 1),
-             part_rows(pm.ROW_DEPTH, pm.BUF_DEPTH, 1))
-    pix = pool[V2_ROW_PIX].to(torch.int32).repeat(park_k + 1)
-    smp = torch.cat([pool[pm.sample_row(park_k)]] + [
-        pool[pm.sample_row(park_k, j)] for j in range(park_k)]).to(torch.int32)
-    return state, pix, smp, frozen
-
-
-def _resolve_glue(pool, ks, *, seed: int, park_k: int, max_depth: int,
-                  rr_start_depth: int, uniforms=None):
-    """The resolve phase composed in torch around K7, the JAX package's
-    glue branch (``render/portal.py:462-564``): K7 over ``glue_lanes``,
-    then K3's bookkeeping. Slot acc and done add the parts in part order,
-    as K3 does, so the pool equals K3's bit for bit. ``uniforms`` [4,
-    (park_k + 1) * n] as K3's."""
-    n = pool.shape[1]
-    state, pix, smp, frozen = glue_lanes(pool, park_k)
-    o, d, thr, acc, alive, prev, depth, c2 = trace_resolve(
-        ks, *state, pixel_idx=pix, sample_idx=smp, seed=seed,
-        max_depth=max_depth, rr_start_depth=rr_start_depth, uniforms=uniforms)
-
-    def part(x, j):  # part 0 the active path, part j >= 1 buffer j-1
-        return x[:, j * n:(j + 1) * n]
-
-    out = pool.clone()
-    ended = (pool[ROW_ALIVE] > 0.0) & (part(alive, 0)[0] <= 0.0)
-    out[pm.ROW_O:pm.ROW_O + 3] = part(o, 0)
-    out[pm.ROW_D:pm.ROW_D + 3] = part(d, 0)
-    out[pm.ROW_THR:pm.ROW_THR + 3] = part(thr, 0)
-    out[ROW_ACC:ROW_ACC + 3] = part(acc, 0)
-    out[ROW_ALIVE] = part(alive, 0)[0]
-    out[ROW_PREV] = part(prev, 0)[0]
-    out[pm.ROW_DEPTH] = part(depth, 0)[0]
-    out[V2_ROW_DONE] = pool[V2_ROW_DONE] + ended.to(F32)
-    for j in range(park_k):
-        proc = frozen[j]
-        b = buf_row(j)
-        for r0, src, k in ((pm.BUF_O, o, 3), (pm.BUF_D, d, 3),
-                           (pm.BUF_THR, thr, 3), (pm.BUF_PREV, prev, 1),
-                           (pm.BUF_DEPTH, depth, 1)):
-            out[b + r0:b + r0 + k] = torch.where(
-                proc, part(src, j + 1), pool[b + r0:b + r0 + k])
-        out[ROW_ACC:ROW_ACC + 3] = out[ROW_ACC:ROW_ACC + 3] + part(acc, j + 1)
-        lives = part(alive, j + 1)[0] > 0.0
-        out[b + BUF_STATE] = torch.where(
-            proc, torch.where(lives, 2.0, 0.0), pool[b + BUF_STATE])
-        out[V2_ROW_DONE] = out[V2_ROW_DONE] + (proc & ~lives).to(F32)
-    return out, c2.sum().to(torch.int64)
-
-
 def portal_resolve_phase(pool, ks, *, seed: int, park_k: int, max_depth: int,
-                         rr_start_depth: int, pool_resolve: bool = True,
-                         uniforms=None, group_items=None):
-    """The resolve half of a cycle over the active path and every parked
-    buffer: K3, or with ``pool_resolve=False`` or injected ``uniforms`` (K3's
-    [4, (park_k + 1) * n] layout) the glue branch, K7 and torch
-    (``_resolve_glue``), as the JAX package chooses. K3 adds the items it
-    traces with a group of lanes to ``group_items`` (``trace_resolve_pool``)
-    where given. Returns (pool', segments traced, unfinished slots), the
-    last two as scalar tensors on the pool's device."""
-    if pool_resolve and uniforms is None:
-        pool, counts = trace_resolve_pool(
-            ks, pool, seed=seed, parts=park_k + 1, park_k=park_k,
-            max_depth=max_depth, rr_start_depth=rr_start_depth,
-            group_items=group_items)
-        rays = counts.sum(dtype=torch.int64)
-    else:
-        pool, rays = _resolve_glue(pool, ks, seed=seed, park_k=park_k,
-                                   max_depth=max_depth,
-                                   rr_start_depth=rr_start_depth,
-                                   uniforms=uniforms)
-    return pool, rays, _unfinished(pool)
+                         rr_start_depth: int, uniforms=None, group_items=None):
+    """The resolve half of a cycle: K3 (``trace_resolve_pool``) over the
+    active path and every parked buffer, drawing from injected ``uniforms``
+    ([4, (park_k + 1) * n]) where given, and adding the items it traces
+    with a group of lanes to ``group_items`` where given. Returns (pool',
+    segments traced, unfinished slots), the last two as scalar tensors on
+    the pool's device."""
+    pool, counts = trace_resolve_pool(
+        ks, pool, seed=seed, parts=park_k + 1, park_k=park_k,
+        max_depth=max_depth, rr_start_depth=rr_start_depth, uniforms=uniforms,
+        group_items=group_items)
+    return pool, counts.sum(dtype=torch.int64), _unfinished(pool)
 
 
 def resolve_table(ks, device) -> str:
@@ -204,22 +107,20 @@ def resolve_group(ks, device) -> str:
 
 def portal_cycle_v2(pool, pc, cam, ks, *, quota: int, sample_base: int,
                     seed: int, step_cap: int, park_k: int, max_depth: int,
-                    rr_start_depth: int, pool_resolve: bool = True,
-                    group_items=None):
+                    rr_start_depth: int, group_items=None):
     """One cycle: K2 until every slot is frozen (parked park_k deep), out of
-    samples or step-capped, then the resolve phase (K3, or K7 and torch with
-    ``pool_resolve=False``). A capped but unfrozen path just has its next
-    segment traced by the full scene (which contains the cheap scene).
+    samples or step-capped, then the resolve phase (K3). A capped but
+    unfrozen path just has its next segment traced by the full scene
+    (which contains the cheap scene).
     Returns (pool', segments traced, unfinished slots): the segments an
-    int64 [2] tensor, K2's and the resolve's, the slots a scalar tensor."""
+    int64 [2] tensor, K2's and K3's, the slots a scalar tensor."""
     pool, c1 = trace_cheap_regen(
         pc, cam, pool, seed=seed, quota=quota, sample_base=sample_base,
         step_cap=step_cap, park_k=park_k, max_depth=max_depth,
         rr_start_depth=rr_start_depth)
     pool, c2, unfin = portal_resolve_phase(
         pool, ks, seed=seed, park_k=park_k, max_depth=max_depth,
-        rr_start_depth=rr_start_depth, pool_resolve=pool_resolve,
-        group_items=group_items)
+        rr_start_depth=rr_start_depth, group_items=group_items)
     return pool, torch.stack([c1.sum(dtype=torch.int64), c2]), unfin
 
 
@@ -409,11 +310,6 @@ def _pool_from_rows(pix, done, quota, *, n_pad: int, park_k: int, device):
     return pool
 
 
-def _pm_park_k() -> int:
-    """The parked-buffer depth, read at call time (tests lower it)."""
-    return pm.PARK_K
-
-
 def _stall_limits(k_pass, max_depth):
     """(stall_limit polls, hard_limit cycles), the drive's two runaway
     backstops; both scale with the quota (no slot retires until deep into
@@ -434,12 +330,11 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
     Returns the drive.DriveResult: its stages (the original pool and one per
     compaction) and its redistribution flush, merged by merge_stages,
     reconstruct the retired radiance exactly; its rays are the segments
-    traced as portal_cycle_v2 counts them, [K2's, the resolve's].
+    traced as portal_cycle_v2 counts them, [K2's, K3's].
     ``on_check(cycle, width, unfin[, snapshot])`` is the poll hook (see
     render.drive); ``group_items`` goes to every K3 launch
     (``portal_resolve_phase``)."""
     step_cap = STEP_CAP
-    pool_resolve = POOL_RESOLVE
     redist_min = _redist_min(k_pass)
     redist = k_pass >= 2 * redist_min  # a laggard needs 2 * redist_min left
     # flush and snapshot buffers are keyed by global pixel id: they cover
@@ -455,7 +350,7 @@ def drive_pool_v2(pool, k_pass: int, sample_base: int, *, pc, cam, ks,
                 pool, pc, cam, ks, quota=k_pass, sample_base=sample_base,
                 seed=seed, step_cap=step_cap, park_k=park_k,
                 max_depth=max_depth, rr_start_depth=rr_start_depth,
-                pool_resolve=pool_resolve, group_items=group_items)
+                group_items=group_items)
             rays = rays + r
         return pool, rays, unfin
 
@@ -504,86 +399,117 @@ def merge_stages(accum, stages, flush):
     return accum
 
 
-def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
-                               seed: int, max_depth: int = 12,
-                               rr_start_depth: int = 5, on_check=None,
-                               on_pause=None, device):
-    """The portal pass runner: ``runner(accum, pass_idx, k_pass)`` gives
-    every pixel slot a quota of k_pass samples (global indices pass_idx *
-    k_full ..), cycles the pool until every slot retires its quota, adds the
-    retired radiance into accum [npix, 3] (pixel order) and returns (accum,
-    segments traced), the segments an int64 [2] tensor: K2's and the
-    resolve's. ``.resolve_table`` says where the last pass's K3 read its
-    rows (``resolve_table``), None where the glue branch resolved, and
-    ``.resolve_group`` the lanes it traced a tile-entering item with
-    (``resolve_group``). ``.group_items``, an int32 [1] tensor on the
-    device, gathers the items K3 traced with a group of lanes; the render
-    reads and zeroes it where it drains the segment counts.
+def is_mid_pass(ck) -> bool:
+    """Does the checkpoint ``ck`` (an ``np.load`` of its file) resume into
+    a pass, from a portal pass's pause?"""
+    return "mid_pass" in ck.files and bool(int(ck["mid_pass"]))
 
-    on_check(cycle, width, unfin): the poll hook. Falsy continues; "pause"
-    asks for a mid-pass checkpoint; any other truthy value cancels. Both
-    stop by freeze-and-drain (render.drive), so every started sample
-    retires and merges exactly:
 
-    - cancel: ``.last_cancelled`` flips and ``.last_partial_counts`` holds
-      the exact per-pixel retired counts [npix] of the pass;
-    - pause: on_pause(accum, (pix, done, quota) slot rows, pass_idx, k_pass)
-      persists the checkpoint, and the pass goes on from the thawed pool.
+class PortalPasses:
+    """The portal route's pass runner: ``runner(accum, pass_idx, k_pass)``
+    gives every pixel slot a quota of k_pass samples (global indices
+    pass_idx * k_full ..), cycles the pool until every slot retires its
+    quota, adds the retired radiance into accum [npix, 3] (pixel order)
+    and returns (accum, segments traced), the segments an int64 [2]
+    tensor: K2's and K3's.
 
-    Resume: set ``.resume_slots = (pix, done, quota)`` (and
-    ``.resume_cycle0``) before the call; the pool continues exactly those
-    per-slot sample ranges. ``.set_hooks(on_check=, on_pause=)`` rebinds
-    the hooks."""
-    n_pad = _round_block(npix)
-    hooks = {"on_check": on_check, "on_pause": on_pause}
-    device = torch.device(device)
+    The runner keeps K3's counters: its segments and the live items it
+    traced with a group of lanes (``group_items``, an int32 [1] tensor on
+    the device that every launch adds to). ``segments`` reads both with
+    the passes' counts in one transfer; ``checkpoint_fields`` and
+    ``resume`` carry them through a checkpoint; ``report`` puts them, the
+    cycles and polls into a render's stats and notes.
 
-    def set_hooks(on_check=None, on_pause=None):
-        if on_check is not None:
-            hooks["on_check"] = on_check
-        if on_pause is not None:
-            hooks["on_pause"] = on_pause
+    ``hooks(on_check, on_pause)`` holds the poll hooks while the passes run.
+    on_check(cycle, width, unfin[, snapshot]): falsy continues; "pause" asks
+    for a mid-pass checkpoint; any other truthy value cancels. Both stop
+    by freeze-and-drain (render.drive), so every started sample retires and
+    merges exactly:
 
-    def pass_runner(accum, pass_idx, k_pass):
-        pass_runner.last_cancelled = False
-        pass_runner.last_partial_counts = None
-        sample_base = pass_idx * k_full
-        park_k = _pm_park_k()
+    - cancel: ``.last_partial_counts`` holds the exact per-pixel retired
+      counts [npix] of the pass (None after a pass that ran to its end);
+    - pause: on_pause(accum, pass_idx, fields) persists a checkpoint, with
+      ``fields`` the remaining per-slot sample ranges and the cycle count,
+      and the pass goes on from the thawed pool.
 
-        resume = pass_runner.resume_slots
-        pass_runner.resume_slots = None
-        cycle0 = int(pass_runner.resume_cycle0 or 0) if resume is not None else 0
-        pass_runner.resume_cycle0 = None
+    ``resume`` of such a file makes the next call continue exactly those
+    per-slot ranges (``.resume_slots`` (pix, done, quota), from cycle
+    ``.resume_cycle0``)."""
+
+    slot_layout = "single"  # a mid-pass file's slot rows: one pool
+    # K3's counters, in the order every checkpoint keeps them (the lane
+    # routes write them as 0)
+    COUNTERS = ("resolve_segments", "resolve_group_items")
+
+    def __init__(self, pc, cam, ks, *, npix: int, k_full: int, seed: int,
+                 max_depth: int = 12, rr_start_depth: int = 5, device):
+        self.pc, self.cam, self.ks = pc, cam, ks
+        self.rows = self.npix = npix  # accum rows: pixels, in pixel order
+        self.k = k_full
+        self.seed, self.max_depth = seed, max_depth
+        self.rr_start_depth = rr_start_depth
+        self.device = torch.device(device)
+        self.on_check = self.on_pause = None
+        self.last_partial_counts = None
+        self.resume_slots = self.resume_cycle0 = None
+        self.total_cycles = self.total_polls = 0  # over every pass
+        # where the last pass's K3 read its rows (``resolve_table``) and
+        # the lanes it traced a tile-entering item with (``resolve_group``)
+        self.resolve_table = self.resolve_group = None
+        self.group_items = torch.zeros(1, dtype=torch.int32, device=self.device)
+        # K3's segments, a share of the render's, and its group items; None
+        # once a resume from a file without one leaves its count unknown
+        self.resolve_segments: int | None = 0
+        self.resolve_group_items: int | None = 0
+
+    @contextlib.contextmanager
+    def hooks(self, on_check=None, on_pause=None):
+        """The poll hooks of the passes run inside the block, dropped when
+        it ends: a caller's hooks may hold the runner, and kept they would
+        make a reference cycle of it."""
+        self.on_check, self.on_pause = on_check, on_pause
+        try:
+            yield
+        finally:
+            self.on_check = self.on_pause = None
+
+    def __call__(self, accum, pass_idx, k_pass):
+        self.last_partial_counts = None
+        sample_base = pass_idx * self.k
+        park_k = pm.PARK_K  # read at call time: tests lower it
+        device = self.device
+
+        resume, self.resume_slots = self.resume_slots, None
+        cycle0 = int(self.resume_cycle0 or 0) if resume is not None else 0
+        self.resume_cycle0 = None
         if resume is not None:
             pix_r, done_r, quota_r = (np.asarray(a) for a in resume)
             pool = _pool_from_rows(pix_r, done_r, quota_r,
                                    n_pad=_round_block(len(pix_r)),
                                    park_k=park_k, device=device)
         else:
-            pool = make_pool_v2(npix, n_pad, k_pass, park_k=park_k,
-                                device=device)
+            pool = make_pool_v2(self.npix, _round_block(self.npix), k_pass,
+                                park_k=park_k, device=device)
 
-        pass_runner.resolve_table = (resolve_table(ks, device)
-                                     if POOL_RESOLVE else None)
-        pass_runner.resolve_group = (resolve_group(ks, device)
-                                     if POOL_RESOLVE else None)
+        self.resolve_table = resolve_table(self.ks, device)
+        self.resolve_group = resolve_group(self.ks, device)
         rays = torch.zeros(2, dtype=torch.int64, device=device)
         cnt_pass = None  # retired counts of stages merged at pauses
         while True:
             res = drive_pool_v2(
-                pool, k_pass, sample_base, pc=pc, cam=cam, ks=ks, seed=seed,
-                max_depth=max_depth, rr_start_depth=rr_start_depth,
-                check_every=CHECK_EVERY, park_k=park_k,
+                pool, k_pass, sample_base, pc=self.pc, cam=self.cam,
+                ks=self.ks, seed=self.seed, max_depth=self.max_depth,
+                rr_start_depth=self.rr_start_depth, check_every=CHECK_EVERY,
+                park_k=park_k,
                 # poll batching is remote-device economics; on the CPU a
                 # burst of cycles only hides the polls
                 adaptive_polls=device.type == "cuda",
-                on_check=hooks["on_check"], cycle0=cycle0,
-                npix=npix, cnt_base=cnt_pass,
-                group_items=pass_runner.group_items,
+                on_check=self.on_check, cycle0=cycle0, npix=self.npix,
+                cnt_base=cnt_pass, group_items=self.group_items,
             )
             rays = rays + res.rays
-            pass_runner.total_cycles += res.cycles - cycle0
-            pass_runner.total_polls += res.polls
+            self.total_cycles += res.cycles - cycle0
+            self.total_polls += res.polls
             with profiling.span("portal.merge"):
                 merge_stages(accum, res.stages, res.flush)
                 if res.outcome == drive.DONE:
@@ -591,188 +517,92 @@ def make_portal_pass_runner_v2(pc, cam, ks, *, npix: int, k_full: int,
                 if res.outcome == drive.CANCEL:
                     _, cnt = _snapshot_stages(
                         tuple(res.stages), res.flush,
-                        out_rows=max(npix, res.stages[0].shape[1]))
+                        out_rows=max(self.npix, res.stages[0].shape[1]))
                     if cnt_pass is not None:
-                        cnt[:npix] += cnt_pass[:npix]
-                    pass_runner.last_cancelled = True
-                    pass_runner.last_partial_counts = cnt[:npix]
+                        cnt[:self.npix] += cnt_pass[:self.npix]
+                    self.last_partial_counts = cnt[:self.npix]
                     return accum, rays
                 # PAUSE: the radiance is merged; persist the slot rows and go on
                 live = res.stages[-1]
                 delta = _retired_counts(
                     tuple(res.stages[:-1]), res.flush,
-                    out_rows=max(npix, live.shape[1]), device=live.device)[:npix]
+                    out_rows=max(self.npix, live.shape[1]),
+                    device=live.device)[:self.npix]
                 cnt_pass = delta if cnt_pass is None else cnt_pass + delta
-                if hooks["on_pause"] is not None:
-                    pass_runner.last_pause_cycles = res.cycles
-                    slot_rows = drive.drained_slot_state(live, res.frozen_quota)
-                    hooks["on_pause"](accum, slot_rows, pass_idx, k_pass)
+                if self.on_pause is not None:
+                    pix, done, quota = drive.drained_slot_state(
+                        live, res.frozen_quota)
+                    self.on_pause(accum, pass_idx, dict(
+                        mid_pass=1, cycle0=int(res.cycles),
+                        slot_layout=self.slot_layout, slot_pix=pix,
+                        slot_done=done, slot_quota=quota))
                 pool = drive.thaw_pool(live, res.frozen_quota, park_k=park_k)
                 cycle0 = res.cycles
 
-    pass_runner.last_cancelled = False
-    pass_runner.last_partial_counts = None
-    pass_runner.resume_slots = None
-    pass_runner.resume_cycle0 = None
-    pass_runner.last_pause_cycles = 0
-    pass_runner.total_cycles = 0  # cycles and polls over every pass
-    pass_runner.total_polls = 0
-    pass_runner.resolve_table = None
-    pass_runner.resolve_group = None
-    pass_runner.group_items = torch.zeros(1, dtype=torch.int32, device=device)
-    pass_runner.set_hooks = set_hooks
-    pass_runner.total_slots = npix
-    pass_runner.slot_layout = "single"
-    return pass_runner
+    def segments(self, rays: list) -> int:
+        """The segments of the passes' ``rays`` (their [2] tensors), K2's
+        and K3's, read in one transfer with the items K3 traced with a
+        group of lanes since the last call, whose counter restarts; K3's
+        two counts go to ``resolve_segments`` and ``resolve_group_items``."""
+        cheap, resolve, group = torch.cat([
+            torch.stack(rays).sum(0), self.group_items.to(torch.int64)]).tolist()
+        self.group_items.zero_()
+        if self.resolve_segments is not None:
+            self.resolve_segments += resolve
+        if self.resolve_group_items is not None:
+            self.resolve_group_items += group
+        return cheap + resolve
+
+    def checkpoint_fields(self) -> dict:
+        """K3's counters as a checkpoint keeps them, -1 for one unknown."""
+        counts = {name: getattr(self, name) for name in self.COUNTERS}
+        return {name: -1 if got is None else got for name, got in counts.items()}
+
+    def resume_mismatches(self, ck) -> list[str]:
+        """Why the checkpoint ``ck`` cannot resume on this runner, if it
+        cannot: a mid-pass file of another slot layout."""
+        if not is_mid_pass(ck):
+            return []
+        got = str(ck["slot_layout"]) if "slot_layout" in ck.files else "single"
+        return [] if got == self.slot_layout else [
+            f"slot layout {got} != {self.slot_layout}"]
+
+    def resume(self, ck) -> None:
+        """Take up K3's counters from the checkpoint ``ck`` (None for one
+        the file lacks) and, from a mid-pass file, the slot rows and cycle
+        count that the next call continues: every remaining sample id
+        renders exactly once."""
+        for name in self.COUNTERS:
+            got = int(ck[name]) if name in ck.files else -1
+            setattr(self, name, got if got >= 0 else None)
+        if is_mid_pass(ck):
+            self.resume_slots = (ck["slot_pix"], ck["slot_done"],
+                                 ck["slot_quota"])
+            self.resume_cycle0 = int(ck["cycle0"])
+
+    def unpermute(self, arr: np.ndarray) -> np.ndarray:
+        """accum's rows in pixel order: they are already."""
+        return arr
+
+    def report(self, stats) -> None:
+        """The render's counts into ``stats`` (a RenderStats): cycles and
+        polls; K3's segments and where it read its rows, and its group
+        items, each while every pass of the render is counted, also as the
+        ``render.resolve`` and ``render.resolve.group`` notes; two
+        dispatches a cycle, K2 and K3."""
+        stats.extra.update(cycles=self.total_cycles, polls=self.total_polls)
+        if self.resolve_table is not None and self.resolve_segments is not None:
+            stats.extra.update(resolve_segments=self.resolve_segments,
+                               resolve_table=self.resolve_table)
+            profiling.note("render.resolve", self.resolve_segments,
+                           self.resolve_table)
+            if self.resolve_group_items is not None:
+                stats.extra["resolve_group_items"] = self.resolve_group_items
+                profiling.note("render.resolve.group",
+                               self.resolve_group_items, self.resolve_group)
+        stats.num_dispatches = 2 * self.total_cycles
 
 
-# ---------------------------------------------------------------------------
-# v1: a pool of free-floating path slots, compacted and refilled each cycle
-# ---------------------------------------------------------------------------
-
-
-def _round_resolve(n: int) -> int:
-    return max(((n + RESOLVE_BLOCK - 1) // RESOLVE_BLOCK) * RESOLVE_BLOCK,
-               RESOLVE_BLOCK)
-
-
-def portal_cycle(pool, accum, counts, issued, *, limit: int, sample_base: int,
-                 pc, cam, ks, seed: int, npix: int, max_depth: int,
-                 rr_start_depth: int, F_cap: int):
-    """One v1 cycle over the pool [V1_PORT_ROWS, C] (the JAX package's
-    ``portal_cycle``, ``render/portal.py:54-162``):
-
-    1. K8 ``trace_cheap_blocked``: cheap bounces until each lane is dead or
-       frozen at the portal;
-    2. a stable partition putting the alive (frozen) lanes first: one
-       gather of the pool's columns;
-    3. K7 ``trace_resolve`` on the first F_cap lanes: one full-scene bounce
-       (trailing dead lanes there are inert);
-    4. retire: every dead occupied slot (pix >= 0) adds its acc into accum
-       [npix, 3] and one into counts [npix] at its pixel, then pix := -1;
-    5. refill: free slot of rank r takes pass-local sample id issued + r
-       while it is below ``limit``: pixel id % npix, global sample
-       ``sample_base + id // npix``, a camera ray from the kernels' camera
-       sampling (``make_raygen``, the rays K2 and K4 make) drawn at depth 0.
-
-    Every kernel draws under (seed, pixel, sample, depth), so a path's
-    random numbers do not depend on the cycle. accum and counts are
-    updated in place. Returns (pool', issued', retired this cycle,
-    segments traced), the last three as scalar tensors."""
-    pool, c1 = trace_cheap_blocked(pc, pool, seed=seed, max_depth=max_depth,
-                                   rr_start_depth=rr_start_depth)
-    perm = torch.argsort((pool[ROW_ALIVE] <= 0.0).to(torch.int32), stable=True)
-    pool = pool[:, perm]
-    front = pool[:, :F_cap]
-    *state, c2 = trace_resolve(
-        ks, front[pm.ROW_O:pm.ROW_O + 3], front[pm.ROW_D:pm.ROW_D + 3],
-        front[pm.ROW_THR:pm.ROW_THR + 3], front[ROW_ACC:ROW_ACC + 3],
-        front[ROW_ALIVE:ROW_ALIVE + 1], front[ROW_PREV:ROW_PREV + 1],
-        front[pm.ROW_DEPTH:pm.ROW_DEPTH + 1],
-        pixel_idx=front[ROW_PIX].to(torch.int32),
-        sample_idx=front[V1_ROW_SAMPLE].to(torch.int32), seed=seed,
-        max_depth=max_depth, rr_start_depth=rr_start_depth)
-    pool[:ROW_PIX, :F_cap] = torch.cat(state)
-
-    pix_row = pool[ROW_PIX]
-    dead = (pool[ROW_ALIVE] <= 0.0) & (pix_row >= 0.0)
-    pix_i = torch.clamp(pix_row.to(torch.int64), 0, npix - 1)
-    accum.index_add_(0, pix_i, torch.where(
-        dead[None], pool[ROW_ACC:ROW_ACC + 3], 0.0).T)
-    deadf = dead.to(F32)
-    counts.index_add_(0, pix_i, deadf)
-    pool[ROW_PIX] = torch.where(dead, -1.0, pix_row)
-
-    free = pool[ROW_PIX] < 0.0
-    sid = issued + torch.cumsum(free.to(torch.int64), 0) - 1
-    can = free & (sid < limit)
-    pixel = torch.remainder(sid, npix)
-    samp = sample_base + torch.div(sid, npix, rounding_mode="floor")
-    raygen, lc = make_raygen(cam, pixel)
-    d0 = raygen(samp, *path_uniforms(seed, pixel, samp,
-                                     torch.zeros_like(samp), (4, 5)))
-    fresh = {pm.ROW_THR: 1.0, ROW_ACC: 0.0}
-    for k in range(3):
-        pool[pm.ROW_O + k] = torch.where(can, lc[k], pool[pm.ROW_O + k])
-        pool[pm.ROW_D + k] = torch.where(can, d0[k], pool[pm.ROW_D + k])
-        for r, v in fresh.items():
-            pool[r + k] = torch.where(can, v, pool[r + k])
-    for r, v in ((ROW_ALIVE, 1.0), (ROW_PREV, -1.0), (pm.ROW_DEPTH, 0.0),
-                 (ROW_PIX, pixel.to(F32)), (V1_ROW_SAMPLE, samp.to(F32))):
-        pool[r] = torch.where(can, v, pool[r])
-    issued = issued + can.sum()
-    rays = c1.sum(dtype=torch.int64) + c2.sum().to(torch.int64)
-    return pool, issued, dead.sum(), rays
-
-
-def make_portal_pass_runner(pc, cam, ks, *, npix: int, k_full: int,
-                            seed: int, max_depth: int = 12,
-                            rr_start_depth: int = 5, device):
-    """The v1 portal pass runner (the JAX package's
-    ``make_portal_pass_runner``, ``render/portal.py:165-221``):
-    ``runner(accum, pass_idx, k_pass)`` pushes npix * k_pass fresh samples
-    (global indices pass_idx * k_full ..) through a pool of
-    C = max(min(DEFAULT_POOL, npix * min(k_full, 4) rounded to CHEAP_BLOCK),
-    CHEAP_BLOCK) slots, K7 resolving F_cap = C / 2 (rounded to
-    RESOLVE_BLOCK) lanes a cycle, until every sample retired; adds the
-    radiance into accum [npix, 3] (pixel order) and returns (accum,
-    segments traced).
-
-    The host reads the retired count every CHECK_EVERY cycles; more
-    than 64 + total * (max_depth + 2) * 4 / C cycles raise RuntimeError (a
-    stalled scheduler). A pass retires every sample once: the pass's
-    per-pixel counts (``.last_counts``) must equal k_pass, else
-    RuntimeError. v1 has no poll hook: it cancels and checkpoints only at
-    pass boundaries."""
-    C = max(min(DEFAULT_POOL, _round_block(npix * min(k_full, 4))),
-            CHEAP_BLOCK)
-    F_cap = max(RESOLVE_BLOCK, _round_resolve(C // 2))
-    device = torch.device(device)
-
-    def pass_runner(accum, pass_idx, k_pass):
-        total = npix * k_pass
-        pool = torch.zeros((V1_PORT_ROWS, C), dtype=F32, device=device)
-        pool[ROW_PIX] = -1.0
-        counts = torch.zeros(npix, dtype=F32, device=device)
-        issued = torch.zeros((), dtype=torch.int64, device=device)
-        retired = torch.zeros((), dtype=torch.int64, device=device)
-        rays = torch.zeros((), dtype=torch.int64, device=device)
-        cycles = 0
-        hard_limit = 64 + (total * (max_depth + 2) * 4) // C
-        while True:
-            for _ in range(CHECK_EVERY):
-                pool, issued, r, c = portal_cycle(
-                    pool, accum, counts, issued, limit=total,
-                    sample_base=pass_idx * k_full, pc=pc, cam=cam, ks=ks,
-                    seed=seed, npix=npix, max_depth=max_depth,
-                    rr_start_depth=rr_start_depth, F_cap=F_cap)
-                retired = retired + r
-                rays = rays + c
-                cycles += 1
-            pass_runner.total_polls += 1
-            done = int(retired)
-            if done >= total:
-                break
-            if cycles > hard_limit:
-                raise RuntimeError(
-                    f"portal scheduler stalled: {done}/{total} samples "
-                    f"retired after {cycles} cycles")
-        pass_runner.total_cycles += cycles
-        pass_runner.last_counts = counts
-        if done != total or not bool((counts == k_pass).all()):
-            raise RuntimeError(
-                f"portal v1 pass retired {done} of {total} samples with "
-                f"per-pixel counts in [{float(counts.min())}, "
-                f"{float(counts.max())}], want {k_pass}")
-        return accum, rays
-
-    pass_runner.last_cancelled = False  # v1 cancels only between passes
-    pass_runner.last_partial_counts = None
-    pass_runner.last_counts = None
-    pass_runner.resolve_table = None  # K7 resolves, not K3
-    pass_runner.total_cycles = 0  # cycles and polls over every pass
-    pass_runner.total_polls = 0
-    pass_runner.total_slots = npix
-    pass_runner.slot_layout = "v1"  # no mid-pass checkpoint resumes into v1
-    pass_runner.pool_width, pass_runner.resolve_width = C, F_cap
-    return pass_runner
+# the name render() builds the portal route's runner by
+# (``pipeline.make_pass_runner``), where bench_torch's fault check wraps it
+make_portal_pass_runner_v2 = PortalPasses

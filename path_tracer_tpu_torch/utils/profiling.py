@@ -205,8 +205,8 @@ def profiler_trace(log_dir: str | None):
 class RenderStats:
     """Accumulated over a render: wall time, samples, traced ray segments
     and dispatches: the program's kernel launches on the kernel routes (one
-    a pass on ``regen`` and ``prim``, two a cycle on the portal
-    schedulers), the pixel chunks of every pass on the wavefront."""
+    a pass on ``regen`` and ``prim``, two a cycle on the portal route),
+    the pixel chunks of every pass on the wavefront."""
 
     wall_seconds: float = 0.0
     num_samples: int = 0  # camera samples (pixels x spp)
@@ -214,8 +214,8 @@ class RenderStats:
     num_dispatches: int = 0
     # per-pixel samples restored from a checkpoint (0 = fresh render)
     resumed_samples: int = 0
-    # route; on the portal routes cycles and polls; on v2 with K3
-    # resolve_segments (the resolve's share of num_rays, restored with it
+    # route; on the portal route (its runner's report) cycles, polls,
+    # resolve_segments (K3's share of num_rays, restored with it
     # from a checkpoint; left out after a resume from a file without it),
     # resolve_table (render.portal.resolve_table) and resolve_group_items
     # (the live items K3 traced with a group of lanes, kept likewise)

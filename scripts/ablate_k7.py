@@ -4,13 +4,18 @@ shapes its routes launch.
 
 The shapes (chip_smoke.py phase 3 builds the same): mesh 1024x768, seed 7,
 max depth 12,
-  - the v1 front: a fresh 1,048,576-lane v1 pool after K8 (its plain
-    version) and the cycle's partition, its first F_cap = 524,288 lanes,
-    the live ones first (render/portal.py portal_cycle);
+  - the v1 front: a fresh 1,048,576-lane v1 pool (``v1_pool``) after K8
+    (its plain version) and the v1 cycle's partition, its first F_cap =
+    524,288 lanes, the live ones first;
   - the glue shape: a park-3 v2 pool two cycles into a drive, then K2, its
-    active paths and three park buffers side by side (render/portal.py
-    glue_lanes: 4 x 786,432 lanes), where K3 on the same pool is the
-    yardstick: on that route K7 makes exactly K3's bounces.
+    active paths and three park buffers side by side (``glue_lanes``: 4 x
+    786,432 lanes), where K3 on the same pool is the yardstick: on that
+    route K7 makes exactly K3's bounces.
+
+The port runs neither route since they were deleted for the v2 scheduler
+(ROADMAP.md crosswalk); this script keeps their lane builders, which the
+card tests (tests/test_torch_cuda.py) and chip_smoke.py load, so that K7
+and K8 stay checked at their shapes.
 
 Builds this checkout's csrc/trace_stepped.cu and, with ``--parent DIR``
 (a checkout of the commit before the redesign: ``git archive <commit> |
@@ -82,6 +87,75 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+V1_POOL = 1 << 20  # the v1 scheduler's largest pool: 1M lanes
+
+
+def v1_pool(prep, npix: int, lanes: int, *, limit: int, seed: int):
+    """A v1 pool [pk.V1_PORT_ROWS, lanes] as the v1 cycle's refill left an
+    empty one: slot i < limit holds a fresh camera ray of pixel i % npix,
+    sample i // npix at depth 0 (the kernels' camera sampling), the other
+    slots are free (pix -1)."""
+    dev = prep.kscene.tri.device
+    sid = torch.arange(lanes, dtype=torch.int64, device=dev)
+    can = sid < limit
+    pixel = torch.remainder(sid, npix)
+    samp = torch.div(sid, npix, rounding_mode="floor")
+    raygen, lc = tk.make_raygen(prep.cam, pixel)
+    d0 = raygen(samp, *tk.path_uniforms(seed, pixel, samp,
+                                        torch.zeros_like(samp), (4, 5)))
+    pool = torch.zeros((pk.V1_PORT_ROWS, lanes), device=dev)
+    pool[pk.ROW_PIX] = -1.0
+    rows = {pk.ROW_ALIVE: 1.0, pk.ROW_PREV: -1.0, pk.ROW_DEPTH: 0.0,
+            pk.ROW_PIX: pixel.to(torch.float32),
+            pk.V1_ROW_SAMPLE: samp.to(torch.float32)}
+    for k in range(3):
+        rows.update({pk.ROW_O + k: lc[k], pk.ROW_D + k: d0[k],
+                     pk.ROW_THR + k: 1.0, pk.ROW_ACC + k: 0.0})
+    for row, value in rows.items():
+        pool[row] = torch.where(can, value, pool[row])
+    return pool
+
+
+def v1_front(frozen, front: int):
+    """K7's lanes in a v1 cycle: the pool after K8 (``frozen``) stably
+    partitioned with its live lanes first, its first ``front`` lanes, as
+    (the seven state tensors, pixel_idx, sample_idx)."""
+    perm = torch.argsort((frozen[pk.ROW_ALIVE] <= 0.0).to(torch.int32),
+                         stable=True)
+    lanes = frozen[:, perm][:, :front]
+    return (tuple(lanes[a:b] for a, b in ((0, 3), (3, 6), (6, 9), (9, 12),
+                                          (12, 13), (13, 14), (14, 15))),
+            lanes[pk.ROW_PIX].to(torch.int32),
+            lanes[pk.V1_ROW_SAMPLE].to(torch.int32))
+
+
+def glue_lanes(pool, park_k: int):
+    """K7's lanes on the glue route: the active paths and the park_k
+    buffers of a v2 pool side by side ((park_k + 1) * n lanes, part-major,
+    as the JAX package's ``render/portal.py:462-487``); a buffer lane is
+    alive only where it holds a frozen path, with a zero acc. Returns (the
+    seven state tensors, pixel_idx, sample_idx)."""
+    n = pool.shape[1]
+
+    def part_rows(r0, rb, k):
+        return torch.cat([pool[r0:r0 + k]]
+                         + [pool[pk.buf_row(j, rb):pk.buf_row(j, rb) + k]
+                            for j in range(park_k)], dim=1)
+
+    state = pool[[pk.buf_row(j, pk.BUF_STATE) for j in range(park_k)]]
+    frozen = ((state > 0.5) & (state < 1.5)).to(torch.float32)
+    acc = torch.cat([pool[pk.ROW_ACC:pk.ROW_ACC + 3],
+                     torch.zeros((3, park_k * n), device=pool.device)], dim=1)
+    alive = torch.cat([pool[pk.ROW_ALIVE], frozen.reshape(-1)])[None]
+    pix = pool[pk.V2_ROW_PIX].to(torch.int32).repeat(park_k + 1)
+    smp = torch.cat([pool[pk.sample_row(park_k)]] + [
+        pool[pk.sample_row(park_k, j)] for j in range(park_k)]).to(torch.int32)
+    return ((part_rows(pk.ROW_O, pk.BUF_O, 3), part_rows(pk.ROW_D, pk.BUF_D, 3),
+             part_rows(pk.ROW_THR, pk.BUF_THR, 3), acc, alive,
+             part_rows(pk.ROW_PREV, pk.BUF_PREV, 1),
+             part_rows(pk.ROW_DEPTH, pk.BUF_DEPTH, 1)), pix, smp)
+
+
 def k7_shapes(mesh, res, dev):
     """(prep, the fresh v1 pool, {"v1 front": lanes, "glue": lanes}, the
     glue shape's v2 pool), lanes being (the seven state tensors, pixel_idx,
@@ -89,24 +163,11 @@ def k7_shapes(mesh, res, dev):
     prep = prepare_render(mesh, res, dev)
     pc, ks = prep.portal, prep.kscene
     npix = res.num_pixels
-    C = max(min(rp.DEFAULT_POOL, rp._round_block(npix * 4)), rp.CHEAP_BLOCK)
-    F_cap = max(rp.RESOLVE_BLOCK, rp._round_resolve(C // 2))
-    pool = torch.zeros((pk.V1_PORT_ROWS, C), device=dev)
-    pool[pk.ROW_PIX] = -1.0
-    pool, _, _, _ = rp.portal_cycle(  # the refill fills every slot
-        pool, torch.zeros((npix, 3), device=dev), torch.zeros(npix, device=dev),
-        torch.zeros((), dtype=torch.int64, device=dev), limit=64 * npix,
-        sample_base=0, pc=pc, cam=prep.cam, ks=ks, seed=SEED, npix=npix,
-        max_depth=MAX_DEPTH, rr_start_depth=RR_START, F_cap=F_cap)
+    C = min(V1_POOL, rp._round_block(npix * 4))
+    pool = v1_pool(prep, npix, C, limit=C, seed=SEED)
     frozen = pk.trace_cheap_blocked_plain(pc, pool, seed=SEED,
                                           max_depth=MAX_DEPTH)[0]
-    perm = torch.argsort((frozen[pk.ROW_ALIVE] <= 0.0).to(torch.int32),
-                         stable=True)
-    front = frozen[:, perm][:, :F_cap]
-    v1 = (tuple(front[a:b] for a, b in ((0, 3), (3, 6), (6, 9), (9, 12),
-                                        (12, 13), (13, 14), (14, 15))),
-          front[pk.ROW_PIX].to(torch.int32),
-          front[pk.V1_ROW_SAMPLE].to(torch.int32))
+    v1 = v1_front(frozen, C // 2)
     pool2 = rp.make_pool_v2(npix, rp._round_block(npix), 256, park_k=PARK_K,
                             device=dev)
     cheap = dict(seed=SEED, quota=256, sample_base=0, step_cap=64,
@@ -117,8 +178,7 @@ def k7_shapes(mesh, res, dev):
             pool2, ks, seed=SEED, park_k=PARK_K, max_depth=MAX_DEPTH,
             rr_start_depth=RR_START)
     pool2, _ = pk.trace_cheap_regen(pc, prep.cam, pool2, **cheap)
-    return prep, pool, {"v1 front": v1,
-                        "glue": rp.glue_lanes(pool2, PARK_K)[:3]}, pool2
+    return prep, pool, {"v1 front": v1, "glue": glue_lanes(pool2, PARK_K)}, pool2
 
 
 def launcher(built, ks, lanes, uniforms, parent: bool):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""K8 against the commit before its redesign, on a CUDA card, and the v1
-render at each vote group.
+"""K8 against the commit before its redesign, on a CUDA card, at each vote
+group.
 
 The shape (chip_smoke.py phase 3 builds the same): a fresh 1,048,576-lane
-v1 pool of mesh 1024x768 camera rays (render/portal.py portal_cycle's
-refill), seed 7, max depth 12. Builds this checkout's
+v1 pool of mesh 1024x768 camera rays (scripts/ablate_k7.py v1_pool, the
+deleted v1 scheduler's refill), seed 7, max depth 12. Builds this checkout's
 csrc/portal_cheap_blocked.cu and, with ``--parent DIR`` (a checkout of the
 commit before the redesign, e.g. _parent/ from ``git archive``), that
 commit's K8. For each vote group of ``--groups`` this checkout's build
@@ -14,14 +14,10 @@ segment totals within 0.5%, with both uniform sources; the script fails
 otherwise.
 Times each group's kernel and the parent's at its group (CUDA events over
 ``--reps`` launches, warm, in turns forward and back over ``--rounds``
-rounds), then renders mesh 1024x768 at ``--spp`` on the v1 route
-(PT_TPU_PORTAL_V1) with K8 at each group, warm, ``--renders`` times each:
-wall seconds, Mray/s and cycles, which choose the group (a smaller group
-freezes lanes sooner and hands more bounces to K7). ``--check-only``
-builds and checks without timing or rendering.
+rounds). ``--check-only`` builds and checks without timing.
 
   python3 scripts/ablate_k8.py [--parent DIR] [--groups 32 64 128 256]
-      [--reps 20] [--rounds 2] [--spp 64] [--renders 3] [--check-only]
+      [--reps 20] [--rounds 2] [--check-only]
 
 PERF.md keeps the times of the design choices K8 was picked from.
 """
@@ -29,11 +25,11 @@ PERF.md keeps the times of the design choices K8 was picked from.
 import argparse
 import ctypes
 import functools
+import importlib.util
 import json
 import os
 import subprocess
 import sys
-import tempfile
 
 import numpy as np
 import torch
@@ -46,7 +42,7 @@ from path_tracer_tpu_torch.ops import rng  # noqa: E402
 from path_tracer_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
 from path_tracer_tpu_torch.ops.kernels import portal as pk  # noqa: E402
 from path_tracer_tpu_torch.render import portal as rp  # noqa: E402
-from path_tracer_tpu_torch.utils.config import RenderConfig, Resolution  # noqa: E402
+from path_tracer_tpu_torch.utils.config import Resolution  # noqa: E402
 
 SEED, MAX_DEPTH = 7, 12
 LANE_TOL, LANE_FRAC, SEG_TOL = 1e-3, 0.995, 0.005
@@ -60,20 +56,16 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def v1_pool(prep, res, dev):
-    """A fresh v1 pool as the v1 runner sizes it, every slot a camera ray
-    (a cycle over an empty pool, K8 and K7 idle, then the refill)."""
+def v1_pool(prep, res):
+    """A fresh v1 pool as the v1 scheduler sized it, every slot a camera ray
+    (scripts/ablate_k7.py v1_pool)."""
+    spec = importlib.util.spec_from_file_location(
+        "ablate_k7", os.path.join(ROOT, "scripts", "ablate_k7.py"))
+    k7 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k7)
     npix = res.num_pixels
-    C = max(min(rp.DEFAULT_POOL, rp._round_block(npix * 4)), rp.CHEAP_BLOCK)
-    F_cap = max(rp.RESOLVE_BLOCK, rp._round_resolve(C // 2))
-    pool = torch.zeros((pk.V1_PORT_ROWS, C), device=dev)
-    pool[pk.ROW_PIX] = -1.0
-    pool, _, _, _ = rp.portal_cycle(
-        pool, torch.zeros((npix, 3), device=dev), torch.zeros(npix, device=dev),
-        torch.zeros((), dtype=torch.int64, device=dev), limit=64 * npix,
-        sample_base=0, pc=prep.portal, cam=prep.cam, ks=prep.kscene, seed=SEED,
-        npix=npix, max_depth=MAX_DEPTH, rr_start_depth=5, F_cap=F_cap)
-    return pool
+    lanes = min(k7.V1_POOL, rp._round_block(npix * 4))
+    return k7.v1_pool(prep, npix, lanes, limit=lanes, seed=SEED)
 
 
 def parent_launcher(parent: str, pc, pool):
@@ -126,8 +118,6 @@ def main() -> int:
     ap.add_argument("--groups", type=int, nargs="+", default=[32, 64, 128, 256])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--spp", type=int, default=64)
-    ap.add_argument("--renders", type=int, default=3)
     ap.add_argument("--check-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -141,7 +131,7 @@ def main() -> int:
     res = Resolution(768, 1024)
     prep = prepare_render(mesh, res, dev)
     pc = prep.portal
-    pool = v1_pool(prep, res, dev)
+    pool = v1_pool(prep, res)
     g = np.random.default_rng(6)
     table = torch.from_numpy(g.random((4, pool.shape[1]),
                                       dtype=np.float32)).to(dev)
@@ -177,7 +167,6 @@ def main() -> int:
         calls[f"parent (group {PARENT_GROUP})"] = run
 
     times = {key: [] for key in calls}
-    renders = {}
     if not args.check_only:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -191,42 +180,18 @@ def main() -> int:
                 end.record()
                 torch.cuda.synchronize()
                 times[key].append(start.elapsed_time(end) / args.reps)
-        os.environ["PT_TPU_PORTAL_V1"] = "1"
-        cfg = RenderConfig(samples_per_pixel=args.spp, resolution=res)
-        kernel = rp.trace_cheap_blocked
-        try:
-            for rnd in range(args.renders + 1):  # the first is a warm-up
-                for group in args.groups:
-                    rp.trace_cheap_blocked = functools.partial(kernel, group=group)
-                    with tempfile.TemporaryDirectory() as tmp:
-                        done = pt.render(mesh, cfg, device="cuda", out_dir=tmp,
-                                         verbose=False)
-                    if done.stats.num_samples != args.spp * res.num_pixels:
-                        print(f"FAIL: group {group}: {done.stats.num_samples} "
-                              "samples")
-                        failed = True
-                    if rnd:
-                        renders.setdefault(group, []).append(
-                            (done.stats.wall_seconds, done.stats.mrays_per_sec,
-                             done.stats.extra))
-        finally:
-            rp.trace_cheap_blocked = kernel
     print(f"ablate_k8: mesh 1024x768 v1 pool of {pool.shape[1]} lanes, seed "
           f"{SEED} ({card()})")
     for key, t in times.items():
         ts = f"{min(t):.4f}-{max(t):.4f} ms" if t else "not timed"
         print(f"  {key:24s} {ts}")
-    for group, rs in renders.items():
-        print(f"  v1 render {args.spp} spp, group {group}: walls "
-              f"{[round(r[0], 4) for r in rs]} s, Mray/s "
-              f"{[round(r[1], 1) for r in rs]}, {rs[-1][2]}")
     log = pk.blocked_library(True).log
     print("  ptxas production: " + " | ".join(
         ln.split(":", 1)[-1].strip() for ln in log.splitlines()
         if "registers" in ln))
     print(json.dumps({
         "card": card(), "lanes": pool.shape[1], "frozen": frozen,
-        "ms": times, "renders": {str(k): v for k, v in renders.items()},
+        "ms": times,
         "shares": {" ".join(map(str, k)): v for k, v in shares.items()}}))
     return 1 if failed else 0
 

@@ -31,7 +31,8 @@ and the progressive preview on the card; K3 and K6 on a scene of 35 tiles
 in a row with rays that enter them all (the sort pad); K7 trace_resolve
 (also at both of its routes' shapes and on a scene whose table exceeds
 its shared-memory budget), K8 trace_cheap_blocked (also at vote groups of
-32 to 1024) and K9 trace_sorted (mesh) and the v1 and glue portal routes.
+32 to 1024) and K9 trace_sorted (mesh); K7 and K8 on the lanes of the
+deleted v1 and glue routes (scripts/ablate_k7.py builds them).
 
 render() of the benchmark's two meshes (K3 on shared rows and on rows
 from device memory) against the benchmark's plain reference.
@@ -1336,7 +1337,7 @@ def test_cuda_fma_portal_v2_image(cuda_device):
     before = portal.trace_cheap_regen.launches
     gpu = tpt.render(scene, cfg, device=cuda_device, out_dir=None, verbose=False)
     assert portal.trace_cheap_regen.launches > before
-    assert gpu.stats.extra["portal_runner"] == "v2"
+    assert gpu.stats.extra["route"] == "portal"
     cpu = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
     cpu1 = tpt.render(scene, cfg.with_(seed=1), device="cpu", out_dir=None,
                       verbose=False)
@@ -1402,21 +1403,11 @@ def test_cuda_k6_large_table_reads_rows_from_device_memory(cuda_device):
 
 
 def _v1_pool(prep, res, dev):
-    """A fresh v1 pool of camera rays, one sample of each pixel, built by
-    the v1 cycle's refill (a cycle over an empty pool with K8 and K7 idle)."""
+    """A fresh v1 pool of camera rays, one sample of each pixel
+    (scripts/ablate_k7.py v1_pool)."""
     npix = res.num_pixels
-    n = rportal._round_block(npix)
-    pool = torch.zeros((portal.V1_PORT_ROWS, n), device=dev)
-    pool[portal.ROW_PIX] = -1.0
-    accum = torch.zeros((npix, 3), device=dev)
-    counts = torch.zeros(npix, device=dev)
-    issued = torch.zeros((), dtype=torch.int64, device=dev)
-    pool, issued, _, _ = rportal.portal_cycle(
-        pool, accum, counts, issued, limit=npix, sample_base=0, pc=prep.portal,
-        cam=prep.cam, ks=prep.kscene, seed=3, npix=npix, max_depth=12,
-        rr_start_depth=5, F_cap=rportal.RESOLVE_BLOCK)
-    assert int(issued) == npix
-    return pool
+    return _script("ablate_k7").v1_pool(prep, npix, rportal._round_block(npix),
+                                        limit=npix, seed=3)
 
 
 @pytest.mark.cuda
@@ -1572,32 +1563,3 @@ def test_cuda_k9_equals_k6(cuda_device, sort_every, dir_major):
     p_rad, _ = trace_kernel.trace_sorted_plain(ks, o, d, sort_every=sort_every,
                                                dir_major=dir_major, **kw)
     assert torch.equal(s_rad, p_rad)
-
-
-@pytest.mark.cuda
-def test_cuda_v1_and_glue_renders_match_cpu(cuda_device, monkeypatch):
-    """The v1 route launches K8 and K7 (not K2, K3), the glue route K2 and
-    K7 (not K3); both agree with the CPU render of the same seed far inside
-    the noise between two seeds, with every sample counted."""
-    scene = _scene("mesh")
-    cfg = RenderConfig(samples_per_pixel=8, resolution=Resolution(24, 36))
-    cpu = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
-    cpu1 = tpt.render(scene, cfg.with_(seed=1), device="cpu", out_dir=None,
-                      verbose=False)
-    noise = np.abs(cpu1.image.pixels - cpu.image.pixels).mean()
-    counters = (portal.trace_cheap_regen, portal.trace_resolve_pool,
-                portal.trace_cheap_blocked, trace_kernel.trace_resolve)
-    for route, launched in (("v1", {2, 3}), ("glue", {0, 3})):
-        with monkeypatch.context() as m:
-            if route == "v1":
-                m.setenv("PT_TPU_PORTAL_V1", "1")
-            else:
-                m.setattr(rportal, "POOL_RESOLVE", False)
-            before = [c.launches for c in counters]
-            gpu = tpt.render(scene, cfg, device=cuda_device, out_dir=None,
-                             verbose=False)
-        for i, c in enumerate(counters):
-            assert (c.launches > before[i]) == (i in launched), (route, i)
-        same = np.abs(gpu.image.pixels - cpu.image.pixels).mean()
-        assert same <= 0.25 * noise, (route, same, noise)
-        assert gpu.stats.num_samples == cpu.stats.num_samples

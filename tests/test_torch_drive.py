@@ -352,15 +352,17 @@ def test_cancel_after_pause_carries_discarded_stage_counts(monkeypatch):
         frozen_quota=torch.full((4,), 4.0), polls=1)
     runner, seen = _scripted_runner(monkeypatch, [pause, cancel])
     paused = {}
-    runner.set_hooks(on_check=lambda c, w, u: False,
-                     on_pause=lambda acc, rows, pi, kp: paused.update(rows=rows))
-    accum, rays = runner(torch.zeros((8, 3)), 0, 4)
-    assert runner.last_cancelled
+    with runner.hooks(on_check=lambda c, w, u: False,
+                      on_pause=lambda acc, pi, fields: paused.update(fields)):
+        accum, rays = runner(torch.zeros((8, 3)), 0, 4)
+    assert runner.on_check is None and runner.on_pause is None
     np.testing.assert_array_equal(runner.last_partial_counts.numpy(), [2.0] * 8)
     np.testing.assert_allclose(accum[:4, 0].numpy(), 1.0)
     np.testing.assert_allclose(accum[4:, 0].numpy(), 0.5)
-    assert rays.tolist() == [12, 4]  # K2's and the resolve's, over both drives
-    assert runner.last_pause_cycles == 7 and len(paused["rows"]) == 3
+    assert rays.tolist() == [12, 4]  # K2's and K3's, over both drives
+    assert paused["cycle0"] == 7 and paused["mid_pass"] == 1
+    assert paused["slot_layout"] == runner.slot_layout == "single"
+    assert all(len(paused[f"slot_{r}"]) == 4 for r in ("pix", "done", "quota"))
     assert seen["cycle0"] == [0, 7]
     assert runner.total_cycles == 11 and runner.total_polls == 3
 

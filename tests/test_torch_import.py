@@ -1,7 +1,7 @@
 """The port imports and renders (cornell through K1's plain version and
-the wavefront integrator, mesh through the v2 portal scheduler, its glue
-route and the v1 scheduler) and imports its viewer app, raster preview and
-native runtime without jax, the JAX package or an imaging library."""
+the wavefront integrator, mesh through the portal scheduler) and imports
+its viewer app, raster preview and native runtime without jax, the JAX
+package or an imaging library."""
 
 import subprocess
 import sys
@@ -31,19 +31,6 @@ done = pt.render(mesh, RenderConfig(samples_per_pixel=1,
                  resolution=Resolution(4, 6)), device="cpu", out_dir=None,
                  verbose=False)
 assert done.stats.extra["route"] == "portal" and done.stats.num_rays > 0
-import os
-from path_tracer_tpu_torch.render import portal as rp
-rp.POOL_RESOLVE = False
-glue = pt.render(mesh, RenderConfig(samples_per_pixel=1,
-                 resolution=Resolution(4, 6)), device="cpu", out_dir=None,
-                 verbose=False)
-rp.POOL_RESOLVE = True
-os.environ["PT_TPU_PORTAL_V1"] = "1"
-v1 = pt.render(mesh, RenderConfig(samples_per_pixel=1,
-               resolution=Resolution(4, 6)), device="cpu", out_dir=None,
-               verbose=False)
-assert v1.stats.extra["portal_runner"] == "v1"
-assert glue.stats.num_rays == v1.stats.num_rays == done.stats.num_rays
 import path_tracer_tpu_torch.cli
 import path_tracer_tpu_torch.ops.kernels.build
 import path_tracer_tpu_torch.ops.kernels.portal

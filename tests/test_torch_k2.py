@@ -171,8 +171,7 @@ def test_coherence_of_a_drive(k2_pool):
 
 @pytest.mark.parametrize("builder", ["make_pool_v2", "_pool_from_rows",
                                      "_retired_counts",
-                                     "make_portal_pass_runner_v2",
-                                     "make_portal_pass_runner"])
+                                     "make_portal_pass_runner_v2"])
 def test_scheduler_builders_require_a_device(builder):
     """The builders that render() and the sharded runner call take no
     default device: a caller that forgets it fails at once instead of
@@ -184,8 +183,6 @@ def test_scheduler_builders_require_a_device(builder):
         "_retired_counts": lambda: rp._retired_counts(
             (), torch.zeros((8, 4)), out_rows=8),
         "make_portal_pass_runner_v2": lambda: rp.make_portal_pass_runner_v2(
-            None, None, None, npix=8, k_full=4, seed=0),
-        "make_portal_pass_runner": lambda: rp.make_portal_pass_runner(
             None, None, None, npix=8, k_full=4, seed=0),
     }
     with pytest.raises(TypeError, match="device"):

@@ -188,7 +188,7 @@ def test_k8_plain_at_the_port_group_drains_to_the_same_image():
     from path_tracer_tpu_torch.render.pipeline import prepare_render
 
     prep = prepare_render(_scene("mesh"), res, "cpu")
-    pool0 = _script("ablate_k8").v1_pool(prep, res, "cpu")
+    pool0 = _script("ablate_k8").v1_pool(prep, res)
     results = {}
     for group in (pk.BLOCKED_GROUP, 256, 2048):
         pool, segs = pool0.clone(), 0

@@ -121,7 +121,7 @@ def test_pause_snapshot_450x300_matches_jax(monkeypatch):
     monkeypatch.setattr(t_rp, "_snapshot_stages", recorded)
     state = {"paused": False, "snaps": []}
 
-    def on_pause(accum, slot_rows, pass_idx, k_pass):
+    def on_pause(accum, pass_idx, fields):
         state["paused"] = True
 
     def hook(cycle, width, unfin, *, snapshot=None):
@@ -133,8 +133,9 @@ def test_pause_snapshot_450x300_matches_jax(monkeypatch):
 
     runner = t_rp.make_portal_pass_runner_v2(
         prep.portal, prep.cam, prep.kscene, npix=npix, k_full=spp, seed=0,
-        max_depth=1, on_check=hook, on_pause=on_pause, device="cpu")
-    accum, rays = runner(torch.zeros((npix, 3)), 0, spp)
+        max_depth=1, device="cpu")
+    with runner.hooks(on_check=hook, on_pause=on_pause):
+        accum, rays = runner(torch.zeros((npix, 3)), 0, spp)
     assert state["paused"] and state["snaps"]
     assert int(rays.sum()) == npix * spp  # depth 1: a segment a sample
     rad, cnt = state["snaps"][-1]

@@ -1,4 +1,6 @@
-"""The port's slice as a whole: render(), the CLI, cancel and checkpoints.
+"""The port's slice as a whole: render(), the CLI, cancel and checkpoints
+on every route, what each route reports, and that a render frees its
+scene tables on return.
 
 The port's CPU render is held against the JAX package's render() of the
 same configuration. On the CPU the JAX side resolves to its XLA ``fast``
@@ -7,19 +9,25 @@ Monte Carlo noise: RMSE(port, JAX seed 0) <= 1.5 x RMSE(JAX seed 0, JAX
 seed 1), and every channel mean within 4 standard errors.
 """
 
+import dataclasses
+import gc
 import glob
 import os
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import path_tracer_tpu as jpt
 import path_tracer_tpu_torch as tpt
 from path_tracer_tpu_torch import cli
+from path_tracer_tpu_torch.render import pipeline as t_pipeline
 from path_tracer_tpu_torch.render.image import read_ppm
+from path_tracer_tpu_torch.utils import profiling
 from tests.test_torch_host import load_both
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
@@ -66,19 +74,41 @@ def _cornell(repo_root):
     return load_both("cornell", repo_root)[1]
 
 
-def test_cancelled_render_still_writes_its_ppm(repo_root, tmp_path):
-    calls = []
+# route: (scene, render options, environment)
+ROUTES = {
+    "regen": ("cornell", {}, {}),
+    "prim": ("mesh", {}, {"PT_TPU_NO_PORTAL": "1"}),
+    "portal": ("mesh", {}, {}),
+    "wavefront": ("cornell", {"backend": "fast", "pixel_chunk": 100}, {}),
+}
+CHECKPOINT_FIELDS = {"accum", "samples_done", "next_pass", "seed", "spp",
+                     "npix", "k", "num_rays", "resolve_segments",
+                     "resolve_group_items"}
+
+
+def _route(repo_root, route, monkeypatch):
+    """The scene and render options of ``route``, its environment set."""
+    sid, kw, env = ROUTES[route]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    return load_both(sid, repo_root)[1], kw
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_cancelled_render_still_writes_its_ppm(repo_root, tmp_path, monkeypatch,
+                                               route):
+    """A cancel between passes keeps the passes done: the first of two
+    4-spp passes, its PPM written, with progress (and an image) on the
+    way."""
+    scene, kw = _route(repo_root, route, monkeypatch)
     updates = []
-
-    def cancel():
-        calls.append(1)
-        return len(calls) > 1  # after the first pass
-
     cfg = tpt.RenderConfig(samples_per_pixel=8, samples_per_pass=4,
-                           resolution=tpt.Resolution(12, 18))
-    done = tpt.render(_cornell(repo_root), cfg, device="cpu", cancel=cancel,
+                           resolution=tpt.Resolution(12, 18), **kw)
+    done = tpt.render(scene, cfg, device="cpu",
+                      cancel=lambda: any(u.samples_done for u in updates),
                       progress=updates.append, progress_interval=0.0,
                       out_dir=str(tmp_path), verbose=False)
+    assert done.stats.extra["route"] == route
     assert done.cancelled and done.stats.num_samples == 4 * 12 * 18
     assert done.ppm_path and os.path.exists(done.ppm_path)
     vals, w, h = read_ppm(done.ppm_path)
@@ -87,34 +117,128 @@ def test_cancelled_render_still_writes_its_ppm(repo_root, tmp_path):
     assert updates[0].image is not None
 
 
-def test_checkpoint_resume_is_bit_exact(repo_root, tmp_path):
-    scene = _cornell(repo_root)
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_checkpoint_resume_is_bit_exact(repo_root, tmp_path, monkeypatch,
+                                        route):
+    """A render cancelled after two of its three passes leaves a checkpoint
+    of the same fields on every route; resumed from it, the render gives
+    the uninterrupted render's image bit for bit, and its segment counts."""
+    scene, kw = _route(repo_root, route, monkeypatch)
+    monkeypatch.setenv("PT_TPU_CKPT_SECS", "3600")  # no portal pass pauses
     cfg = tpt.RenderConfig(samples_per_pixel=12, samples_per_pass=4,
-                           resolution=tpt.Resolution(12, 18), seed=3)
+                           resolution=tpt.Resolution(12, 18), seed=3, **kw)
     full = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
 
     ck = str(tmp_path / "ck.npz")
-    calls = []
 
-    def cancel():
-        calls.append(1)
-        return len(calls) > 2  # after two passes
+    def cancel():  # once the second pass is in the file (a portal pass
+        # also asks at its polls)
+        if not os.path.exists(ck):
+            return False
+        with np.load(ck) as z:
+            return int(z["samples_done"]) == 8
 
     part = tpt.render(scene, cfg, device="cpu", cancel=cancel,
                       checkpoint_path=ck, checkpoint_every=1, out_dir=None,
                       verbose=False)
     assert part.cancelled and os.path.exists(ck)
     with np.load(ck) as z:
-        assert set(z.files) == {"accum", "samples_done", "next_pass", "seed",
-                                "spp", "npix", "k", "num_rays",
-                                "resolve_segments", "resolve_group_items"}
+        assert set(z.files) == CHECKPOINT_FIELDS
         assert int(z["next_pass"]) == 2 and int(z["samples_done"]) == 8
+        # three chunks of 100 pixels on the wavefront
+        assert z["accum"].shape == (300 if kw else 216, 3)
     resumed = tpt.render(scene, cfg, device="cpu", checkpoint_path=ck,
                          checkpoint_every=1, out_dir=None, verbose=False)
     assert resumed.stats.resumed_samples == 8
     np.testing.assert_array_equal(resumed.image.pixels, full.image.pixels)
     assert resumed.stats.num_rays == full.stats.num_rays
+    assert resumed.stats.extra.get("resolve_segments") == \
+        full.stats.extra.get("resolve_segments")
     assert not os.path.exists(ck)  # removed once the render completes
+
+
+# Portal checkpoints of mesh at 6x4, 8 spp in passes of 4, seed 3, written
+# on the CPU by the render loop from before the pass runners (which named
+# K3's counters itself and wrote each kind of file with its own np.savez):
+# one after the first pass, one paused at the second pass's first poll
+# (render.portal STEP_CAP 2, CHECK_EVERY 1, PT_TPU_CKPT_SECS 0).
+OLD_CHECKPOINTS = {"pass-boundary": "mesh_6x4_spp8_seed3_pass1.npz",
+                   "mid-pass": "mesh_6x4_spp8_seed3_pass1_mid.npz"}
+
+
+@pytest.mark.parametrize("kind", list(OLD_CHECKPOINTS))
+def test_old_checkpoint_resumes_to_the_uninterrupted_image(
+        repo_root, tmp_path, kind):
+    """A checkpoint the earlier render loop wrote keeps its fields and
+    resumes to the uninterrupted render's image: bit for bit with its
+    segment counts from a pass boundary; from the middle of a pass within
+    1e-6, the same sums added in another order."""
+    import shutil
+
+    scene = load_both("mesh", repo_root)[1]
+    cfg = tpt.RenderConfig(samples_per_pixel=8, samples_per_pass=4,
+                           resolution=tpt.Resolution(4, 6), seed=3)
+    full = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
+    ck = str(tmp_path / "ck.npz")
+    shutil.copy(os.path.join(repo_root, "tests", "golden",
+                             OLD_CHECKPOINTS[kind]), ck)
+    with np.load(ck) as z:
+        mid = set(z.files) - CHECKPOINT_FIELDS
+        assert mid == (set() if kind == "pass-boundary" else {
+            "mid_pass", "cycle0", "slot_layout", "slot_pix", "slot_done",
+            "slot_quota"})
+        assert int(z["samples_done"]) == 4 and int(z["next_pass"]) == 1
+    resumed = tpt.render(scene, cfg, device="cpu", checkpoint_path=ck,
+                         checkpoint_every=1, out_dir=None, verbose=False)
+    assert resumed.stats.resumed_samples == 4 and not resumed.cancelled
+    assert resumed.stats.num_samples == 4 * 24
+    assert not os.path.exists(ck)
+    if kind == "pass-boundary":
+        np.testing.assert_array_equal(resumed.image.pixels, full.image.pixels)
+        for name in ("resolve_segments", "resolve_group_items"):
+            assert resumed.stats.extra[name] == full.stats.extra[name]
+        assert resumed.stats.num_rays == full.stats.num_rays
+    else:
+        np.testing.assert_allclose(resumed.image.pixels, full.image.pixels,
+                                   atol=1e-6)
+
+
+def test_paused_portal_pass_keeps_its_segment_counts(repo_root, tmp_path,
+                                                     monkeypatch):
+    """A portal pass that pauses at its polls for mid-pass checkpoints
+    still counts every segment it traced: num_rays equals the same
+    render's unpaused, and its image within 1e-6 (the same sums added in
+    another order). K3's share of them is counted too; it is not the
+    unpaused render's, since a pause's drain moves segments between K2
+    and K3."""
+    from path_tracer_tpu_torch.render import portal as t_rp
+
+    scene = load_both("mesh", repo_root)[1]
+    cfg = tpt.RenderConfig(samples_per_pixel=8, samples_per_pass=4,
+                           resolution=tpt.Resolution(4, 6), seed=3)
+    # a poll every cycle, and K2's short step budget: many cycles a pass
+    monkeypatch.setattr(t_rp, "STEP_CAP", 2)
+    monkeypatch.setattr(t_rp, "CHECK_EVERY", 1)
+    full = tpt.render(scene, cfg, device="cpu", out_dir=None, verbose=False)
+    monkeypatch.setenv("PT_TPU_CKPT_SECS", "0")
+    ck = tmp_path / "ck.npz"
+    seen = []
+
+    def cancel():  # never cancels: notes whether each file it sees is mid-pass
+        if ck.exists():
+            with np.load(ck) as z:
+                seen.append(int(z["samples_done"]) if "mid_pass" in z.files
+                            else None)
+        return False
+
+    paused = tpt.render(scene, cfg, device="cpu", checkpoint_path=str(ck),
+                        checkpoint_every=1, cancel=cancel, out_dir=None,
+                        verbose=False)
+    assert not paused.cancelled
+    assert {0, 4} <= set(seen)  # paused in both passes
+    assert paused.stats.num_rays == full.stats.num_rays > 0
+    assert 0 < paused.stats.extra["resolve_segments"] < paused.stats.num_rays
+    np.testing.assert_allclose(paused.image.pixels, full.image.pixels, atol=1e-6)
 
 
 def test_cuda_device_without_cuda_raises(repo_root):
@@ -152,3 +276,93 @@ def test_pass_sample_base_is_pass_index_times_pass_size(repo_root):
 def test_off_slice_cli_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="Slice 4"):
         cli.main(["1", "4", "cornell", "--device", "cpu", *flag])
+
+
+def _tensors(x):
+    """The tensors held by ``x``, through dataclasses, dicts and sequences."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _tensors(getattr(x, f.name))
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+@pytest.mark.parametrize("route", list(ROUTES) + ["portal-hooked"])
+def test_render_frees_its_tables_on_return(repo_root, tmp_path, monkeypatch,
+                                           route):
+    """Nothing of a render holds its scene tables in a reference cycle:
+    with the cyclic GC off, every tensor of its ``Prepared`` is freed by
+    the time render() returns, on every route, and on the portal route
+    also with progress, cancel and checkpoint hooks at its polls."""
+    scene, kw = _route(repo_root, route.split("-")[0], monkeypatch)
+    refs = []
+    prepare = t_pipeline.prepare_render
+
+    def kept(*a, **k):
+        prep = prepare(*a, **k)
+        refs.extend(weakref.ref(t) for t in _tensors(prep))
+        return prep
+
+    monkeypatch.setattr(t_pipeline, "prepare_render", kept)
+    hooks = {}
+    if route.endswith("hooked"):
+        hooks = dict(progress=lambda u: None, cancel=lambda: False,
+                     checkpoint_path=str(tmp_path / "ck.npz"),
+                     checkpoint_every=1)
+    cfg = tpt.RenderConfig(samples_per_pixel=4, samples_per_pass=2,
+                           resolution=tpt.Resolution(4, 6), **kw)
+    gc.collect()
+    gc.disable()
+    try:
+        done = tpt.render(scene, cfg, device="cpu", out_dir=None,
+                          verbose=False, **hooks)
+        alive = sum(r() is not None for r in refs)
+    finally:
+        gc.enable()
+    assert done.stats.extra["route"] == route.split("-")[0]
+    assert refs
+    assert alive == 0, f"{alive} of {len(refs)} tensors alive"
+
+
+# the RenderStats.extra keys each route reports
+EXTRA = {"regen": {"route"}, "prim": {"route"}, "wavefront": {"route"},
+         "portal": {"route", "cycles", "polls", "resolve_segments",
+                    "resolve_table", "resolve_group_items"}}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_stats_and_notes_per_route(repo_root, monkeypatch, route):
+    """Each route reports its own ``RenderStats.extra`` keys, and only the
+    portal route, whose runner keeps K3's counters, logs them as the
+    ``render.resolve`` and ``render.resolve.group`` notes of a traced
+    render."""
+    scene, kw = _route(repo_root, route, monkeypatch)
+    cfg = tpt.RenderConfig(samples_per_pixel=2, resolution=tpt.Resolution(4, 6),
+                           max_depth=3, **kw)
+    profiling.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            done = tpt.render(scene, cfg, device="cpu", out_dir=None,
+                              verbose=False)
+        notes = {s.name: (s.size, s.tag) for s in profiling.spans()
+                 if s.name.startswith("render.resolve")}
+    finally:
+        profiling.clear()
+    extra = done.stats.extra
+    assert set(extra) == EXTRA[route] and extra["route"] == route
+    assert done.stats.num_samples == 2 * 24 and done.stats.num_rays > 0
+    assert done.stats.num_dispatches > 0
+    if route == "portal":
+        assert notes == {
+            "render.resolve": (extra["resolve_segments"], "plain"),
+            "render.resolve.group": (extra["resolve_group_items"], "plain")}
+        assert 0 < extra["resolve_segments"] < done.stats.num_rays
+        assert done.stats.num_dispatches == 2 * extra["cycles"]
+    else:
+        assert notes == {}

@@ -259,8 +259,7 @@ def _counting(monkeypatch, module, name, calls):
     monkeypatch.setattr(module, name, counted)
 
 
-@pytest.mark.parametrize("route", ["regen", "prim", "portal", "glue", "v1",
-                                   "wavefront"])
+@pytest.mark.parametrize("route", ["regen", "prim", "portal", "wavefront"])
 def test_num_dispatches_counts_the_kernel_launches(scenes, monkeypatch, route):
     calls = []
     scene, spp, res, kw = scenes["mesh"], 2, (4, 6), {}
@@ -275,12 +274,7 @@ def test_num_dispatches_counts_the_kernel_launches(scenes, monkeypatch, route):
         scene, kw = scenes["cornell"], dict(backend="fast", pixel_chunk=10)
         _counting(monkeypatch, t_int, "render_pass", calls)
     else:
-        if route == "glue":
-            monkeypatch.setattr(t_rp, "POOL_RESOLVE", False)
-        if route == "v1":
-            monkeypatch.setenv("PT_TPU_PORTAL_V1", "1")
-        for name in ("trace_cheap_regen", "trace_resolve_pool",
-                     "trace_cheap_blocked", "trace_resolve"):
+        for name in ("trace_cheap_regen", "trace_resolve_pool"):
             _counting(monkeypatch, t_rp, name, calls)
     done = _render(scene, spp=spp, res=res, **kw)
     assert done.stats.num_dispatches == len(calls) > 0
@@ -288,7 +282,7 @@ def test_num_dispatches_counts_the_kernel_launches(scenes, monkeypatch, route):
         assert len(calls) == 3  # passes of 3, 3 and 2 samples
     if route == "wavefront":
         assert len(calls) == 3  # 24 pixels in chunks of 10, one pass
-    if route in ("portal", "glue", "v1"):
+    if route == "portal":
         assert len(calls) == 2 * done.stats.extra["cycles"]
 
 

@@ -1,5 +1,5 @@
-"""K7, K8 and K9 and the v2 glue resolve: the port's plain versions against
-the JAX package, and against each other.
+"""K7, K8 and K9 and the portal scheduler's resolve phase: the port's plain
+versions against the JAX package, and against each other.
 
 1. K7 ``trace_resolve_plain`` against JAX ``trace_pallas_resolve`` in
    interpret mode under injected uniforms, on the mesh scene at mixed
@@ -10,9 +10,8 @@ the JAX package, and against each other.
    primary rays, the JAX block and the port's group both 256: every row of
    the live lanes within 1e-4 (K2's slot tolerance), alive, depth and
    counts exact; and the freeze invariants of tests/test_portal.py:221.
-3. The glue branch of ``portal_resolve_phase`` (K7 and torch) equals K3's
-   plain version bit for bit on a pool in the middle of a drive, with the
-   counter generator and with injected uniforms.
+3. ``portal_resolve_phase`` under injected uniforms is K3's plain version
+   with them, bit for bit, on a pool in the middle of a drive.
 4. K9 ``trace_sorted_plain`` equals K6's plain version bit for bit (draws
    are keyed by ray), and the JAX ``trace_pallas_sorted`` lane for lane
    (outputs committed by scripts/make_torch_v1_goldens.py: the interpreter
@@ -203,8 +202,7 @@ def _mid_drive_pool(ts, park_k=3):
     return ks, pool
 
 
-@pytest.mark.parametrize("source", ["counter", "table"])
-def test_glue_resolve_equals_k3_plain(mesh, source):
+def test_resolve_phase_under_injected_uniforms_is_k3_plain(mesh):
     _, ts, _, _ = mesh
     park_k = 3
     ks, pool = _mid_drive_pool(ts, park_k)
@@ -214,16 +212,17 @@ def test_glue_resolve_equals_k3_plain(mesh, source):
     for st in states:  # every buffer holds frozen paths ...
         assert (st == 1.0).any()
     assert any((st == 0.0).any() for st in states)  # ... and empty slots
-    uni = None if source == "counter" else torch.from_numpy(
-        np.random.default_rng(6).random((4, (park_k + 1) * n), dtype=np.float32))
+    uni = torch.from_numpy(np.random.default_rng(6).random(
+        (4, (park_k + 1) * n), dtype=np.float32))
     kw = dict(seed=9, park_k=park_k, max_depth=12, rr_start_depth=5)
     want, counts = t_pm.trace_resolve_pool_plain(ks, pool, parts=park_k + 1,
                                                  uniforms=uni, **kw)
-    got, rays, unfin = t_rp.portal_resolve_phase(
-        pool, ks, pool_resolve=False, uniforms=uni, **kw)
+    got, rays, unfin = t_rp.portal_resolve_phase(pool, ks, uniforms=uni, **kw)
     assert torch.equal(got, want)
     assert int(rays) == int(counts.sum()) > 0
     assert int(unfin) == int(t_rp._unfinished(want))
+    counter, _ = t_pm.trace_resolve_pool_plain(ks, pool, parts=park_k + 1, **kw)
+    assert not torch.equal(got, counter)  # the uniforms were drawn from
 
 
 def _sorted_inputs(packed, n, max_depth, seed):

@@ -18,7 +18,8 @@
   camera rays take XLA's rsqrt and fused multiply-adds, and the fixture's
   nine values make paths that an ulp parts); fast renders within Monte
   Carlo noise of the JAX goldens, sample counts exact; the literal
-  estimator; checkpoints, cancel, chunking, the preview, the CLI options.
+  estimator; chunking, the preview, the CLI options (checkpoints and
+  cancel on every route: tests/test_torch_render.py).
 """
 
 import json
@@ -478,48 +479,6 @@ def test_wavefront_chunks_do_not_change_the_image(repo_root):
     np.testing.assert_array_equal(whole.image.pixels, chunked.image.pixels)
     assert chunked.stats.num_dispatches == 5  # ceil(216 / 50) chunks, one pass
     assert whole.stats.num_rays < chunked.stats.num_rays  # pad lanes trace too
-
-
-def test_wavefront_checkpoint_resume_is_bit_exact(repo_root, tmp_path):
-    _, ts = load_both("cornell", repo_root)
-    cfg = tpt.RenderConfig(samples_per_pixel=12, samples_per_pass=4,
-                           resolution=tpt.Resolution(12, 18), seed=3,
-                           backend="fast", pixel_chunk=100)
-    full = tpt.render(ts, cfg, device="cpu", out_dir=None, verbose=False)
-    ck = str(tmp_path / "ck.npz")
-    calls = []
-
-    def cancel():
-        calls.append(1)
-        return len(calls) > 2  # after two passes
-
-    part = tpt.render(ts, cfg, device="cpu", cancel=cancel, checkpoint_path=ck,
-                      checkpoint_every=1, out_dir=None, verbose=False)
-    assert part.cancelled and os.path.exists(ck)
-    with np.load(ck) as z:
-        assert int(z["next_pass"]) == 2 and int(z["samples_done"]) == 8
-        assert z["accum"].shape == (300, 3)  # three chunks of 100
-    resumed = tpt.render(ts, cfg, device="cpu", checkpoint_path=ck,
-                         checkpoint_every=1, out_dir=None, verbose=False)
-    assert resumed.stats.resumed_samples == 8
-    np.testing.assert_array_equal(resumed.image.pixels, full.image.pixels)
-    assert resumed.stats.num_rays == full.stats.num_rays
-    assert not os.path.exists(ck)
-
-
-def test_wavefront_cancel_still_writes_its_ppm(repo_root, tmp_path):
-    _, ts = load_both("cornell", repo_root)
-    calls, updates = [], []
-    cfg = tpt.RenderConfig(samples_per_pixel=8, samples_per_pass=4,
-                           resolution=tpt.Resolution(12, 18), backend="exact")
-    done = tpt.render(ts, cfg, device="cpu", out_dir=str(tmp_path),
-                      cancel=lambda: calls.append(1) or len(calls) > 1,
-                      progress=updates.append, progress_interval=0.0,
-                      verbose=False)
-    assert done.cancelled and done.stats.num_samples == 4 * 12 * 18
-    vals, w, h = read_ppm(done.ppm_path)
-    assert (w, h) == (18, 12) and vals.max() > 0
-    assert updates and updates[-1].samples_done == 4
 
 
 def test_preview_on_the_wavefront_equals_a_render(repo_root):

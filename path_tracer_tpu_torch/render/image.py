@@ -17,6 +17,7 @@ Counterpart of ``path_tracer_tpu.render.image``; the PPM bytes are equal.
 from __future__ import annotations
 
 import os
+from concurrent.futures import Future
 from dataclasses import dataclass
 from datetime import datetime
 
@@ -24,19 +25,33 @@ import numpy as np
 
 from path_tracer_tpu_torch.ops.tonemap import quantize_np
 from path_tracer_tpu_torch.utils.config import Resolution
-from path_tracer_tpu_torch.utils.hashing import hash_image
+from path_tracer_tpu_torch.utils.hashing import digest_later
+from path_tracer_tpu_torch.utils.profiling import SpanRecord
 
 
 @dataclass
 class Image:
-    pixels: np.ndarray  # [W*H, 3] float32 in [0,1]
+    pixels: np.ndarray  # [W*H, 3] float32 in [0,1], read-only: it is hashed
     resolution: Resolution
-    hash: int = 0
+    digest: Future  # of hash_image(pixels), on the digest worker
+    # render()'s render.digest note, tagged "waited" by a read that waited
+    note: SpanRecord | None = None
 
     @staticmethod
     def new(pixels: np.ndarray, resolution: Resolution) -> "Image":
+        """The image of ``pixels``, whose digest is handed to the worker
+        (``hashing.digest_later``) and read through ``hash``."""
         pixels = np.asarray(pixels, np.float32).reshape(-1, 3)
-        return Image(pixels=pixels, resolution=resolution, hash=hash_image(pixels))
+        pixels.flags.writeable = False
+        return Image(pixels, resolution, digest_later(pixels))
+
+    @property
+    def hash(self) -> int:
+        """``hash_image(pixels)``: waits for the digest if it is still
+        running, and re-raises what it raised."""
+        if self.note is not None and not self.digest.done():
+            self.note.tag = "waited"
+        return self.digest.result()
 
     def to_grid(self) -> np.ndarray:
         """[H, W, 3] in display orientation (row 0 = PPM row 0)."""

@@ -57,8 +57,10 @@ While a profiler runs, a render is a unit of ``utils.profiling``'s spans:
 ``render`` around the call, and inside it ``render.prepare``,
 ``render.upload``, one ``render.pass`` a pass, ``render.wait`` (a sync that
 only a traced render makes, so the device's tail shows apart from the
-host's), ``render.fetch``, ``render.finish`` (unpermute, the image's hash),
-``render.ppm`` and ``render.checkpoint``.
+host's), ``render.fetch`` (the image put in pixel order on the device,
+and its copy to the host), ``render.finish`` (the ``Image``, its digest
+handed to the worker: a ``render.digest`` note), ``render.ppm`` and
+``render.checkpoint``.
 """
 
 from __future__ import annotations
@@ -259,7 +261,8 @@ class LanePasses:
     """The pass runner of the ``regen`` (K1), ``prim`` (K4) and
     ``wavefront`` routes: a lane a pixel in Morton order
     (``morton_pixel_order``), so that the lanes of a warp cover a compact
-    screen tile, with accum [rows, 3] in that order until ``unpermute``.
+    screen tile, with accum [rows, 3] in that order (checkpoints keep it)
+    and its images put in pixel order on the device by ``unpermute``.
     ``runner(accum, pass_idx, k_pass)`` runs one ``integrator.render_pass``
     a pass, or one a pixel chunk of ``chunk`` pixels on the wavefront,
     whose last chunk's pad lanes redo pixel 0 (their rows are cropped at
@@ -274,10 +277,12 @@ class LanePasses:
         npix = res.num_pixels
         self.prep, self.k, self.chunk, self.pass_kw = prep, k, chunk, pass_kw
         self.rows = -(-npix // chunk) * chunk if chunk else npix
-        perm, self.inv_perm = morton_pixel_order(res.width, res.height)
-        order = torch.zeros(self.rows, dtype=torch.int32)
-        order[:npix] = torch.from_numpy(perm)
-        self.perm = order.to(device)
+        # built in numpy, on this thread alone: a torch CPU op splits over
+        # the intra-op threads and waits for the slowest, which the previous
+        # render's digest, still running on a core, can hold up
+        order = np.zeros(self.rows, np.int32)
+        order[:npix] = morton_pixel_order(res.width, res.height)[0]
+        self.perm = torch.from_numpy(order).to(device)
         self.dispatches = 0
 
     def hooks(self, on_check=None, on_pause=None):
@@ -315,9 +320,13 @@ class LanePasses:
     def resume(self, ck) -> None:
         pass
 
-    def unpermute(self, arr: np.ndarray) -> np.ndarray:
-        """accum's rows (their first npix) in pixel order."""
-        return arr[self.inv_perm]
+    def unpermute(self, img: torch.Tensor) -> torch.Tensor:
+        """``img`` (one row a pixel, accum's first npix rows' order) in
+        pixel order, on its device: a scatter by the permutation the
+        passes hold."""
+        out = torch.empty_like(img)
+        out[self.perm[:img.shape[0]]] = img
+        return out
 
     def report(self, stats: RenderStats) -> None:
         stats.num_dispatches = self.dispatches
@@ -502,7 +511,7 @@ def render(
                 last_image_cost = last_image_t - now
         elif progress_snapshots and samples_done > 0:
             partial = integrator.finalize(accum[:npix], samples_done)
-            img = Image.new(runner.unpermute(partial.cpu().numpy()), res)
+            img = Image.new(runner.unpermute(partial).cpu().numpy(), res)
         progress(RenderUpdate(
             progress=min((samples_done + extra_samples) / spp, 1.0), image=img,
             samples_done=samples_done, stats=stats,
@@ -580,14 +589,16 @@ def render(
     else:
         final = integrator.finalize(accum[:npix], max(samples_done, 1))
     with profiling.span("render.fetch"):
-        final_np = final.cpu().numpy()
+        final_np = runner.unpermute(final).cpu().numpy()
     drain_rays()
     duration = time.perf_counter() - t_start
     stats.wall_seconds = duration
     runner.report(stats)
 
     with profiling.span("render.finish"):
-        image = Image.new(runner.unpermute(final_np), res)
+        # the digest runs on the worker while the caller goes on
+        image = Image.new(final_np, res)
+        image.note = profiling.note("render.digest", final_np.nbytes)
     if verbose:
         print("Rendering complete" if not cancelled else "Rendering cancelled")
 

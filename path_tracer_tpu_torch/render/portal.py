@@ -580,9 +580,9 @@ class PortalPasses:
                                  ck["slot_quota"])
             self.resume_cycle0 = int(ck["cycle0"])
 
-    def unpermute(self, arr: np.ndarray) -> np.ndarray:
-        """accum's rows in pixel order: they are already."""
-        return arr
+    def unpermute(self, img: torch.Tensor) -> torch.Tensor:
+        """``img`` in pixel order: accum's rows are in it already."""
+        return img
 
     def report(self, stats) -> None:
         """The render's counts into ``stats`` (a RenderStats): cycles and

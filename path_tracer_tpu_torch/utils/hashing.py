@@ -5,11 +5,19 @@ Counterpart of ``path_tracer_tpu.utils.hashing`` (role parity with
 digest over the f32 bit patterns of all pixels, used as a
 cache-invalidation key by viewers. FNV-1a 64-bit through the native
 runtime; only self-consistency matters.
+
+``digest_later`` runs ``hash_image`` on one worker thread, so that a
+render's digest overlaps the next render instead of holding up its
+return: the native call (ctypes) and blake2b over a large buffer
+(hashlib) both release the interpreter lock.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 
@@ -31,6 +39,25 @@ def hash_image(pixels: np.ndarray) -> int:
         return native
     data = np.ascontiguousarray(pixels, np.float32).tobytes()
     return int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(), "little")
+
+
+_worker: ThreadPoolExecutor | None = None
+_worker_pid = 0
+_worker_guard = threading.Lock()
+
+
+def digest_later(pixels: np.ndarray) -> Future:
+    """``hash_image(pixels)`` on the digest worker: one thread, made on the
+    first call (and again in a forked child, which has none of its
+    parent's threads), so digests run one at a time in the order they were
+    handed over. The future re-raises what the digest raised; ``pixels``
+    must not change until it is done."""
+    global _worker, _worker_pid
+    with _worker_guard:
+        if _worker is None or _worker_pid != os.getpid():
+            _worker = ThreadPoolExecutor(1, thread_name_prefix="pt-digest")
+            _worker_pid = os.getpid()
+        return _worker.submit(hash_image, pixels)
 
 
 def hash_bytes(data: bytes) -> int:

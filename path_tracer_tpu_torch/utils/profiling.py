@@ -16,7 +16,9 @@ the span the host was in, and appends a record to an in-memory log
 preview frame. A span whose name ends in ``.wait`` blocks on the device.
 ``note(name, size, tag)`` logs a record of no length in the same way, for a
 count known only once the work is done (``render.resolve``: a portal
-render's resolve segments, tagged with where K3 read its rows).
+render's resolve segments, tagged with where K3 read its rows;
+``render.digest``: the bytes of a render's image handed to the digest
+worker, tagged ``waited`` once a read of its hash had to wait).
 """
 
 from __future__ import annotations
@@ -155,19 +157,21 @@ def sync_span(name: str, device) -> None:
             torch.cuda.current_stream(device).synchronize()
 
 
-def note(name: str, size: int, tag: str | None = None) -> None:
+def note(name: str, size: int, tag: str | None = None) -> SpanRecord | None:
     """While a profiler runs, a record ``name`` of no length in the span
     log, in the unit of the span open on this thread, with ``size`` and
-    ``tag``: a count that is known only after the work it counts.
-    Otherwise nothing at all."""
+    ``tag``: a count that is known only after the work it counts. Returns
+    the record, whose tag a later event may set. Otherwise nothing at
+    all."""
     if not _autograd_profiler._is_profiler_enabled:
-        return
+        return None
     st = _stack()
     now = time.perf_counter_ns()
     rec = SpanRecord(name, now, now, st[-1] if st else -1,
                      _spans[st[-1]].unit if st else None, size, tag)
     with _lock:
         _spans.append(rec)
+    return rec
 
 
 def spans() -> list[SpanRecord]:

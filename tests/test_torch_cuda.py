@@ -35,7 +35,9 @@ its shared-memory budget), K8 trace_cheap_blocked (also at vote groups of
 deleted v1 and glue routes (scripts/ablate_k7.py builds them).
 
 render() of the benchmark's two meshes (K3 on shared rows and on rows
-from device memory) against the benchmark's plain reference.
+from device memory) against the benchmark's plain reference, and a
+1024x768 cornell render's image, put in pixel order on the card, against
+the host gather of its rows.
 
 Whether FMA contraction moves images: K1 at 512 spp, the v2 portal render
 of a random portal scene and K5's preview, each against the CPU render of
@@ -316,6 +318,33 @@ def test_cuda_render_matches_cpu_render(cuda_device):
     noise = np.abs(cpu1.image.pixels - cpu.image.pixels).mean()
     assert same <= 0.25 * noise, (same, noise)
     assert gpu.stats.num_rays == pytest.approx(cpu.stats.num_rays, rel=5e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_render_puts_its_image_in_pixel_order_on_the_card(cuda_device,
+                                                               monkeypatch):
+    """A 1024x768 regen render's image is put in pixel order on the card
+    before its fetch: bit for bit the host gather of its finalized rows by
+    the inverse Morton permutation, with that gather's hash_image."""
+    from path_tracer_tpu_torch.utils.hashing import hash_image
+
+    finals = []
+    finalize = integrator.finalize
+
+    def kept(*a, **k):
+        out = finalize(*a, **k)
+        finals.append(out.cpu().numpy())
+        return out
+
+    monkeypatch.setattr(integrator, "finalize", kept)
+    res = Resolution(768, 1024)
+    done = tpt.render(_scene("cornell"),
+                      RenderConfig(samples_per_pixel=8, resolution=res),
+                      device=cuda_device, out_dir=None, verbose=False)
+    assert done.stats.extra["route"] == "regen" and len(finals) == 1
+    want = finals[0][morton_pixel_order(res.width, res.height)[1]]
+    np.testing.assert_array_equal(done.image.pixels, want)
+    assert done.image.hash == hash_image(want)
 
 
 @pytest.mark.cuda

@@ -27,6 +27,8 @@ from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 RENDER_SPANS = ["render", "render.prepare", "render.upload", "render.pass",
                 "render.check.wait", "render.pass", "render.check.wait",
                 "render.wait", "render.fetch", "render.finish"]
+# the log of a render: its spans, then the note of its digest's hand-off
+RENDER_LOG = RENDER_SPANS + ["render.digest"]
 
 
 @pytest.fixture(autouse=True)
@@ -75,21 +77,25 @@ def test_render_spans_nest_in_one_unit_a_render(scenes):
         _render(scenes["cornell"], **kw)
     log = profiling.spans()
     one = log[:first]
-    assert [s.name for s in one] == RENDER_SPANS
-    assert [s.name for s in log[first:]] == RENDER_SPANS
+    assert [s.name for s in one] == RENDER_LOG
+    assert [s.name for s in log[first:]] == RENDER_LOG
     assert len({s.unit for s in one}) == 1 and one[0].unit[0] == "render"
     assert log[first].unit != one[0].unit
     parents = {s.name: one[s.parent].name if s.parent >= 0 else None for s in one}
     assert parents == {"render": None, "render.prepare": "render",
                        "render.upload": "render", "render.pass": "render",
                        "render.check.wait": "render.pass", "render.wait": "render",
-                       "render.fetch": "render", "render.finish": "render"}
+                       "render.fetch": "render", "render.finish": "render",
+                       "render.digest": "render.finish"}
     for s in one:
         assert one[0].start_ns <= s.start_ns <= s.end_ns <= one[0].end_ns
         if s.parent >= 0:
             p = one[s.parent]
             assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
     assert [s.size for s in one if s.name == "render.pass"] == [1, 1]
+    # one digest a render, of the frame's float32 bytes, read by no one
+    assert [(s.size, s.tag) for s in one if s.name == "render.digest"] == \
+        [(4 * 6 * 3 * 4, None)]
     ranges = [e for e in prof.events() if e.name.startswith("pt.")]
     assert sorted({e.name for e in ranges}) == sorted({"pt." + n for n in RENDER_SPANS})
     assert len(ranges) == 2 * len(RENDER_SPANS)

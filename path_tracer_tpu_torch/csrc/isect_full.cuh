@@ -443,10 +443,12 @@ __device__ __forceinline__ void warp_rows(const float* rows, int lo, int hi,
 // (warp_rows); the slab tests of 32 tiles at a time, one a lane, and the
 // tiles the ray enters taken in order, each culled by the bound so far, as
 // isect_full culls them. The same result as isect_full, bit for bit.
+// `tested` grows by the tiles whose rows the warp tested (in every lane).
 template <class R, class Ops>
 __device__ __forceinline__ float scan_warp(const FullScene& sc,
                                            const float o[3], const float d[3],
-                                           float prevf, int lane, int& code) {
+                                           float prevf, int lane, int& code,
+                                           unsigned& tested) {
   float d_s;
   int i_s;
   uint32_t gate_ok;
@@ -471,6 +473,7 @@ __device__ __forceinline__ float scan_warp(const FullScene& sc,
         const int lo = sc.tile_base + (c0 + k) * TRI_TILE;
         warp_rows<R, Ops>(R::rows(sc), lo, lo + TRI_TILE, lane, o, d, m,
                           prevf, gate_ok, d_t, r_t);
+        ++tested;
       }
     }
   }

@@ -45,6 +45,13 @@
 //  - the row tests take K1's exact fast paths for the root and reciprocal
 //    (FastOps).
 //
+// Counters (work, optional: two uint64 on the device that the caller owns
+// and zeroes): work[0] the warp queries (segments whose line enters a
+// tile), work[1] the tiles whose rows those queries tested (entered closer
+// than the best hit so far). Each warp keeps its counts in registers and
+// adds them once, as it leaves: the plain version's work["query"] and
+// work["tiles"].
+//
 // Random numbers: the counter generator keyed by (seed, pixel, sample,
 // depth, slot), as in K1, or an injected per-item table uniforms[6, n].
 // Every draw and output uses the item's index, never the thread's, and
@@ -75,6 +82,7 @@ struct Args {
   int* segs;
   int* done;
   int* next;  // the refill counter, zero at launch
+  unsigned long long* work;  // [queries, tiles] or NULL
 };
 
 // An item's path, in its owner's registers
@@ -214,6 +222,7 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
   bool more = false;
   bool has = next_item(a, true, more, p);
   int parity = 0;
+  unsigned queries = 0, tiles = 0;  // this warp's, the same in every lane
   for (;;) {
     // ---- each owner: a new item if it has none, a fresh camera ray if its
     // path died, its query, filed ----
@@ -247,7 +256,9 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
         const float4 op = q[2 * j], dr = q[2 * j + 1];
         const float o[3] = {op.x, op.y, op.z}, d[3] = {dr.x, dr.y, dr.z};
         int code;
-        const float t = scan_warp<R, FastOps>(sc, o, d, op.w, lane, code);
+        const float t =
+            scan_warp<R, FastOps>(sc, o, d, op.w, lane, code, tiles);
+        ++queries;
         if (lane == 0) {
           q[2 * j].w = __int_as_float(code);
           q[2 * j + 1].w = t;
@@ -273,6 +284,10 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
       isect_surface<R>(sc, p.o, p.d, dr.w, __float_as_int(op.w), h);
       if (finish_segment(a, h, p)) has = false;
     }
+  }
+  if (a.work != nullptr && lane == 0 && queries != 0) {
+    atomicAdd(a.work, static_cast<unsigned long long>(queries));
+    atomicAdd(a.work + 1, static_cast<unsigned long long>(tiles));
   }
 }
 
@@ -334,14 +349,15 @@ extern "C" int pt_trace_regen_prim_config(int n_sph, int n_bnd, int n_tri,
 // hit is KernelScene.hit ([n_tri, 20], 16-byte aligned), whose rows the scan
 // reads from shared memory, or NULL for the read-only path. uniforms is NULL
 // for the counter generator. next: one int on the device, zero at launch.
-// Returns cudaGetLastError().
+// work: NULL, or two uint64 on the device that the launch adds its warp
+// queries and their tested tiles to. Returns cudaGetLastError().
 extern "C" int pt_trace_regen_prim(
     const float* sph, int n_sph, const float* bnd, int n_bnd,
     const float* tri, int n_tri, const float* hit, const float* tiles,
     int n_tiles, int tile_base, const float* cam_host, int width, int height,
     const int* pixel_idx, int n, uint32_t seed, int sample_base, int quota,
     int max_depth, int rr_start_depth, const float* uniforms, float* rad,
-    int* segs, int* done, int* next, void* stream) {
+    int* segs, int* done, int* next, unsigned long long* work, void* stream) {
   if (n <= 0) return 0;
   const FullScene sc{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
                      tile_base, hit};
@@ -361,7 +377,7 @@ extern "C" int pt_trace_regen_prim(
   if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{make_cam(cam_host, width, height), pixel_idx, n, seed,
                sample_base, quota, max_depth, rr_start_depth, uniforms, rad,
-               segs, done, next};
+               segs, done, next, work};
   const int blocks = (n + K4_THREADS - 1) / K4_THREADS;
   const int grid = blocks < cfg[1] * cfg[3] ? blocks : cfg[1] * cfg[3];
   kernel_for(shared)<<<grid, K4_THREADS, cfg[0], st>>>(sc, a);

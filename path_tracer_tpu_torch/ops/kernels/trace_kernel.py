@@ -718,17 +718,21 @@ def _inv_dir(d):
 
 def _tile_slab(box, o, inv):
     """The slab test of one tile AABB ``box`` [6] (lo, hi): (entry distance
-    t_en [N], whether the ray's line enters the box ahead of it [N])."""
-    n = o[0].shape[0]
-    t_en = torch.zeros(n, dtype=F32, device=o[0].device)
-    t_ex = torch.full((n,), BIG, dtype=F32, device=o[0].device)
+    t_en [N], whether the ray's line enters the box ahead of it [N]). Boxes
+    [6, 1, B] against rays [N, 1] test every pair: [N, B] each."""
+    t_en = t_ex = None
     for k in range(3):
         ta = (box[k] - o[k]) * inv[k]
         tb = (box[3 + k] - o[k]) * inv[k]
+        if t_en is None:
+            t_en, t_ex = torch.zeros_like(ta), torch.full_like(ta, BIG)
         t_en = torch.maximum(t_en, torch.minimum(ta, tb))
         t_ex = torch.minimum(t_ex, torch.maximum(ta, tb))
     return t_en, (t_ex >= t_en) & (t_ex >= 0.0)
 
+
+# lanes x tiles in one block of isect_full_plain's slab tests
+SLAB_BLOCK = 1 << 20
 
 # tiles a tile-entry key holds (csrc/isect_full.cuh): 31, so that every
 # key sorts below SORT_PAD, the key that pads K3's and K6's chunk sorts
@@ -771,9 +775,15 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
       a sphere or a miss.
 
     ``work`` (a dict, optional) counts the tests that live lanes need:
-    "sph" sphere tests, "tri" triangle rows, "slab" tile AABB tests.
+    "sph" sphere tests, "tri" triangle rows, "slab" tile AABB tests, and
+    K4's two counters: "query" the live lanes whose line enters a tile (its
+    warp queries) and "tiles" the tiles whose rows they test.
     ``tiles_out`` (a list, optional) receives each tile's [N] bool mask of
     the lanes that test its rows.
+
+    The slab tests run a block of tiles at once; a tile that no lane enters
+    closer than its bound at the block's start is skipped, since the bound
+    only falls. Each other tile is culled in order, as above.
     """
     n = o[0].shape[0]
     prevf = prev.to(F32)
@@ -843,21 +853,34 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
         work["slab"] = work.get("slab", 0) + live * n_tiles
     if n_tiles:
         inv = _inv_dir(d)
-        for c in range(n_tiles):
-            t_en, enters = _tile_slab(ks.tiles[c], o, inv)
-            bound = torch.minimum(d_t, d_s)
-            cand = enters & alive & (t_en < bound)
-            if tiles_out is not None:
-                tiles_out.append(cand)
-            if work is not None:
-                work["tri"] += int(cand.sum()) * TRI_TILE
-            if not bool(cand.any()):
-                continue
-            lo = ks.tile_base + c * TRI_TILE
-            res_t, res_r = tri_block(lo, lo + TRI_TILE)
-            better = cand & (res_t < d_t)
-            d_t = torch.where(better, res_t, d_t)
-            r_t = torch.where(better, res_r, r_t)
+        oc_, ic_ = [x[:, None] for x in o], [x[:, None] for x in inv]
+        step = max(1, min(n_tiles, SLAB_BLOCK // max(n, 1)))
+        queries = torch.zeros(n, dtype=torch.bool, device=alive.device)
+        for c0 in range(0, n_tiles, step):
+            boxes = ks.tiles[c0:c0 + step].T[:, None, :]  # [6, 1, B]
+            t_en, enters = _tile_slab(boxes, oc_, ic_)  # [N, B]
+            enters = enters & alive[:, None]
+            queries |= enters.any(dim=1)
+            hot = (enters & (t_en < torch.minimum(d_t, d_s)[:, None])).any(dim=0).tolist()
+            for j in range(enters.shape[1]):
+                if not hot[j]:
+                    if tiles_out is not None:
+                        tiles_out.append(torch.zeros_like(alive))
+                    continue
+                cand = enters[:, j] & (t_en[:, j] < torch.minimum(d_t, d_s))
+                if tiles_out is not None:
+                    tiles_out.append(cand)
+                if work is not None:
+                    tested = int(cand.sum())
+                    work["tri"] += tested * TRI_TILE
+                    work["tiles"] = work.get("tiles", 0) + tested
+                lo = ks.tile_base + (c0 + j) * TRI_TILE
+                res_t, res_r = tri_block(lo, lo + TRI_TILE)
+                better = cand & (res_t < d_t)
+                d_t = torch.where(better, res_t, d_t)
+                r_t = torch.where(better, res_r, r_t)
+        if work is not None:
+            work["query"] = work.get("query", 0) + int(queries.sum())
 
     srow = sph[i_s]  # [N, SPH_F]
     trow = ks.tri[r_t]  # [N, TRI_F]
@@ -954,7 +977,8 @@ def prim_library(fmad: bool = True):
         ctypes.c_int, ctypes.c_int,  # max_depth, rr_start_depth
         ctypes.c_void_p,  # uniforms [6, n] or NULL
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rad, segs, done
-        ctypes.c_void_p, ctypes.c_void_p,  # next (zeroed), stream
+        ctypes.c_void_p, ctypes.c_void_p,  # next (zeroed), work or NULL
+        ctypes.c_void_p,  # stream
     ]
     fn = built.lib.pt_trace_regen_prim_config
     fn.restype = ctypes.c_int
@@ -974,6 +998,16 @@ def k4_shared_table(ks: KernelScene) -> bool:
     (``k6_table_bytes``, the same layout) fit K4_SHARED_BUDGET. Decided
     from the table's size before a launch."""
     return k6_table_bytes(ks) <= K4_SHARED_BUDGET
+
+
+def k4_table(ks: KernelScene, device) -> str:
+    """Where K4 reads the rows of ``ks`` from: ``"shared"`` (staged in a
+    block's shared memory, ``k4_shared_table``) or ``"global"`` (the
+    read-only path from device memory) on the card; ``"plain"`` off it,
+    where the plain version runs."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "shared" if k4_shared_table(ks) else "global"
 
 
 def regen_prim_config(ks: KernelScene, *, fmad: bool = True) -> dict:
@@ -997,16 +1031,30 @@ def regen_prim_config(ks: KernelScene, *, fmad: bool = True) -> dict:
 def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
                      seed: int, sample_base: int, quota: int,
                      max_depth: int = 12, rr_start_depth: int = 5,
-                     uniforms: torch.Tensor | None = None, fmad: bool = True):
+                     uniforms: torch.Tensor | None = None, fmad: bool = True,
+                     work=None):
     """K4 (see trace_regen_prim_plain for the contract). CPU tensors run the
     plain version; CUDA tensors launch ``csrc/trace_regen_prim.cu`` or
-    raise. ``fmad=False`` builds the kernel without FMA contraction."""
+    raise. ``fmad=False`` builds the kernel without FMA contraction.
+
+    ``work`` (optional, an int64 [2] tensor on ``pixel_idx``'s device)
+    has K4's counters added to it: the warp queries (segments whose line
+    enters a tile) and the tiles whose rows they tested; on the card by the
+    launch, without a sync, on the CPU from the plain version's ``work``
+    ("query", "tiles")."""
     dev = pixel_idx.device
+    if work is not None and (work.shape != (2,) or work.dtype != torch.int64
+                             or work.device != dev):
+        raise ValueError(f"work must be an int64 [2] tensor on {dev}")
     if dev.type == "cpu":
-        return trace_regen_prim_plain(
+        counts = {}
+        out = trace_regen_prim_plain(
             ks, cam, pixel_idx, seed=seed, sample_base=sample_base,
             quota=quota, max_depth=max_depth, rr_start_depth=rr_start_depth,
-            uniforms=uniforms)
+            uniforms=uniforms, work=counts)
+        if work is not None:
+            work += torch.tensor([counts.get("query", 0), counts.get("tiles", 0)])
+        return out
     if dev.type != "cuda":
         raise ValueError(f"trace_regen_prim runs on cpu or cuda, not {dev}")
     _check_regen_args(pixel_idx, quota, max_depth, uniforms, QUOTA_CAP_PRIM)
@@ -1030,7 +1078,7 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
             int(seed) & rng.MASK32, int(sample_base), int(quota),
             int(max_depth), int(rr_start_depth), _ptr(uniforms),
             rad.data_ptr(), segs.data_ptr(), done.data_ptr(), nxt.data_ptr(),
-            stream)
+            _ptr(work), stream)
     check_launch(built, code, "trace_regen_prim")
     trace_regen_prim.launches += 1
     return rad, segs, done

@@ -211,7 +211,7 @@ def render_pass(prep, accum: torch.Tensor, pixel_perm: torch.Tensor, *,
                 rr_start_depth: int = 5, cam: dict | None = None,
                 width: int = 0, height: int = 0, rays=None,
                 mock_random: bool = False, literal: bool = False,
-                pixel_chunk: int = 0, chunk_start: int = 0):
+                pixel_chunk: int = 0, chunk_start: int = 0, work=None):
     """One pass of a route (``pipeline.Prepared``): every pixel traces
     ``quota`` samples, global indices ``sample_base ..``, in ``pixel_perm``
     order (int32 [npix]; accum [npix, 3] is in the same order).
@@ -225,6 +225,7 @@ def render_pass(prep, accum: torch.Tensor, pixel_perm: torch.Tensor, *,
     package's chunked dispatch; ``mock_random`` and ``literal`` as in
     ``render_samples``. With ``mock_random`` a lane's draws depend on its
     position in the call, so they depend on the pass size and the chunk.
+    ``work`` (``prim``): K4's counters (``trace_kernel.trace_regen_prim``).
 
     accum is updated in place. Returns (accum, segments traced as an int64
     scalar tensor on accum's device). A regen route raises if any pixel
@@ -253,7 +254,7 @@ def render_pass(prep, accum: torch.Tensor, pixel_perm: torch.Tensor, *,
         rad, segs, done = trace_v2.trace_regen(prep.scene, prep.cam, pixel_perm, **kw)
     elif prep.route == "prim":
         rad, segs, done = trace_kernel.trace_regen_prim(
-            prep.kscene, prep.cam, pixel_perm, **kw)
+            prep.kscene, prep.cam, pixel_perm, work=work, **kw)
     else:
         raise ValueError(f"render_pass has no {prep.route!r} route")
     with profiling.span("render.check.wait"):

@@ -267,8 +267,15 @@ class LanePasses:
     a pass, or one a pixel chunk of ``chunk`` pixels on the wavefront,
     whose last chunk's pad lanes redo pixel 0 (their rows are cropped at
     the end), and returns (accum, segments traced) as ``PortalPasses``
-    does. A pass runs whole: no hook stops it, no checkpoint resumes into
-    it, and the runner keeps no counter of a kernel's."""
+    does. A pass runs whole: no hook stops it and no checkpoint resumes
+    into it.
+
+    On the ``prim`` route the runner keeps K4's counters across passes
+    (``work``: an int64 [2] tensor on the device that every pass adds its
+    warp queries and their tested tiles to); ``segments`` reads them with
+    the passes' counts in one transfer and ``report`` puts them into a
+    render's stats and notes. A resumed render's earlier passes were not
+    counted, so it reports none."""
 
     last_partial_counts = None  # no pass stops midway
 
@@ -276,6 +283,14 @@ class LanePasses:
                  chunk: int = 0, **pass_kw):
         npix = res.num_pixels
         self.prep, self.k, self.chunk, self.pass_kw = prep, k, chunk, pass_kw
+        # K4's segments, warp queries and tested tiles over the passes, and
+        # where it read its rows (``trace_kernel.k4_table``)
+        self.work = self.prim = None
+        if prep.route == "prim":
+            self.work = torch.zeros(2, dtype=torch.int64, device=device)
+            self.pass_kw = dict(pass_kw, work=self.work)
+            self.prim = [0, 0, 0]
+            self.prim_table = trace_kernel.k4_table(prep.kscene, device)
         self.rows = -(-npix // chunk) * chunk if chunk else npix
         # built in numpy, on this thread alone: a torch CPU op splits over
         # the intra-op threads and waits for the slowest, which the previous
@@ -305,8 +320,16 @@ class LanePasses:
 
     def segments(self, rays: list) -> int:
         """The segments of the passes' ``rays`` (scalar tensors), read in
-        one transfer."""
-        return int(torch.stack(rays).sum().item())
+        one transfer with K4's counters on the ``prim`` route, which
+        restart."""
+        total = torch.stack(rays).sum()
+        if self.work is None:
+            return int(total.item())
+        counts = torch.cat([total.view(1), self.work]).tolist()
+        self.work.zero_()
+        if self.prim is not None:
+            self.prim = [a + b for a, b in zip(self.prim, counts)]
+        return counts[0]
 
     def checkpoint_fields(self) -> dict:
         """The portal route's counters, which every checkpoint keeps: none
@@ -318,7 +341,7 @@ class LanePasses:
                  "PT_TPU_NO_PORTAL changed?)"] if is_mid_pass(ck) else [])
 
     def resume(self, ck) -> None:
-        pass
+        self.prim = None  # the file's passes were not counted
 
     def unpermute(self, img: torch.Tensor) -> torch.Tensor:
         """``img`` (one row a pixel, accum's first npix rows' order) in
@@ -329,7 +352,19 @@ class LanePasses:
         return out
 
     def report(self, stats: RenderStats) -> None:
+        """The launches into ``stats``; on the ``prim`` route, while every
+        pass of the render is counted, K4's segments, warp queries, tested
+        tiles and table too, also as the ``render.prim``,
+        ``render.prim.query`` and ``render.prim.tiles`` notes."""
         stats.num_dispatches = self.dispatches
+        if self.prim is None:
+            return
+        segments, queries, tiles = self.prim
+        stats.extra.update(prim_segments=segments, prim_queries=queries,
+                           prim_tiles=tiles, prim_table=self.prim_table)
+        profiling.note("render.prim", segments, self.prim_table)
+        profiling.note("render.prim.query", queries)
+        profiling.note("render.prim.tiles", tiles)
 
 
 def make_pass_runner(prep: Prepared, scene: SceneDescriptor,

@@ -1030,6 +1030,76 @@ def test_cuda_portal_render_reads_k3_rows_from_its_table(cuda_device, config, ta
     assert gap <= limit, (gap, limit)
 
 
+@pytest.mark.cuda
+def test_cuda_k4_counts_and_matches_plain_on_panda_arm(cuda_device):
+    """On the panda_arm configuration's kernel scene (133,768 rows in 2,090
+    tiles, read from device memory) at 32x24, quota 2: K4 built with
+    --fmad=false equals the plain version bit for bit, and its two counters
+    (the warp queries and the tiles they tested) equal the plain version's
+    ``work`` counts, adding up over launches; the default build counts the
+    quota exactly and keeps 99.5% of pixels within 1e-3."""
+    scene, _ = _bench_scene("panda_arm")
+    res = Resolution(24, 32)
+    prep = prepare_render(scene, res, cuda_device)
+    ks = prep.kscene
+    assert prep.route == "prim" and ks.tiles.shape[0] == 2090
+    assert not trace_kernel.k4_shared_table(ks)
+    pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(cuda_device)
+    kw = dict(seed=9, sample_base=0, quota=2)
+    plain_work = {}
+    p_out = trace_kernel.trace_regen_prim_plain(ks, prep.cam, pix, work=plain_work, **kw)
+    work = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    exact = trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False, work=work, **kw)
+    torch.cuda.synchronize()
+    for k, p in zip(exact, p_out):
+        assert torch.equal(k, p)
+    counts = [plain_work["query"], plain_work["tiles"]]
+    assert work.tolist() == counts and 0 < counts[0] <= counts[1]
+    trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False, work=work, **kw)
+    assert work.tolist() == [2 * c for c in counts]
+    fast = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    k_rad, _, k_done = trace_kernel.trace_regen_prim(ks, prep.cam, pix, work=fast, **kw)
+    assert bool((k_done == 2).all())
+    assert float(((k_rad - p_out[0]).abs().sum(dim=1) < 1e-3).float().mean()) >= 0.995
+    assert min(fast.tolist()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_prim_render_of_panda_arm_reads_rows_from_device_memory(cuda_device):
+    """render() of the panda_arm configuration at 450x300 takes the prim
+    route with K4 reading its rows from device memory (``prim_table``
+    ``global``), reports K4's counters for all of the render's segments,
+    and 256 pixels drawn from a seed are within the render cell's
+    ``mean_gap`` limit of the benchmark's plain reference at the same
+    spp."""
+    ref_mod = importlib.util.spec_from_file_location(
+        "bench_reference", os.path.join(ROOT, "bench_torch", "reference.py"))
+    ref = importlib.util.module_from_spec(ref_mod)
+    ref_mod.loader.exec_module(ref)
+    with open(os.path.join(ROOT, "bench_torch", "checks",
+                           "panda_arm.render-450x300-100spp.json")) as fh:
+        limit = json.load(fh)["mean_gap"]["limit"]
+    scene, path = _bench_scene("panda_arm")
+    w, h, spp, seed = 450, 300, 4, 2027
+    cfg = RenderConfig(samples_per_pixel=spp, resolution=Resolution(h, w), seed=seed)
+    before = trace_kernel.trace_regen_prim.launches
+    done = tpt.render(scene, cfg, device=cuda_device, out_dir=None, verbose=False)
+    extra = done.stats.extra
+    assert extra["route"] == "prim" and extra["prim_table"] == "global"
+    assert trace_kernel.trace_regen_prim.launches - before == done.stats.num_dispatches == 1
+    assert extra["prim_segments"] == done.stats.num_rays
+    assert 0 < extra["prim_queries"] < extra["prim_segments"]
+    assert extra["prim_tiles"] >= extra["prim_queries"]
+    pix = np.sort(np.random.default_rng(seed).choice(w * h, 256, replace=False))
+    sc = ref.to_device(ref.load_scene(path), cuda_device, torch.float32)
+    want = torch.clamp(ref.pixel_sums(
+        sc, torch.from_numpy(pix).to(cuda_device), 0, spp, seed=seed, width=w,
+        height=h, max_depth=cfg.max_depth, rr_start_depth=cfg.rr_start_depth) / spp,
+        0.0, 1.0).cpu().numpy()
+    gap = float(np.abs(done.image.pixels[pix].astype(np.float64) - want).mean())
+    assert gap <= limit, (gap, limit)
+
+
 def _preview_rays(scene, res, spp, dev):
     """The preview's rays for one frame of ``spp`` samples (render_samples)."""
     npix = res.num_pixels

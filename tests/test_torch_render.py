@@ -331,17 +331,21 @@ def test_render_frees_its_tables_on_return(repo_root, tmp_path, monkeypatch,
 
 
 # the RenderStats.extra keys each route reports
-EXTRA = {"regen": {"route"}, "prim": {"route"}, "wavefront": {"route"},
+EXTRA = {"regen": {"route"}, "wavefront": {"route"},
+         "prim": {"route", "prim_segments", "prim_queries", "prim_tiles",
+                  "prim_table"},
          "portal": {"route", "cycles", "polls", "resolve_segments",
                     "resolve_table", "resolve_group_items"}}
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_stats_and_notes_per_route(repo_root, monkeypatch, route):
-    """Each route reports its own ``RenderStats.extra`` keys, and only the
-    portal route, whose runner keeps K3's counters, logs them as the
+    """Each route reports its own ``RenderStats.extra`` keys. The portal
+    route, whose runner keeps K3's counters, logs them as the
     ``render.resolve`` and ``render.resolve.group`` notes of a traced
-    render."""
+    render, and the prim route, whose runner keeps K4's, as the
+    ``render.prim``, ``render.prim.query`` and ``render.prim.tiles``
+    notes; the other routes log neither."""
     scene, kw = _route(repo_root, route, monkeypatch)
     cfg = tpt.RenderConfig(samples_per_pixel=2, resolution=tpt.Resolution(4, 6),
                            max_depth=3, **kw)
@@ -351,7 +355,7 @@ def test_stats_and_notes_per_route(repo_root, monkeypatch, route):
             done = tpt.render(scene, cfg, device="cpu", out_dir=None,
                               verbose=False)
         notes = {s.name: (s.size, s.tag) for s in profiling.spans()
-                 if s.name.startswith("render.resolve")}
+                 if s.name.startswith(("render.resolve", "render.prim"))}
     finally:
         profiling.clear()
     extra = done.stats.extra
@@ -364,5 +368,12 @@ def test_stats_and_notes_per_route(repo_root, monkeypatch, route):
             "render.resolve.group": (extra["resolve_group_items"], "plain")}
         assert 0 < extra["resolve_segments"] < done.stats.num_rays
         assert done.stats.num_dispatches == 2 * extra["cycles"]
+    elif route == "prim":
+        assert notes == {
+            "render.prim": (extra["prim_segments"], "plain"),
+            "render.prim.query": (extra["prim_queries"], None),
+            "render.prim.tiles": (extra["prim_tiles"], None)}
+        assert extra["prim_segments"] == done.stats.num_rays
+        assert 0 < extra["prim_queries"] <= extra["prim_tiles"]
     else:
         assert notes == {}

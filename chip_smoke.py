@@ -30,7 +30,12 @@ line):
      build's pixels within 1e-3 no fewer than the commit before K4's
      redesign kept there), timed beside the plain version, with its design
      line: registers, blocks per SM, shared bytes, the model's useful rows
-     (scripts/k4_coherence.py scheduled). K2 and K3: a mesh pool at 256x192 with park depth 3 and
+     (scripts/k4_coherence.py scheduled); K4 also where the panda_arm cell
+     runs it, on the cell's scene (2,090 tiles in 66 runs, rows from device
+     memory) at its 450x300, the first PANDA_PIXELS pixels of its Morton
+     order at quota 2: the --fmad=false build's one call (launches counted
+     from 0) bit-exact with the plain version, its three counters (warp
+     queries, tested tiles, opened runs) too. K2 and K3: a mesh pool at 256x192 with park depth 3 and
      step cap 64 over six cycles, both with both sources; then three
      cycles of a fresh 1024x768 pool; K2 also at park depths 0-3 on cycle
      1 of a fresh 1024x768 pool and on cycles 0-2 of a 1024x768 pool of a
@@ -144,6 +149,9 @@ K1_MAIN_LANE_FRAC = 0.9209
 # on mesh and on two-mesh (scripts/ablate_k4.py --parent, NVIDIA H100 80GB
 # HBM3): the default build keeps no fewer.
 K4_MAIN_PIXELS = {"mesh": 786234, "two-mesh": 786079}
+# K4 on panda_arm: the pixels of the cell's frame checked against the
+# plain version, few enough for it (2,090 tiles) to take seconds
+PANDA_PIXELS = 768
 
 # Bounds (published peaks of an H100 SXM at 700 W)
 PEAK_FP32 = 67e12  # flop/s, FP32 outside the tensor cores
@@ -540,6 +548,58 @@ def check_k4(scenes, dev, card, small, main):
                        bound_by=by)
             k4_design(ks, prep.cam, pix, card)
     return out
+
+
+def check_k4_panda(scene, dev, card):
+    """K4 where the panda_arm cell runs it: the cell's scene at 450x300,
+    the first PANDA_PIXELS pixels of the Morton order, quota 2, on the
+    group level over rows in device memory. Its --fmad=false build, one
+    call with the launches counted from 0, equals the plain version bit
+    for bit: radiance, segments, samples and the three counters."""
+    import torch
+
+    from path_tracer_tpu_torch.ops.kernels import trace_kernel
+    from path_tracer_tpu_torch.render.pipeline import (
+        morton_pixel_order, prepare_render,
+    )
+    from path_tracer_tpu_torch.utils.config import Resolution
+
+    res = Resolution(300, 450)
+    prep = prepare_render(scene, res, dev)
+    ks = prep.kscene
+    tag = (f"K4 panda_arm {res.width}x{res.height}, first {PANDA_PIXELS} "
+           "pixels, quota 2")
+    if (prep.route != "prim" or trace_kernel.k4_shared_table(ks)
+            or ks.tile_groups.shape[0] < 2):
+        fail(f"{tag}: route {prep.route}, {ks.tiles.shape[0]} tiles, shared "
+             f"table {trace_kernel.k4_shared_table(ks)}: not the cell's K4")
+    pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]
+                           [:PANDA_PIXELS]).to(dev)
+    kw = dict(seed=7, sample_base=4, quota=2)
+    plain: dict = {}
+    t0 = time.perf_counter()
+    want = trace_kernel.trace_regen_prim_plain(ks, prep.cam, pix, work=plain, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    work = torch.zeros(3, dtype=torch.int64, device=dev)
+    trace_kernel.trace_regen_prim.launches = 0
+    got = trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False,
+                                        work=work, **kw)
+    launches = trace_kernel.trace_regen_prim.launches
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    counts = work.tolist()
+    plain_counts = [plain["query"], plain["tiles"], plain["groups"]]
+    print(f"phase 3 {tag}: {ks.tiles.shape[0]} tiles in "
+          f"{ks.tile_groups.shape[0]} runs; --fmad=false bit-exact {exact}; "
+          f"queries, tiles, runs {counts} (plain {plain_counts}); {launches} "
+          f"launch(es); plain {plain_s:.1f} s ({card})", flush=True)
+    if not exact:
+        fail(f"{tag}: the --fmad=false kernel is not bit-exact with its "
+             "plain version")
+    if counts != plain_counts or not 0 < counts[0] <= counts[2]:
+        fail(f"{tag}: counters {counts}, the plain version's {plain_counts}")
+    if launches != 1:
+        fail(f"{tag}: {launches} launches for one call")
 
 
 def compare(tag, kern, exact, plain, rec, frac=LANE_FRAC):
@@ -1672,11 +1732,17 @@ def main() -> int:
               for sid in ("cornell", "three-spheres", "mesh")}
     # mesh with a second copy of its MeshFile: the default router's `prim`
     scenes["two-mesh"] = script_module("k4_coherence").two_mesh_scene(pt, ROOT)
+    panda = os.path.join(ROOT, "bench_torch", "configs", "panda_arm",
+                         "panda_arm.json")
+    with open(panda) as fh:  # the panda_arm cell's scene
+        scenes["panda_arm"] = pt.SceneDescriptor.from_json_dict(
+            json.load(fh), base_dir=os.path.dirname(panda))
     small, main_res = Resolution(192, 256), Resolution(768, 1024)
 
     # ---- phase 3: kernels against their plain versions ----
     k1 = check_k1(scenes, dev, card)
     k4 = check_k4(scenes, dev, card, small, main_res)
+    check_k4_panda(scenes["panda_arm"], dev, card)
     k2, k3 = check_portal(scenes["mesh"], dev, card, small, main_res)
     check_k2_shapes(scenes["mesh"], dev, card, main_res, k2)
     k5, k6 = check_stepped(scenes, dev, card)

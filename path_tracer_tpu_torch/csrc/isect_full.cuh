@@ -22,6 +22,17 @@
 //    isect_full at the winner and take a ray whose line enters a tile with
 //    a whole warp; K7 through scan_lane, scan_group (a ray by a group of a
 //    warp's lanes) and isect_surface.
+// K4 alone reads a level of boxes above the tiles, in either row mode: one
+// box for each run of TILE_GROUP consecutive tiles
+// (KernelScene.tile_groups, through __ldg), which its filing
+// (enters_a_tile_grouped) and its warp scan (scan_warp) test before the
+// run's tiles, so that a ray slab-tests the tiles of the runs its line
+// enters only. The boxes are unions of the tiles' in float32,
+// exact, and (box - o) * inv is monotone under rounding: a line that
+// enters a tile enters its run's box, no later. So a run the line misses,
+// or enters no closer than the bound, holds no tile that the flat scan
+// would test, and the grouped scans give the flat ones' results bit for
+// bit.
 // The shading fields of the winning row (normal, colour, emission, type,
 // order, id) are read from the 32-float rows in device memory after the
 // scan, for that row only.
@@ -438,17 +449,52 @@ __device__ __forceinline__ void warp_rows(const float* rows, int lo, int hi,
   }
 }
 
+// Tiles c0 .. c0 + 31 of one ray for a whole warp: the slab tests one a
+// lane, and the tiles the ray enters taken in order, each culled by the
+// bound so far, as isect_full culls them, their rows split over the lanes
+// (warp_rows). `tested` grows by the tiles whose rows the warp tested.
+template <class R, class Ops>
+__device__ __forceinline__ void warp_tiles(const FullScene& sc, int c0,
+                                           int lane, const float o[3],
+                                           const float d[3], const float m[3],
+                                           const float inv[3], float prevf,
+                                           uint32_t gate_ok, float d_s,
+                                           float& d_t, int& r_t,
+                                           unsigned& tested) {
+  float t_en = 0.0f;
+  const bool in = c0 + lane < sc.n_tiles &&
+                  tile_slab<R>(sc.tiles + (c0 + lane) * TILE_F, o, inv, t_en);
+  for (unsigned enter = __ballot_sync(0xffffffffu, in); enter;
+       enter &= enter - 1) {
+    const int k = __ffs(enter) - 1;
+    if (__shfl_sync(0xffffffffu, t_en, k) < fminf(d_t, d_s)) {
+      const int lo = sc.tile_base + (c0 + k) * TRI_TILE;
+      warp_rows<R, Ops>(R::rows(sc), lo, lo + TRI_TILE, lane, o, d, m, prevf,
+                        gate_ok, d_t, r_t);
+      ++tested;
+    }
+  }
+}
+
+// Tiles a run of K4's group level: a warp's width, so that a run's tiles
+// are one slab test a lane (trace_kernel.py TILE_GROUP)
+constexpr int TILE_GROUP = 32;
+
 // One ray by a whole warp (every lane active, the same ray): the spheres
-// in every lane, the base set's and each tile's rows split over the lanes
-// (warp_rows); the slab tests of 32 tiles at a time, one a lane, and the
-// tiles the ray enters taken in order, each culled by the bound so far, as
-// isect_full culls them. The same result as isect_full, bit for bit.
-// `tested` grows by the tiles whose rows the warp tested (in every lane).
+// in every lane, the base set's rows split over the lanes (warp_rows);
+// then the group boxes (`groups`, one a run of TILE_GROUP tiles), 32 at a
+// time, one a lane: the runs whose box the ray's line enters are taken in
+// order, and a run's tiles (warp_tiles) are tested only where its box's
+// entry is closer than the bound so far (`opened` grows by those runs).
+// The same result as isect_full, bit for bit. `tested` grows by the tiles
+// whose rows the warp tested (in every lane).
 template <class R, class Ops>
 __device__ __forceinline__ float scan_warp(const FullScene& sc,
+                                           const float* groups,
                                            const float o[3], const float d[3],
                                            float prevf, int lane, int& code,
-                                           unsigned& tested) {
+                                           unsigned& tested,
+                                           unsigned& opened) {
   float d_s;
   int i_s;
   uint32_t gate_ok;
@@ -461,19 +507,19 @@ __device__ __forceinline__ float scan_warp(const FullScene& sc,
                     lane, o, d, m, prevf, gate_ok, d_t, r_t);
   float inv[3];
   inv_dir(d, inv);
-  for (int c0 = 0; c0 < sc.n_tiles; c0 += 32) {
+  const int n_groups = (sc.n_tiles + TILE_GROUP - 1) / TILE_GROUP;
+  for (int g0 = 0; g0 < n_groups; g0 += 32) {
     float t_en = 0.0f;
     const bool in =
-        c0 + lane < sc.n_tiles &&
-        tile_slab<R>(sc.tiles + (c0 + lane) * TILE_F, o, inv, t_en);
+        g0 + lane < n_groups &&
+        tile_slab<GlobalRows>(groups + (g0 + lane) * TILE_F, o, inv, t_en);
     for (unsigned enter = __ballot_sync(0xffffffffu, in); enter;
          enter &= enter - 1) {
       const int k = __ffs(enter) - 1;
       if (__shfl_sync(0xffffffffu, t_en, k) < fminf(d_t, d_s)) {
-        const int lo = sc.tile_base + (c0 + k) * TRI_TILE;
-        warp_rows<R, Ops>(R::rows(sc), lo, lo + TRI_TILE, lane, o, d, m,
-                          prevf, gate_ok, d_t, r_t);
-        ++tested;
+        warp_tiles<R, Ops>(sc, (g0 + k) * TILE_GROUP, lane, o, d, m, inv,
+                           prevf, gate_ok, d_s, d_t, r_t, tested);
+        ++opened;
       }
     }
   }
@@ -578,6 +624,29 @@ __device__ __forceinline__ bool enters_a_tile(const FullScene& sc,
   for (int c = 0; c < sc.n_tiles; ++c) {
     float t_en;
     if (tile_slab<R>(sc.tiles + c * TILE_F, o, inv, t_en)) return true;
+  }
+  return false;
+}
+
+// enters_a_tile over K4's group level: a run's tiles are tested only
+// where the line enters the run's box (`groups`, one a run of TILE_GROUP
+// tiles), which it does wherever it enters one of them; the same answer
+template <class R>
+__device__ __forceinline__ bool enters_a_tile_grouped(const FullScene& sc,
+                                                      const float* groups,
+                                                      const float o[3],
+                                                      const float d[3]) {
+  float inv[3];
+  inv_dir(d, inv);
+  for (int c0 = 0; c0 < sc.n_tiles; c0 += TILE_GROUP) {
+    float t_en;
+    if (!tile_slab<GlobalRows>(groups + (c0 / TILE_GROUP) * TILE_F, o, inv,
+                               t_en))
+      continue;
+    const int hi =
+        c0 + TILE_GROUP < sc.n_tiles ? c0 + TILE_GROUP : sc.n_tiles;
+    for (int c = c0; c < hi; ++c)
+      if (tile_slab<R>(sc.tiles + c * TILE_F, o, inv, t_en)) return true;
   }
   return false;
 }

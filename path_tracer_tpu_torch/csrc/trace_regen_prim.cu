@@ -42,15 +42,29 @@
 //    ray that enters no tile tests). The winner (distance, row or sphere)
 //    goes back to the owner's slot; each owner reads the winner's surface
 //    (isect_surface) and shades;
+//  - a level of boxes above the tiles, one a run of TILE_GROUP (32)
+//    (KernelScene.tile_groups, read through __ldg, passed in Args and not
+//    in FullScene, so the other kernels compile as before): the filing
+//    tests a run's tiles only where the line enters its box
+//    (enters_a_tile_grouped), and a warp query slab-tests the boxes 32 at a
+//    time, then the tiles of each run whose box it enters closer than its
+//    bound (scan_warp). On panda_arm (2,090 tiles, 66 runs) a ray's filing
+//    falls from up to 2,090 slab tests to ~66 and a query's slab
+//    iterations from 66 to ~3 and the runs it opens; the tiles whose rows
+//    are tested, and so every result, are those of a flat scan of every
+//    tile's box. A scene of one run (mesh, 13 tiles) pays one box test
+//    more a ray;
 //  - the row tests take K1's exact fast paths for the root and reciprocal
 //    (FastOps).
 //
-// Counters (work, optional: two uint64 on the device that the caller owns
-// and zeroes): work[0] the warp queries (segments whose line enters a
+// Counters (work, optional: three uint64 on the device that the caller
+// owns and zeroes): work[0] the warp queries (segments whose line enters a
 // tile), work[1] the tiles whose rows those queries tested (entered closer
-// than the best hit so far). Each warp keeps its counts in registers and
-// adds them once, as it leaves: the plain version's work["query"] and
-// work["tiles"].
+// than the best hit so far), work[2] the runs of tiles whose slabs they
+// tested (those whose box the line enters closer than the bound at the
+// run's first tile). Each warp keeps its counts in registers and adds
+// them once, as it leaves: the plain version's work["query"],
+// work["tiles"] and work["groups"].
 //
 // Random numbers: the counter generator keyed by (seed, pixel, sample,
 // depth, slot), as in K1, or an injected per-item table uniforms[6, n].
@@ -82,7 +96,8 @@ struct Args {
   int* segs;
   int* done;
   int* next;  // the refill counter, zero at launch
-  unsigned long long* work;  // [queries, tiles] or NULL
+  const float* groups;  // [ceil(n_tiles / TILE_GROUP), 6] run boxes
+  unsigned long long* work;  // [queries, tiles, groups] or NULL
 };
 
 // An item's path, in its owner's registers
@@ -222,7 +237,8 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
   bool more = false;
   bool has = next_item(a, true, more, p);
   int parity = 0;
-  unsigned queries = 0, tiles = 0;  // this warp's, the same in every lane
+  // this warp's, the same in every lane
+  unsigned queries = 0, tiles = 0, opened = 0;
   for (;;) {
     // ---- each owner: a new item if it has none, a fresh camera ray if its
     // path died, its query, filed ----
@@ -232,7 +248,7 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
       q[2 * tid] = make_float4(p.o[0], p.o[1], p.o[2], p.prev);
       q[2 * tid + 1] = make_float4(p.d[0], p.d[1], p.d[2], 0.0f);
       const uint16_t self = static_cast<uint16_t>(tid);
-      if (enters_a_tile<R>(sc, p.o, p.d))
+      if (enters_a_tile_grouped<R>(sc, a.groups, p.o, p.d))
         owners[atomicAdd(&n_warp[parity], 1)] = self;
       else
         owners[K4_THREADS - 1 - atomicAdd(&n_lane[parity], 1)] = self;
@@ -256,8 +272,8 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
         const float4 op = q[2 * j], dr = q[2 * j + 1];
         const float o[3] = {op.x, op.y, op.z}, d[3] = {dr.x, dr.y, dr.z};
         int code;
-        const float t =
-            scan_warp<R, FastOps>(sc, o, d, op.w, lane, code, tiles);
+        const float t = scan_warp<R, FastOps>(sc, a.groups, o, d, op.w, lane,
+                                              code, tiles, opened);
         ++queries;
         if (lane == 0) {
           q[2 * j].w = __int_as_float(code);
@@ -288,6 +304,7 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
   if (a.work != nullptr && lane == 0 && queries != 0) {
     atomicAdd(a.work, static_cast<unsigned long long>(queries));
     atomicAdd(a.work + 1, static_cast<unsigned long long>(tiles));
+    atomicAdd(a.work + 2, static_cast<unsigned long long>(opened));
   }
 }
 
@@ -347,23 +364,27 @@ extern "C" int pt_trace_regen_prim_config(int n_sph, int n_bnd, int n_tri,
 
 // Launch on `stream`; cam_host points to 14 host floats (CameraConsts.params).
 // hit is KernelScene.hit ([n_tri, 20], 16-byte aligned), whose rows the scan
-// reads from shared memory, or NULL for the read-only path. uniforms is NULL
-// for the counter generator. next: one int on the device, zero at launch.
-// work: NULL, or two uint64 on the device that the launch adds its warp
-// queries and their tested tiles to. Returns cudaGetLastError().
+// reads from shared memory, or NULL for the read-only path. groups is
+// KernelScene.tile_groups ([ceil(n_tiles / 32), 6]; NULL with no tile).
+// uniforms is NULL for the counter generator. next: one int on the device,
+// zero at launch. work: NULL, or three uint64 on the device that the
+// launch adds its warp queries, their tested tiles and the runs of tiles
+// they opened to. Returns cudaGetLastError().
 extern "C" int pt_trace_regen_prim(
     const float* sph, int n_sph, const float* bnd, int n_bnd,
     const float* tri, int n_tri, const float* hit, const float* tiles,
-    int n_tiles, int tile_base, const float* cam_host, int width, int height,
-    const int* pixel_idx, int n, uint32_t seed, int sample_base, int quota,
-    int max_depth, int rr_start_depth, const float* uniforms, float* rad,
-    int* segs, int* done, int* next, unsigned long long* work, void* stream) {
+    int n_tiles, int tile_base, const float* groups, const float* cam_host,
+    int width, int height, const int* pixel_idx, int n, uint32_t seed,
+    int sample_base, int quota, int max_depth, int rr_start_depth,
+    const float* uniforms, float* rad, int* segs, int* done, int* next,
+    unsigned long long* work, void* stream) {
   if (n <= 0) return 0;
   const FullScene sc{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
                      tile_base, hit};
   const bool shared = hit != nullptr;
   if (!full_scene_ok(sc) || width <= 0 || quota < 0 || next == nullptr ||
-      (shared && (reinterpret_cast<uintptr_t>(hit) & 15u)))
+      (shared && (reinterpret_cast<uintptr_t>(hit) & 15u)) ||
+      (n_tiles > 0 && groups == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quota == 0) {  // no segment: every item's outputs are zero
@@ -377,7 +398,7 @@ extern "C" int pt_trace_regen_prim(
   if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{make_cam(cam_host, width, height), pixel_idx, n, seed,
                sample_base, quota, max_depth, rr_start_depth, uniforms, rad,
-               segs, done, next, work};
+               segs, done, next, groups, work};
   const int blocks = (n + K4_THREADS - 1) / K4_THREADS;
   const int grid = blocks < cfg[1] * cfg[3] ? blocks : cfg[1] * cfg[3];
   kernel_for(shared)<<<grid, K4_THREADS, cfg[0], st>>>(sc, a);

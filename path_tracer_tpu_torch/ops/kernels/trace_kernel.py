@@ -339,6 +339,9 @@ EPS_TRI_T = 1e-4
 QUOTA_CAP_PRIM = 64  # most samples per pixel in one K4 launch
 
 TRI_TILE = 64  # triangles per culling tile
+# tiles a run of K4's group level (KernelScene.tile_groups): a warp's width,
+# one slab test a lane (csrc/isect_full.cuh TILE_GROUP)
+TILE_GROUP = 32
 TILE_THRESHOLD = 192  # tile + cull only above this many triangles
 
 # Row layout of KernelScene.sph ([S, SPH_F]), csrc/isect_full.cuh mirrors it
@@ -591,7 +594,9 @@ class KernelScene:
     - ``hit`` [T, HIT_F]: ``tri``'s HIT_COLS and a zero pad, the compact
       rows K3 reads its distance tests from (built from ``tri`` when not
       given); ``hit_tiles`` [C, HIT_F, TRI_TILE] the tiles' rows of it
-      field by field, made on first use on the scene's device.
+      field by field, and ``tile_groups`` [ceil(C / TILE_GROUP), 6] the
+      boxes K4 tests above the tiles, both made on first use on the
+      scene's device.
     """
 
     sph: torch.Tensor
@@ -628,11 +633,33 @@ class KernelScene:
         rows = self.hit[self.tile_base:self.tile_base + c * TRI_TILE]
         return rows.reshape(c, TRI_TILE, HIT_F).transpose(1, 2).contiguous()
 
+    @functools.cached_property
+    def tile_groups(self) -> torch.Tensor:
+        """One box a run of TILE_GROUP consecutive tiles (the level K4
+        tests above the tiles): ``tile_group_boxes(tiles)``."""
+        return tile_group_boxes(self.tiles)
+
     def to(self, device) -> "KernelScene":
         return KernelScene(self.sph.to(device), self.bnd.to(device),
                            self.tri.to(device), self.tiles.to(device),
                            self.tile_base, self.aabb_lo, self.aabb_inv_span,
                            self.hit.to(device))
+
+
+def tile_group_boxes(tiles: torch.Tensor) -> torch.Tensor:
+    """One box for each run of TILE_GROUP consecutive tiles of ``tiles``
+    [C, 6] (lo, hi), the last run holding the rest: [ceil(C / TILE_GROUP),
+    6], the elementwise min of the run's lo corners and max of its hi
+    corners. Float32 min and max are exact, so a box is the least that
+    holds its run's boxes: a line that enters a tile enters its run's box,
+    and no later (``(box - o) * inv`` is monotone under rounding)."""
+    c = tiles.shape[0]
+    g = -(-c // TILE_GROUP)
+    pad = g * TILE_GROUP - c
+    lo = torch.cat([tiles[:, :3], tiles.new_full((pad, 3), float("inf"))])
+    hi = torch.cat([tiles[:, 3:], tiles.new_full((pad, 3), float("-inf"))])
+    return torch.cat([lo.view(g, TILE_GROUP, 3).amin(dim=1),
+                      hi.view(g, TILE_GROUP, 3).amax(dim=1)], dim=1).contiguous()
 
 
 def kernel_scene_from_jax(bufs: dict) -> KernelScene:
@@ -776,8 +803,11 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
 
     ``work`` (a dict, optional) counts the tests that live lanes need:
     "sph" sphere tests, "tri" triangle rows, "slab" tile AABB tests, and
-    K4's two counters: "query" the live lanes whose line enters a tile (its
-    warp queries) and "tiles" the tiles whose rows they test.
+    K4's three counters: "query" the live lanes whose line enters a tile
+    (its warp queries), "tiles" the tiles whose rows they test and
+    "groups" the runs of TILE_GROUP tiles whose slabs they test: a query
+    tests a run's tiles where its line enters the run's box
+    (``tile_groups``) closer than its bound at the run's first tile.
     ``tiles_out`` (a list, optional) receives each tile's [N] bool mask of
     the lanes that test its rows.
 
@@ -856,6 +886,7 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
         oc_, ic_ = [x[:, None] for x in o], [x[:, None] for x in inv]
         step = max(1, min(n_tiles, SLAB_BLOCK // max(n, 1)))
         queries = torch.zeros(n, dtype=torch.bool, device=alive.device)
+        opened = []  # each run's lanes that enter its box closer than their bound
         for c0 in range(0, n_tiles, step):
             boxes = ks.tiles[c0:c0 + step].T[:, None, :]  # [6, 1, B]
             t_en, enters = _tile_slab(boxes, oc_, ic_)  # [N, B]
@@ -863,6 +894,10 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
             queries |= enters.any(dim=1)
             hot = (enters & (t_en < torch.minimum(d_t, d_s)[:, None])).any(dim=0).tolist()
             for j in range(enters.shape[1]):
+                if work is not None and (c0 + j) % TILE_GROUP == 0:
+                    box = ks.tile_groups[(c0 + j) // TILE_GROUP]
+                    t_g, in_g = _tile_slab(box, o, inv)
+                    opened.append(in_g & alive & (t_g < torch.minimum(d_t, d_s)))
                 if not hot[j]:
                     if tiles_out is not None:
                         tiles_out.append(torch.zeros_like(alive))
@@ -881,6 +916,8 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
                 r_t = torch.where(better, res_r, r_t)
         if work is not None:
             work["query"] = work.get("query", 0) + int(queries.sum())
+            work["groups"] = work.get("groups", 0) + int(
+                (torch.stack(opened) & queries).sum())
 
     srow = sph[i_s]  # [N, SPH_F]
     trow = ks.tri[r_t]  # [N, TRI_F]
@@ -971,6 +1008,7 @@ def prim_library(fmad: bool = True):
         ctypes.c_void_p, ctypes.c_int,  # tri, T
         ctypes.c_void_p,  # hit [T, HIT_F] or NULL
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
+        ctypes.c_void_p,  # tile_groups [ceil(C / TILE_GROUP), 6]
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # camera (host), W, H
         ctypes.c_void_p, ctypes.c_int,  # pixel_idx, n
         ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, base, quota
@@ -1037,15 +1075,16 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
     plain version; CUDA tensors launch ``csrc/trace_regen_prim.cu`` or
     raise. ``fmad=False`` builds the kernel without FMA contraction.
 
-    ``work`` (optional, an int64 [2] tensor on ``pixel_idx``'s device)
-    has K4's counters added to it: the warp queries (segments whose line
-    enters a tile) and the tiles whose rows they tested; on the card by the
+    ``work`` (optional, an int64 [3] tensor on ``pixel_idx``'s device) has
+    K4's counters added to it: the warp queries (segments whose line enters
+    a tile), the tiles whose rows they tested and the runs of tiles whose
+    slabs they tested; on the card by the
     launch, without a sync, on the CPU from the plain version's ``work``
-    ("query", "tiles")."""
+    ("query", "tiles", "groups")."""
     dev = pixel_idx.device
-    if work is not None and (work.shape != (2,) or work.dtype != torch.int64
+    if work is not None and (work.shape != (3,) or work.dtype != torch.int64
                              or work.device != dev):
-        raise ValueError(f"work must be an int64 [2] tensor on {dev}")
+        raise ValueError(f"work must be an int64 [3] tensor on {dev}")
     if dev.type == "cpu":
         counts = {}
         out = trace_regen_prim_plain(
@@ -1053,13 +1092,14 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
             quota=quota, max_depth=max_depth, rr_start_depth=rr_start_depth,
             uniforms=uniforms, work=counts)
         if work is not None:
-            work += torch.tensor([counts.get("query", 0), counts.get("tiles", 0)])
+            work += torch.tensor([counts.get(k, 0) for k in
+                                  ("query", "tiles", "groups")])
         return out
     if dev.type != "cuda":
         raise ValueError(f"trace_regen_prim runs on cpu or cuda, not {dev}")
     _check_regen_args(pixel_idx, quota, max_depth, uniforms, QUOTA_CAP_PRIM)
     _check_on("trace_regen_prim (K4)", dev,
-              [ks.sph, ks.bnd, ks.tri, ks.tiles, ks.hit]
+              [ks.sph, ks.bnd, ks.tri, ks.tiles, ks.hit, ks.tile_groups]
               + ([uniforms] if uniforms is not None else []), (pixel_idx,))
     n = pixel_idx.shape[0]
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -1073,8 +1113,8 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the refill counter
         code = built.lib.pt_trace_regen_prim(
-            *_prim_scene_args(ks, K4_SHARED_BUDGET), params.data_ptr(),
-            cam.width, cam.height, pixel_idx.data_ptr(), n,
+            *_prim_scene_args(ks, K4_SHARED_BUDGET), _ptr(ks.tile_groups),
+            params.data_ptr(), cam.width, cam.height, pixel_idx.data_ptr(), n,
             int(seed) & rng.MASK32, int(sample_base), int(quota),
             int(max_depth), int(rr_start_depth), _ptr(uniforms),
             rad.data_ptr(), segs.data_ptr(), done.data_ptr(), nxt.data_ptr(),

@@ -271,11 +271,11 @@ class LanePasses:
     into it.
 
     On the ``prim`` route the runner keeps K4's counters across passes
-    (``work``: an int64 [2] tensor on the device that every pass adds its
-    warp queries and their tested tiles to); ``segments`` reads them with
-    the passes' counts in one transfer and ``report`` puts them into a
-    render's stats and notes. A resumed render's earlier passes were not
-    counted, so it reports none."""
+    (``work``: an int64 [3] tensor on the device that every pass adds its
+    warp queries, their tested tiles and their opened runs of tiles to);
+    ``segments`` reads them with the passes' counts in one transfer and
+    ``report`` puts them into a render's stats and notes. A resumed
+    render's earlier passes were not counted, so it reports none."""
 
     last_partial_counts = None  # no pass stops midway
 
@@ -283,13 +283,13 @@ class LanePasses:
                  chunk: int = 0, **pass_kw):
         npix = res.num_pixels
         self.prep, self.k, self.chunk, self.pass_kw = prep, k, chunk, pass_kw
-        # K4's segments, warp queries and tested tiles over the passes, and
-        # where it read its rows (``trace_kernel.k4_table``)
+        # K4's segments, warp queries, tested tiles and opened runs over the
+        # passes, and where it read its rows (``trace_kernel.k4_table``)
         self.work = self.prim = None
         if prep.route == "prim":
-            self.work = torch.zeros(2, dtype=torch.int64, device=device)
+            self.work = torch.zeros(3, dtype=torch.int64, device=device)
             self.pass_kw = dict(pass_kw, work=self.work)
-            self.prim = [0, 0, 0]
+            self.prim = [0, 0, 0, 0]
             self.prim_table = trace_kernel.k4_table(prep.kscene, device)
         self.rows = -(-npix // chunk) * chunk if chunk else npix
         # built in numpy, on this thread alone: a torch CPU op splits over
@@ -354,17 +354,20 @@ class LanePasses:
     def report(self, stats: RenderStats) -> None:
         """The launches into ``stats``; on the ``prim`` route, while every
         pass of the render is counted, K4's segments, warp queries, tested
-        tiles and table too, also as the ``render.prim``,
-        ``render.prim.query`` and ``render.prim.tiles`` notes."""
+        tiles, opened runs of tiles and table too, also as the
+        ``render.prim``, ``render.prim.query``, ``render.prim.tiles`` and
+        ``render.prim.groups`` notes."""
         stats.num_dispatches = self.dispatches
         if self.prim is None:
             return
-        segments, queries, tiles = self.prim
+        segments, queries, tiles, groups = self.prim
         stats.extra.update(prim_segments=segments, prim_queries=queries,
-                           prim_tiles=tiles, prim_table=self.prim_table)
+                           prim_tiles=tiles, prim_groups=groups,
+                           prim_table=self.prim_table)
         profiling.note("render.prim", segments, self.prim_table)
         profiling.note("render.prim.query", queries)
         profiling.note("render.prim.tiles", tiles)
+        profiling.note("render.prim.groups", groups)
 
 
 def make_pass_runner(prep: Prepared, scene: SceneDescriptor,

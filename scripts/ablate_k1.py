@@ -23,10 +23,11 @@ branch shares at quota 4 and the warp-steps of the quota-256 run: a static
 count, no lower bound), and the card's name, power limit and SM clock
 under load. With --parent it also compares the SASS (cuobjdump) of the
 kernels that must keep it with the parent's builds: K2 (portal_cheap.cu)
-and K5 (trace_stepped.cu); ``--fingerprints
-PATH`` writes the parent's as the fixture of tests/test_torch_cuda.py
-(tests/golden/gpu/k1_shared_sass.json). ``--check-only`` builds, checks
-and counts without timing.
+and K5 (trace_stepped.cu); ``--fingerprints PATH`` writes the parent's
+SASS fingerprints of those and of the other kernels that include
+csrc/isect_full.cuh (``FIXTURE``) as the fixture of
+tests/test_torch_cuda.py (tests/golden/gpu/k1_shared_sass.json).
+``--check-only`` builds, checks and counts without timing.
 
   python3 scripts/ablate_k1.py [--parent DIR] [--reps 3] [--rounds 2]
       [--check-only] [--fingerprints PATH]
@@ -68,6 +69,12 @@ CSRC = os.path.join("path_tracer_tpu_torch", "csrc")
 # (scripts/ablate_k{3,4,5,6,7,8}.py).
 SHARED = ("portal_cheap.cu",)
 GUARDED = re.compile(r"cheap_regen_kernel")
+# the kernels of the fixture tests/golden/gpu/k1_shared_sass.json, by
+# source: the GUARDED ones, and every kernel of the sources other than K4's
+# that include csrc/isect_full.cuh (K3; K5-K7 and K9), which K4's group
+# level had to leave as they were
+FIXTURE = {"portal_cheap.cu": GUARDED, "portal_resolve.cu": re.compile(""),
+           "trace_stepped.cu": re.compile("")}
 
 
 def script(name):
@@ -181,21 +188,29 @@ def compare_sass(parent: str) -> bool:
     return same
 
 
-def fingerprints(root: str) -> dict:
-    """The nvcc release and a sha256 of each GUARDED kernel's SASS (as
-    ``sass`` gives it) in root's builds, with and without FMA contraction:
-    the fixture tests/golden/gpu/k1_shared_sass.json holds the parent
-    commit's."""
-    kernels = {}
-    for src in SHARED:
-        for flags in ((), ("--fmad=false",)):
-            built = kbuild.build(os.path.join(root, CSRC, src), flags)
-            for fn, ins in guarded_sass(built.path).items():
-                key = f"{src}{' fmad=false' if flags else ''} {fn}"
-                kernels[key] = hashlib.sha256("\n".join(ins).encode()).hexdigest()
+def nvcc_release() -> str:
+    """The last line of ``nvcc --version``: the toolkit's release."""
     version = subprocess.run([kbuild.find_nvcc(), "--version"],
                              capture_output=True, text=True, check=True).stdout
-    return {"nvcc": version.strip().splitlines()[-1], "kernels": kernels}
+    return version.strip().splitlines()[-1]
+
+
+def fingerprints(root: str) -> dict:
+    """The nvcc release and a sha256 of each FIXTURE kernel's SASS (as
+    ``sass`` gives it) in root's builds, with and without FMA contraction:
+    the fixture tests/golden/gpu/k1_shared_sass.json holds a parent
+    commit's. A change that rightly alters one of these kernels writes the
+    fixture anew from its own builds once they are checked:
+    ``--parent . --check-only --fingerprints PATH``."""
+    kernels = {}
+    for src, pattern in FIXTURE.items():
+        for flags in ((), ("--fmad=false",)):
+            built = kbuild.build(os.path.join(root, CSRC, src), flags)
+            for fn, ins in sass(built.path).items():
+                if pattern.search(fn):
+                    key = f"{src}{' fmad=false' if flags else ''} {fn}"
+                    kernels[key] = hashlib.sha256("\n".join(ins).encode()).hexdigest()
+    return {"nvcc": nvcc_release(), "kernels": kernels}
 
 
 def share(rad, ref) -> float:

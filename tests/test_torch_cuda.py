@@ -12,7 +12,9 @@ single-sphere and a scene of 128 primitives, the most a static scene
 holds, with K2's SASS held to the commit's before K7's and K8's
 redesign), K4 trace_regen_prim (mesh; mesh and the two-mesh scene at
 quota 64; past one wave of resident threads; a scene whose table exceeds
-its shared-memory budget; its launch configuration), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
+its shared-memory budget; its launch configuration; its group level, on
+panda_arm against the flat scan's build and the plain version, and its
+three counters on one run of tiles and past it, on both row modes), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
 K2 also at park depths 0-3, on pools wider than one wave of resident
 threads and narrower, of a width no multiple of the block, with every slot
 stalled at entry, with slots that reach the step budget and on a scene of
@@ -287,7 +289,10 @@ def test_cuda_k1_leaves_the_other_kernels_sass(cuda_device):
     it as it was: K2 (scripts/ablate_k1.py GUARDED), built with and
     without FMA contraction, hashes as in the fixture that
     scripts/ablate_k4.py --fingerprints wrote from the builds of the commit
-    before K7's and K8's redesign on this toolkit."""
+    before K7's and K8's redesign on this toolkit. K4's group level leaves
+    every other kernel that includes csrc/isect_full.cuh as it was too: K3
+    (portal_resolve.cu), K5-K7 and K9 (trace_stepped.cu) hash as the
+    commit before the level built them (scripts/ablate_k1.py FIXTURE)."""
     spec = importlib.util.spec_from_file_location(
         "ablate_k1", os.path.join(ROOT, "scripts", "ablate_k1.py"))
     ablate = importlib.util.module_from_spec(spec)
@@ -1030,34 +1035,45 @@ def test_cuda_portal_render_reads_k3_rows_from_its_table(cuda_device, config, ta
     assert gap <= limit, (gap, limit)
 
 
+def _k4_three_counters(ks, cam, pix, **kw):
+    """K4 built with --fmad=false and the plain version on the same pixels:
+    their outputs and K4's three counters, each side's."""
+    plain_work = {}
+    p_out = trace_kernel.trace_regen_prim_plain(ks, cam, pix, work=plain_work, **kw)
+    work = torch.zeros(3, dtype=torch.int64, device=pix.device)
+    exact = trace_kernel.trace_regen_prim(ks, cam, pix, fmad=False, work=work, **kw)
+    torch.cuda.synchronize()
+    want = [plain_work["query"], plain_work["tiles"], plain_work["groups"]]
+    return exact, p_out, work.tolist(), want
+
+
 @pytest.mark.cuda
 def test_cuda_k4_counts_and_matches_plain_on_panda_arm(cuda_device):
     """On the panda_arm configuration's kernel scene (133,768 rows in 2,090
-    tiles, read from device memory) at 32x24, quota 2: K4 built with
-    --fmad=false equals the plain version bit for bit, and its two counters
-    (the warp queries and the tiles they tested) equal the plain version's
-    ``work`` counts, adding up over launches; the default build counts the
-    quota exactly and keeps 99.5% of pixels within 1e-3."""
+    tiles, 66 runs of 32, read from device memory) at 32x24, quota 2: K4
+    built with --fmad=false equals the plain version bit for bit, and its
+    three counters (the warp queries, the tiles they tested and the runs of
+    tiles they opened) equal the plain version's ``work`` counts, adding up
+    over launches, with each query opening at least one run and fewer than
+    all 66; the default build counts the quota exactly and keeps 99.5% of
+    pixels within 1e-3."""
     scene, _ = _bench_scene("panda_arm")
     res = Resolution(24, 32)
     prep = prepare_render(scene, res, cuda_device)
     ks = prep.kscene
     assert prep.route == "prim" and ks.tiles.shape[0] == 2090
-    assert not trace_kernel.k4_shared_table(ks)
+    assert not trace_kernel.k4_shared_table(ks) and ks.tile_groups.shape == (66, 6)
     pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(cuda_device)
     kw = dict(seed=9, sample_base=0, quota=2)
-    plain_work = {}
-    p_out = trace_kernel.trace_regen_prim_plain(ks, prep.cam, pix, work=plain_work, **kw)
-    work = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    exact = trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False, work=work, **kw)
-    torch.cuda.synchronize()
+    exact, p_out, got, counts = _k4_three_counters(ks, prep.cam, pix, **kw)
     for k, p in zip(exact, p_out):
         assert torch.equal(k, p)
-    counts = [plain_work["query"], plain_work["tiles"]]
-    assert work.tolist() == counts and 0 < counts[0] <= counts[1]
+    assert got == counts and 0 < counts[0] <= counts[1]
+    assert counts[0] <= counts[2] < 66 * counts[0]
+    work = torch.tensor(got, dtype=torch.int64, device=cuda_device)
     trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False, work=work, **kw)
     assert work.tolist() == [2 * c for c in counts]
-    fast = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    fast = torch.zeros(3, dtype=torch.int64, device=cuda_device)
     k_rad, _, k_done = trace_kernel.trace_regen_prim(ks, prep.cam, pix, work=fast, **kw)
     assert bool((k_done == 2).all())
     assert float(((k_rad - p_out[0]).abs().sum(dim=1) < 1e-3).float().mean()) >= 0.995
@@ -1098,6 +1114,73 @@ def test_cuda_prim_render_of_panda_arm_reads_rows_from_device_memory(cuda_device
         0.0, 1.0).cpu().numpy()
     gap = float(np.abs(done.image.pixels[pix].astype(np.float64) - want).mean())
     assert gap <= limit, (gap, limit)
+
+
+def _k4_fixture():
+    """scripts/k4_flat_fixture.py and the fixture it wrote from the builds
+    of the commit before K4's group level (the flat tile scan)."""
+    spec = importlib.util.spec_from_file_location(
+        "k4_flat_fixture", os.path.join(ROOT, "scripts", "k4_flat_fixture.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with open(os.path.join(ROOT, "tests", "golden", "gpu",
+                           "k4_flat_parent.json")) as fh:
+        want = json.load(fh)
+    if mod.nvcc_release() != want["nvcc"]:
+        pytest.skip(f"fixture made with {want['nvcc']}, this is {mod.nvcc_release()}")
+    return mod, want
+
+
+@pytest.mark.cuda
+def test_cuda_k4_grouped_image_equals_the_flat_build(cuda_device):
+    """K4's default build (FMA contraction on) on panda_arm at 200x150, at
+    the production quota of 64: radiance, segments and finished samples
+    hash as the flat tile scan's build from the commit before the group
+    level did on this toolkit (scripts/k4_flat_fixture.py): the same image,
+    bit for bit."""
+    mod, want = _k4_fixture()
+    ks, cam, pix = mod.panda_case(cuda_device)
+    shape = want["flat_panda_arm"]
+    kw = {k: shape[k] for k in ("seed", "sample_base", "quota")}
+    assert (shape["width"], shape["height"], kw["quota"]) == (200, 150, 64)
+    assert mod.digests(trace_kernel.trace_regen_prim(ks, cam, pix, **kw)) == shape["sha256"]
+
+
+def _mesh_tiles(ks, copies: int, extra: int = 0):
+    """``ks`` with its tiles ``copies`` times over and then its first
+    ``extra`` tiles once more."""
+    tiles = ks.tri[ks.tile_base:]
+    return trace_kernel.KernelScene(
+        ks.sph, ks.bnd,
+        torch.cat([ks.tri[:ks.tile_base]] + [tiles] * copies
+                  + [tiles[:extra * trace_kernel.TRI_TILE]]),
+        torch.cat([ks.tiles] * copies + [ks.tiles[:extra]]), ks.tile_base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n_tiles,shared", [
+    ("mesh", 13, True), ("two-mesh", 26, True), ("mesh 33", 33, True),
+    ("mesh 52", 52, False)])
+def test_cuda_k4_three_counters_on_each_scan(cuda_device, case, n_tiles, shared):
+    """K4 with --fmad=false equals the plain version, image and three
+    counters, on both its kernels: one run of tiles on shared rows (mesh,
+    the two-mesh scene: at most one run opened a query), and past one run,
+    on shared rows (mesh's tiles to 33: two runs, the last of one tile)
+    and on rows from device memory (mesh's tiles four times over: 52)."""
+    sid = case.split()[0]
+    ks, cam, pix = _k4_case(sid, Resolution(48, 64), cuda_device)
+    if case == "mesh 33":
+        ks = _mesh_tiles(ks, 2, 7)
+    elif case == "mesh 52":
+        ks = _mesh_tiles(ks, 4)
+    assert ks.tiles.shape[0] == n_tiles and trace_kernel.k4_shared_table(ks) == shared
+    exact, p_out, got, want = _k4_three_counters(ks, cam, pix, seed=5,
+                                                 sample_base=0, quota=4)
+    for k, p in zip(exact, p_out):
+        assert torch.equal(k, p)
+    assert got == want and want[0] > 0
+    if n_tiles <= trace_kernel.TILE_GROUP:
+        assert 0 < want[2] <= want[0]
 
 
 def _preview_rays(scene, res, spp, dev):

@@ -14,6 +14,9 @@ tests/test_torch_cuda.py holds it to its plain version there. Here:
    route in the port, as the JAX package's ``prepare_scene_and_mode``
    sends it to ``pallasr:``.
 4. The size rule (K4_SHARED_BUDGET), against the source's layout.
+5. The group level: ``KernelScene.tile_groups`` on synthetic tables of 0
+   to 40 tiles, the run size against the source's, and the wrapper's
+   three counters.
 """
 
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
@@ -163,3 +166,57 @@ def test_k4_wrapper_on_cpu_launches_nothing(monkeypatch):
     b = tk.trace_regen_prim_plain(ks, cam, pix, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert tk.trace_regen_prim.launches == before
+
+
+def _tiles_scene(n_tiles: int):
+    """A KernelScene of ``n_tiles`` random tile boxes (one base row)."""
+    rng = np.random.default_rng(n_tiles)
+    lo = rng.normal(size=(n_tiles, 3)).astype(np.float32)
+    hi = lo + rng.random((n_tiles, 3), dtype=np.float32)
+    return tk.KernelScene(torch.zeros((1, tk.SPH_F)), torch.zeros((0, 4)),
+                          torch.zeros((1 + n_tiles * tk.TRI_TILE, tk.TRI_F)),
+                          torch.from_numpy(np.concatenate([lo, hi], axis=1)), 1)
+
+
+@pytest.mark.parametrize("n_tiles", [0, 1, 32, 33, 37, 40])
+def test_tile_groups_are_the_unions_of_runs_of_32_tiles(n_tiles):
+    """One box a run of TILE_GROUP tiles, the last run holding the rest:
+    the elementwise min of the run's lo corners and max of its hi corners,
+    exactly; ``to`` carries them."""
+    ks = _tiles_scene(n_tiles)
+    tiles, groups = ks.tiles.numpy(), ks.tile_groups.numpy()
+    assert groups.shape == (-(-n_tiles // 32), 6)
+    for g in range(groups.shape[0]):
+        run = tiles[32 * g:32 * g + 32]
+        assert (groups[g] == np.concatenate([run[:, :3].min(axis=0),
+                                             run[:, 3:].max(axis=0)])).all()
+    assert torch.equal(ks.to("cpu").tile_groups, ks.tile_groups)
+
+
+def test_tile_group_matches_the_source():
+    """The run size of KernelScene.tile_groups is csrc/isect_full.cuh's."""
+    with open(os.path.join(os.path.dirname(tk.CSRC_REGEN_PRIM),
+                           "isect_full.cuh")) as fh:
+        src = int(re.search(r"constexpr int TILE_GROUP = (\d+);",
+                            fh.read()).group(1))
+    assert src == tk.TILE_GROUP == 32
+
+
+def test_k4_wrapper_takes_three_counters(monkeypatch):
+    """On the CPU the wrapper adds the plain version's counts (queries,
+    tiles, opened runs: at most one a query on the two-mesh scene's 26
+    tiles, a single run) to an int64 [3] tensor, over calls, and refuses
+    any other."""
+    ks, cam, pix = _case("two-mesh", monkeypatch)
+    kw = dict(seed=1, sample_base=0, quota=2)
+    plain = {}
+    tk.trace_regen_prim_plain(ks, cam, pix, work=plain, **kw)
+    assert ks.tiles.shape[0] == 26 and 0 < plain["groups"] <= plain["query"]
+    work = torch.zeros(3, dtype=torch.int64)
+    for calls in (1, 2):
+        tk.trace_regen_prim(ks, cam, pix, work=work, **kw)
+        assert work.tolist() == [calls * plain[k] for k in ("query", "tiles", "groups")]
+    for bad in (torch.zeros(2, dtype=torch.int64), torch.zeros(4, dtype=torch.int64),
+                torch.zeros(3, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            tk.trace_regen_prim(ks, cam, pix, work=bad, **kw)

@@ -13,6 +13,11 @@ box, rendered by the ``prim`` route's K4.
 3. K4's counters: ``RenderStats.extra`` and the ``render.prim`` notes of a
    traced render equal the plain version's ``work`` over the same pass, one
    of each note a render.
+4. K4's group level: ``KernelScene.tile_groups`` is the exact union of
+   each run of 32 of the arm's 2,090 tiles (66 runs, the last of 10), and
+   a ray's line that enters a tile enters its run's box, no later, on
+   1,024 rays: what the group level's equality with the flat scan rests
+   on.
 The card's K4 against this plain version is in test_torch_cuda.py.
 """
 
@@ -33,6 +38,7 @@ import path_tracer_tpu_torch as tpt
 from path_tracer_tpu_torch.models.off import parse_off
 from path_tracer_tpu_torch.ops.kernels import trace_kernel as t_tk
 from path_tracer_tpu_torch.render.pipeline import morton_pixel_order, prepare_render
+from path_tracer_tpu_torch.render.raygen import camera_arrays, camera_rays
 from path_tracer_tpu_torch.utils import profiling
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 
@@ -183,10 +189,11 @@ def test_plain_prim_route_matches_reference_on_panda_arm(traced_render):
 
 def test_prim_counters_and_notes_equal_the_plain_work(traced_render):
     """K4's counters of a render (``prim_segments``, ``prim_queries``,
-    ``prim_tiles``) equal the plain version's segments and ``work`` counts
-    ("query", "tiles") over the render's one pass, and the traced render
-    logs each as its note once: ``render.prim`` tagged with the table,
-    ``render.prim.query`` and ``render.prim.tiles``."""
+    ``prim_tiles``, ``prim_groups``) equal the plain version's segments and
+    ``work`` counts ("query", "tiles", "groups") over the render's one
+    pass, and the traced render logs each as its note once: ``render.prim``
+    tagged with the table, ``render.prim.query``, ``render.prim.tiles`` and
+    ``render.prim.groups``."""
     done, cfg, notes = traced_render
     extra = done.stats.extra
     c = CFG
@@ -199,10 +206,65 @@ def test_prim_counters_and_notes_equal_the_plain_work(traced_render):
         rr_start_depth=cfg.rr_start_depth, work=work)
     assert bool((fin == c["spp"]).all())
     assert extra["prim_segments"] == int(segs.sum()) == done.stats.num_rays
-    assert (extra["prim_queries"], extra["prim_tiles"]) == (work["query"], work["tiles"])
+    assert (extra["prim_queries"], extra["prim_tiles"], extra["prim_groups"]) == (
+        work["query"], work["tiles"], work["groups"])
     assert 0 < work["query"] < extra["prim_segments"] and work["tiles"] >= work["query"]
+    assert work["query"] <= work["groups"] < 66 * work["query"]
     assert extra["prim_table"] == "plain"
     assert sorted(notes) == sorted([
         ("render.prim", extra["prim_segments"], "plain"),
         ("render.prim.query", extra["prim_queries"], None),
-        ("render.prim.tiles", extra["prim_tiles"], None)])
+        ("render.prim.tiles", extra["prim_tiles"], None),
+        ("render.prim.groups", extra["prim_groups"], None)])
+
+
+@pytest.fixture(scope="module")
+def arm_kscene():
+    return prepare_render(_scene(), tpt.Resolution(4, 6), "cpu").kscene
+
+
+def test_panda_arm_tile_groups_are_the_unions_of_its_runs(arm_kscene):
+    """66 boxes for the 2,090 tiles, the last over the 10 that remain: each
+    the elementwise min of its run's lo corners and max of its hi corners,
+    exactly, and carried by ``KernelScene.to``."""
+    ks = arm_kscene
+    tiles, groups = ks.tiles.numpy(), ks.tile_groups.numpy()
+    assert groups.shape == (66, 6) and groups.dtype == np.float32
+    assert tiles.shape[0] - 65 * t_tk.TILE_GROUP == 10
+    for g in range(66):
+        run = tiles[32 * g:32 * g + 32]
+        assert (groups[g, :3] == run[:, :3].min(axis=0)).all()
+        assert (groups[g, 3:] == run[:, 3:].max(axis=0)).all()
+    assert torch.equal(ks.to("cpu").tile_groups, ks.tile_groups)
+
+
+def test_a_line_that_enters_a_tile_enters_its_run_no_later(arm_kscene):
+    """On 1,024 rays, 512 from the camera and 512 from points in the arm's
+    box along random directions (a quarter with one component zero, which
+    the slab test clamps): wherever the slab test says a ray's line enters
+    a tile, it says the line enters the tile's run's box, at an entry
+    distance no greater than the tile's. So a run the line misses, or
+    enters no closer than the bound, holds no tile the flat scan would
+    test."""
+    ks = arm_kscene
+    pix = torch.arange(512, dtype=torch.int32) * 53 % (450 * 300)
+    o_cam, d_cam = camera_rays(camera_arrays(_scene().camera), pix,
+                               torch.zeros(512, dtype=torch.int32), seed=3,
+                               width=450, height=300)
+    rng = np.random.default_rng(5)
+    lo = ks.tile_groups[:, :3].amin(dim=0).numpy()
+    hi = ks.tile_groups[:, 3:].amax(dim=0).numpy()
+    o_in = (lo + rng.random((512, 3)) * (hi - lo)).astype(np.float32)
+    d_in = rng.normal(size=(512, 3)).astype(np.float32)
+    d_in[np.arange(128), rng.integers(0, 3, 128)] = 0.0
+    d_in /= np.linalg.norm(d_in, axis=1, keepdims=True)
+    o = torch.cat([o_cam, torch.from_numpy(o_in)])
+    d = torch.cat([d_cam, torch.from_numpy(d_in)])
+    oc = [o[:, k, None] for k in range(3)]
+    ic = [x[:, None] for x in t_tk._inv_dir([d[:, k] for k in range(3)])]
+    t_tile, in_tile = t_tk._tile_slab(ks.tiles.T[:, None, :], oc, ic)
+    t_run, in_run = t_tk._tile_slab(ks.tile_groups.T[:, None, :], oc, ic)
+    run = torch.arange(ks.tiles.shape[0]) // t_tk.TILE_GROUP
+    assert in_tile.any(dim=1).float().mean() > 0.2  # many lines enter a tile
+    assert not (in_tile & ~in_run[:, run]).any()
+    assert not (in_tile & (t_run[:, run] > t_tile)).any()

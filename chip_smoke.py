@@ -32,10 +32,12 @@ line):
      line: registers, blocks per SM, shared bytes, the model's useful rows
      (scripts/k4_coherence.py scheduled); K4 also where the panda_arm cell
      runs it, on the cell's scene (2,090 tiles in 66 runs, rows from device
-     memory) at its 450x300, the first PANDA_PIXELS pixels of its Morton
-     order at quota 2: the --fmad=false build's one call (launches counted
-     from 0) bit-exact with the plain version, its three counters (warp
-     queries, tested tiles, opened runs) too. K2 and K3: a mesh pool at 256x192 with park depth 3 and
+     memory) at its 450x300, and where the rtiow_final cell runs it (484
+     spheres and a quad, no tile, rows in shared memory) at its 1200x800,
+     the first PANDA_PIXELS pixels of each Morton order at quota 2: the
+     --fmad=false build's one call (launches counted from 0) bit-exact with
+     the plain version, its four counters (warp queries, tested tiles,
+     opened runs, tested sphere rows) too. K2 and K3: a mesh pool at 256x192 with park depth 3 and
      step cap 64 over six cycles, both with both sources; then three
      cycles of a fresh 1024x768 pool; K2 also at park depths 0-3 on cycle
      1 of a fresh 1024x768 pool and on cycles 0-2 of a 1024x768 pool of a
@@ -550,12 +552,20 @@ def check_k4(scenes, dev, card, small, main):
     return out
 
 
-def check_k4_panda(scene, dev, card):
-    """K4 where the panda_arm cell runs it: the cell's scene at 450x300,
-    the first PANDA_PIXELS pixels of the Morton order, quota 2, on the
-    group level over rows in device memory. Its --fmad=false build, one
-    call with the launches counted from 0, equals the plain version bit
-    for bit: radiance, segments, samples and the three counters."""
+# the benchmark cells whose scenes K4 is checked on (check_k4_cell): width
+# and height, and whether K4 reads the rows from shared memory (then with
+# no tile) or from device memory over two runs of tiles or more
+K4_CELLS = {"panda_arm": (450, 300, False), "rtiow_final": (1200, 800, True)}
+
+
+def check_k4_cell(name, scene, dev, card):
+    """K4 where a benchmark cell runs it (K4_CELLS): panda_arm's scene at
+    450x300 on the group level over rows in device memory, rtiow_final's
+    (484 spheres and a quad, no tile) at 1200x800 on shared rows; the
+    first PANDA_PIXELS pixels of the Morton order, quota 2. Its
+    --fmad=false build, one call with the launches counted from 0, equals
+    the plain version bit for bit: radiance, segments, samples and the
+    four counters."""
     import torch
 
     from path_tracer_tpu_torch.ops.kernels import trace_kernel
@@ -564,13 +574,15 @@ def check_k4_panda(scene, dev, card):
     )
     from path_tracer_tpu_torch.utils.config import Resolution
 
-    res = Resolution(300, 450)
+    width, height, shared = K4_CELLS[name]
+    res = Resolution(height, width)
     prep = prepare_render(scene, res, dev)
     ks = prep.kscene
-    tag = (f"K4 panda_arm {res.width}x{res.height}, first {PANDA_PIXELS} "
+    tag = (f"K4 {name} {res.width}x{res.height}, first {PANDA_PIXELS} "
            "pixels, quota 2")
-    if (prep.route != "prim" or trace_kernel.k4_shared_table(ks)
-            or ks.tile_groups.shape[0] < 2):
+    n_runs = ks.tile_groups.shape[0]
+    if (prep.route != "prim" or trace_kernel.k4_shared_table(ks) != shared
+            or (n_runs != 0 if shared else n_runs < 2)):
         fail(f"{tag}: route {prep.route}, {ks.tiles.shape[0]} tiles, shared "
              f"table {trace_kernel.k4_shared_table(ks)}: not the cell's K4")
     pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]
@@ -581,22 +593,27 @@ def check_k4_panda(scene, dev, card):
     want = trace_kernel.trace_regen_prim_plain(ks, prep.cam, pix, work=plain, **kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    work = torch.zeros(3, dtype=torch.int64, device=dev)
+    work = torch.zeros(4, dtype=torch.int64, device=dev)
     trace_kernel.trace_regen_prim.launches = 0
     got = trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False,
                                         work=work, **kw)
     launches = trace_kernel.trace_regen_prim.launches
     exact = all(torch.equal(a, b) for a, b in zip(got, want))
     counts = work.tolist()
-    plain_counts = [plain["query"], plain["tiles"], plain["groups"]]
-    print(f"phase 3 {tag}: {ks.tiles.shape[0]} tiles in "
-          f"{ks.tile_groups.shape[0]} runs; --fmad=false bit-exact {exact}; "
-          f"queries, tiles, runs {counts} (plain {plain_counts}); {launches} "
-          f"launch(es); plain {plain_s:.1f} s ({card})", flush=True)
+    plain_counts = [plain.get(k, 0) for k in trace_kernel.WORK_KEYS]
+    segments = int(want[1].sum())
+    print(f"phase 3 {tag}: {ks.sph.shape[0]} sphere rows, {ks.tiles.shape[0]} "
+          f"tiles in {n_runs} runs; --fmad=false bit-exact {exact}; queries, "
+          f"tiles, runs, sphere rows {counts} (plain {plain_counts}), "
+          f"{segments} segments; {launches} launch(es); plain {plain_s:.1f} s "
+          f"({card})", flush=True)
     if not exact:
         fail(f"{tag}: the --fmad=false kernel is not bit-exact with its "
              "plain version")
-    if counts != plain_counts or not 0 < counts[0] <= counts[2]:
+    # no tile, no warp query; else each query opens a run at least
+    queries_ok = counts[0] == 0 if shared else 0 < counts[0] <= counts[2]
+    if (counts != plain_counts or counts[3] != segments * ks.sph.shape[0]
+            or not queries_ok):
         fail(f"{tag}: counters {counts}, the plain version's {plain_counts}")
     if launches != 1:
         fail(f"{tag}: {launches} launches for one call")
@@ -1732,17 +1749,18 @@ def main() -> int:
               for sid in ("cornell", "three-spheres", "mesh")}
     # mesh with a second copy of its MeshFile: the default router's `prim`
     scenes["two-mesh"] = script_module("k4_coherence").two_mesh_scene(pt, ROOT)
-    panda = os.path.join(ROOT, "bench_torch", "configs", "panda_arm",
-                         "panda_arm.json")
-    with open(panda) as fh:  # the panda_arm cell's scene
-        scenes["panda_arm"] = pt.SceneDescriptor.from_json_dict(
-            json.load(fh), base_dir=os.path.dirname(panda))
+    for name in K4_CELLS:  # the K4 cells' scenes
+        path = os.path.join(ROOT, "bench_torch", "configs", name, name + ".json")
+        with open(path) as fh:
+            scenes[name] = pt.SceneDescriptor.from_json_dict(
+                json.load(fh), base_dir=os.path.dirname(path))
     small, main_res = Resolution(192, 256), Resolution(768, 1024)
 
     # ---- phase 3: kernels against their plain versions ----
     k1 = check_k1(scenes, dev, card)
     k4 = check_k4(scenes, dev, card, small, main_res)
-    check_k4_panda(scenes["panda_arm"], dev, card)
+    for name in K4_CELLS:
+        check_k4_cell(name, scenes[name], dev, card)
     k2, k3 = check_portal(scenes["mesh"], dev, card, small, main_res)
     check_k2_shapes(scenes["mesh"], dev, card, main_res, k2)
     k5, k6 = check_stepped(scenes, dev, card)

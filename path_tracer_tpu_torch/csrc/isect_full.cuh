@@ -157,19 +157,18 @@ struct Hit {
   float new_prev;  // packed triangle id of the hit, -1 for a sphere or miss
 };
 
-// The JAX intersector's expanded sphere test (BIG = miss; r2 <= 0 marks
-// padding, whose far-away center makes b^2 - |op|^2 cancel)
+// The reference renderer's sphere test (smallpt's, op = c - o first; BIG =
+// miss; r2 <= 0 marks padding, whose far-away center overflows |op|^2).
+// The JAX intersector expands |c - o|^2 into |c|^2 - 2 c.o + |o|^2, which
+// cancels: a radius-0.2 sphere 13 units from the origin then misjudges a
+// ray leaving its own surface by more than the 1e-4 root cutoff.
 template <class R, class Ops = IeeeOps>
 __device__ __forceinline__ float sphere_t(const float* c, float rad2,
                                           const float o[3], const float d[3]) {
-  const float c0 = R::ld(c), c1 = R::ld(c + 1), c2 = R::ld(c + 2);
-  const float cd = 0.0f + c0 * d[0] + c1 * d[1] + c2 * d[2];
-  const float co = 0.0f + c0 * o[0] + c1 * o[1] + c2 * o[2];
-  const float cc = 0.0f + c0 * c0 + c1 * c1 + c2 * c2;
-  const float od = 0.0f + o[0] * d[0] + o[1] * d[1] + o[2] * d[2];
-  const float oo = 0.0f + o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
-  const float b = cd - od;
-  const float det = b * b - (cc - 2.0f * co + oo) + rad2;
+  const float op0 = R::ld(c) - o[0], op1 = R::ld(c + 1) - o[1],
+              op2 = R::ld(c + 2) - o[2];
+  const float b = op0 * d[0] + op1 * d[1] + op2 * d[2];
+  const float det = b * b - (op0 * op0 + op1 * op1 + op2 * op2) + rad2;
   const float sq = Ops::root(fmaxf(det, 0.0f));
   const float t_near = b - sq;
   const float t_far = b + sq;

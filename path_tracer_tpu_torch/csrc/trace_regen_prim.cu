@@ -57,14 +57,19 @@
 //  - the row tests take K1's exact fast paths for the root and reciprocal
 //    (FastOps).
 //
-// Counters (work, optional: three uint64 on the device that the caller
+// Counters (work, optional: four uint64 on the device that the caller
 // owns and zeroes): work[0] the warp queries (segments whose line enters a
 // tile), work[1] the tiles whose rows those queries tested (entered closer
 // than the best hit so far), work[2] the runs of tiles whose slabs they
 // tested (those whose box the line enters closer than the bound at the
-// run's first tile). Each warp keeps its counts in registers and adds
-// them once, as it leaves: the plain version's work["query"],
-// work["tiles"] and work["groups"].
+// run's first tile), work[3] the sphere and bounding-sphere rows the
+// scans tested. Each warp keeps its counts of work[0..2] in registers and
+// adds them once, as it leaves: the plain version's work["query"],
+// work["tiles"] and work["groups"]. Every scan, a warp's or a lane's,
+// tests all n_sph + n_bnd rows (scan_spheres), so thread 0 adds a step's
+// scans (its queries, warp and lane) times that trip count to a shared
+// total, and adds the total once as the block leaves: the plain version's
+// work["sph"], with no register added to a kernel at its 64.
 //
 // Random numbers: the counter generator keyed by (seed, pixel, sample,
 // depth, slot), as in K1, or an injected per-item table uniforms[6, n].
@@ -97,7 +102,7 @@ struct Args {
   int* done;
   int* next;  // the refill counter, zero at launch
   const float* groups;  // [ceil(n_tiles / TILE_GROUP), 6] run boxes
-  unsigned long long* work;  // [queries, tiles, groups] or NULL
+  unsigned long long* work;  // [queries, tiles, groups, spheres] or NULL
 };
 
 // An item's path, in its owner's registers
@@ -219,6 +224,7 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
   __shared__ uint64_t table_bar;
   __shared__ int n_warp[2], n_lane[2];  // a step's queries, by parity
   __shared__ int next_task;
+  __shared__ unsigned long long sphere_rows;  // thread 0's, for work[3]
   const int tid = threadIdx.x, lane = tid & 31;
   FullScene sc = g;
   int table_bytes = 0;
@@ -227,6 +233,7 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
     table_bytes = scene_layout(g.n_tri, g.n_sph, g.n_bnd, g.n_tiles).bytes;
   }
   if (tid < 2) n_warp[tid] = n_lane[tid] = 0;
+  if (tid == 0) sphere_rows = 0;
   __syncthreads();
   if constexpr (kShared) wait_bulk(&table_bar);
   const QueryLayout ql = query_layout(table_bytes);
@@ -257,7 +264,11 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
     __syncthreads();
     const int warp_q = n_warp[parity], lane_q = n_lane[parity];
     if (warp_q + lane_q == 0) break;  // block-uniform: no item is left
-    if (tid == 0) n_warp[parity ^ 1] = n_lane[parity ^ 1] = 0;  // read before
+    if (tid == 0) {
+      n_warp[parity ^ 1] = n_lane[parity ^ 1] = 0;  // read before
+      sphere_rows += static_cast<unsigned long long>(warp_q + lane_q) *
+                     static_cast<unsigned>(g.n_sph + g.n_bnd);
+    }
     parity ^= 1;
     // ---- trace: warps take the warp queries one at a time, then the lane
     // queries 32 at a time ----
@@ -306,6 +317,8 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
     atomicAdd(a.work + 1, static_cast<unsigned long long>(tiles));
     atomicAdd(a.work + 2, static_cast<unsigned long long>(opened));
   }
+  if (a.work != nullptr && tid == 0 && sphere_rows != 0)
+    atomicAdd(a.work + 3, sphere_rows);
 }
 
 using Kernel = void (*)(const FullScene, const Args);
@@ -367,9 +380,10 @@ extern "C" int pt_trace_regen_prim_config(int n_sph, int n_bnd, int n_tri,
 // reads from shared memory, or NULL for the read-only path. groups is
 // KernelScene.tile_groups ([ceil(n_tiles / 32), 6]; NULL with no tile).
 // uniforms is NULL for the counter generator. next: one int on the device,
-// zero at launch. work: NULL, or three uint64 on the device that the
-// launch adds its warp queries, their tested tiles and the runs of tiles
-// they opened to. Returns cudaGetLastError().
+// zero at launch. work: NULL, or four uint64 on the device that the
+// launch adds its warp queries, their tested tiles, the runs of tiles
+// they opened and the sphere rows its scans tested to. Returns
+// cudaGetLastError().
 extern "C" int pt_trace_regen_prim(
     const float* sph, int n_sph, const float* bnd, int n_bnd,
     const float* tri, int n_tri, const float* hit, const float* tiles,

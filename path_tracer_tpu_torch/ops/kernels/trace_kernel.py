@@ -720,21 +720,21 @@ def build_kernel_scene(packed: ScenePacked) -> KernelScene:
 
 
 def _sphere_t(cen, rad2, o, d):
-    """The expanded sphere test of the JAX intersector: cen, rad2 [P] (or
-    per-lane [N]) against rays 3×[N, 1] → t [N, P] (BIG = miss)."""
-    cd = 0.0 + cen[0] * d[0] + cen[1] * d[1] + cen[2] * d[2]
-    co = 0.0 + cen[0] * o[0] + cen[1] * o[1] + cen[2] * o[2]
-    cc = 0.0 + cen[0] * cen[0] + cen[1] * cen[1] + cen[2] * cen[2]
-    od = 0.0 + o[0] * d[0] + o[1] * d[1] + o[2] * d[2]
-    oo = 0.0 + o[0] * o[0] + o[1] * o[1] + o[2] * o[2]
-    b = cd - od
-    det = b * b - (cc - 2.0 * co + oo) + rad2
+    """The sphere test of the reference renderer (smallpt's, ``op = c - o``
+    first): cen, rad2 [P] (or per-lane [N]) against rays 3×[N, 1] → t [N,
+    P] (BIG = miss). The JAX intersector expands |c - o|² into
+    |c|² - 2 c·o + |o|², which cancels: a radius-0.2 sphere 13 units from
+    the origin then misjudges a ray leaving its own surface by more than
+    the 1e-4 root cutoff."""
+    op = [cen[k] - o[k] for k in range(3)]
+    b = op[0] * d[0] + op[1] * d[1] + op[2] * d[2]
+    det = b * b - (op[0] * op[0] + op[1] * op[1] + op[2] * op[2]) + rad2
     sq = torch.sqrt(torch.clamp(det, min=0.0))
     t_near = b - sq
     t_far = b + sq
     t = torch.where(t_near >= EPS_SPHERE, t_near,
                     torch.where(t_far >= EPS_SPHERE, t_far, BIG))
-    # r² == 0 marks padding, whose far-away center makes b² - |op|² cancel
+    # r² == 0 marks padding, whose far-away center overflows |op|²
     return torch.where((det < 0.0) | (rad2 <= 0.0), BIG, t)
 
 
@@ -802,8 +802,9 @@ def isect_full_plain(ks: KernelScene, o, d, prev, alive, work=None,
       a sphere or a miss.
 
     ``work`` (a dict, optional) counts the tests that live lanes need:
-    "sph" sphere tests, "tri" triangle rows, "slab" tile AABB tests, and
-    K4's three counters: "query" the live lanes whose line enters a tile
+    "sph" sphere and bounding-sphere tests (every row a live lane, K4's
+    fourth counter), "tri" triangle rows, "slab" tile AABB tests, and
+    K4's other three: "query" the live lanes whose line enters a tile
     (its warp queries), "tiles" the tiles whose rows they test and
     "groups" the runs of TILE_GROUP tiles whose slabs they test: a query
     tests a run's tiles where its line enters the run's box
@@ -1024,6 +1025,10 @@ def prim_library(fmad: bool = True):
     return built
 
 
+# K4's counters (trace_regen_prim's ``work``, csrc/trace_regen_prim.cu
+# work[0..3]) as the plain version's ``work`` keys
+WORK_KEYS = ("query", "tiles", "groups", "sph")
+
 # K4 stages a scene's tables in a block's shared memory when they take at
 # most this many bytes: an H100 block may opt in to 227 KB (232,448 bytes),
 # of which K4's queries take 34 KB at 1,024 threads; a larger scene reads
@@ -1075,16 +1080,16 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
     plain version; CUDA tensors launch ``csrc/trace_regen_prim.cu`` or
     raise. ``fmad=False`` builds the kernel without FMA contraction.
 
-    ``work`` (optional, an int64 [3] tensor on ``pixel_idx``'s device) has
+    ``work`` (optional, an int64 [4] tensor on ``pixel_idx``'s device) has
     K4's counters added to it: the warp queries (segments whose line enters
-    a tile), the tiles whose rows they tested and the runs of tiles whose
-    slabs they tested; on the card by the
-    launch, without a sync, on the CPU from the plain version's ``work``
-    ("query", "tiles", "groups")."""
+    a tile), the tiles whose rows they tested, the runs of tiles whose
+    slabs they tested and the sphere and bounding-sphere rows the scans
+    tested; on the card by the launch, without a sync, on the CPU from the
+    plain version's ``work`` (``WORK_KEYS``)."""
     dev = pixel_idx.device
-    if work is not None and (work.shape != (3,) or work.dtype != torch.int64
-                             or work.device != dev):
-        raise ValueError(f"work must be an int64 [3] tensor on {dev}")
+    if work is not None and (work.shape != (len(WORK_KEYS),)
+                             or work.dtype != torch.int64 or work.device != dev):
+        raise ValueError(f"work must be an int64 [{len(WORK_KEYS)}] tensor on {dev}")
     if dev.type == "cpu":
         counts = {}
         out = trace_regen_prim_plain(
@@ -1092,8 +1097,7 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
             quota=quota, max_depth=max_depth, rr_start_depth=rr_start_depth,
             uniforms=uniforms, work=counts)
         if work is not None:
-            work += torch.tensor([counts.get(k, 0) for k in
-                                  ("query", "tiles", "groups")])
+            work += torch.tensor([counts.get(k, 0) for k in WORK_KEYS])
         return out
     if dev.type != "cuda":
         raise ValueError(f"trace_regen_prim runs on cpu or cuda, not {dev}")

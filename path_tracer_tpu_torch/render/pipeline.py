@@ -271,8 +271,9 @@ class LanePasses:
     into it.
 
     On the ``prim`` route the runner keeps K4's counters across passes
-    (``work``: an int64 [3] tensor on the device that every pass adds its
-    warp queries, their tested tiles and their opened runs of tiles to);
+    (``work``: an int64 [4] tensor on the device that every pass adds its
+    warp queries, their tested tiles, their opened runs of tiles and the
+    sphere rows its scans tested to, ``trace_kernel.WORK_KEYS``);
     ``segments`` reads them with the passes' counts in one transfer and
     ``report`` puts them into a render's stats and notes. A resumed
     render's earlier passes were not counted, so it reports none."""
@@ -283,13 +284,15 @@ class LanePasses:
                  chunk: int = 0, **pass_kw):
         npix = res.num_pixels
         self.prep, self.k, self.chunk, self.pass_kw = prep, k, chunk, pass_kw
-        # K4's segments, warp queries, tested tiles and opened runs over the
-        # passes, and where it read its rows (``trace_kernel.k4_table``)
+        # K4's segments, warp queries, tested tiles, opened runs and tested
+        # sphere rows over the passes, and where it read its rows
+        # (``trace_kernel.k4_table``)
         self.work = self.prim = None
         if prep.route == "prim":
-            self.work = torch.zeros(3, dtype=torch.int64, device=device)
+            n = len(trace_kernel.WORK_KEYS)
+            self.work = torch.zeros(n, dtype=torch.int64, device=device)
             self.pass_kw = dict(pass_kw, work=self.work)
-            self.prim = [0, 0, 0, 0]
+            self.prim = [0] * (n + 1)
             self.prim_table = trace_kernel.k4_table(prep.kscene, device)
         self.rows = -(-npix // chunk) * chunk if chunk else npix
         # built in numpy, on this thread alone: a torch CPU op splits over
@@ -354,20 +357,21 @@ class LanePasses:
     def report(self, stats: RenderStats) -> None:
         """The launches into ``stats``; on the ``prim`` route, while every
         pass of the render is counted, K4's segments, warp queries, tested
-        tiles, opened runs of tiles and table too, also as the
-        ``render.prim``, ``render.prim.query``, ``render.prim.tiles`` and
-        ``render.prim.groups`` notes."""
+        tiles, opened runs of tiles, tested sphere rows and table too, also
+        as the ``render.prim``, ``render.prim.query``, ``render.prim.tiles``,
+        ``render.prim.groups`` and ``render.prim.spheres`` notes."""
         stats.num_dispatches = self.dispatches
         if self.prim is None:
             return
-        segments, queries, tiles, groups = self.prim
+        segments, queries, tiles, groups, spheres = self.prim
         stats.extra.update(prim_segments=segments, prim_queries=queries,
                            prim_tiles=tiles, prim_groups=groups,
-                           prim_table=self.prim_table)
+                           prim_spheres=spheres, prim_table=self.prim_table)
         profiling.note("render.prim", segments, self.prim_table)
         profiling.note("render.prim.query", queries)
         profiling.note("render.prim.tiles", tiles)
         profiling.note("render.prim.groups", groups)
+        profiling.note("render.prim.spheres", spheres)
 
 
 def make_pass_runner(prep: Prepared, scene: SceneDescriptor,

@@ -70,35 +70,15 @@ def ptxas_registers(log: str) -> list[str]:
 
 
 def parent_launcher(parent: str, ks, pool, kw):
-    """A launch of the parent commit's K3 (its pt_resolve_pool signature:
-    the compact table, no group counter)."""
-    built = kbuild.build(os.path.join(parent, "path_tracer_tpu_torch", "csrc",
-                                      "portal_resolve.cu"))
-    fn = built.lib.pt_resolve_pool
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    err = built.lib.pt_cuda_error_string
-    err.restype = ctypes.c_char_p
-    err.argtypes = [ctypes.c_int]
-    n = pool.shape[1]
-    out = torch.empty_like(pool)
-    counts = torch.empty(n, dtype=torch.int32, device=pool.device)
+    """A launch of the parent commit's K3, bound as this checkout binds its
+    own (``bind_resolve``: the signature since K3's group split)
+    and launched through the wrapper's ``library``."""
+    lib = bound(kbuild.build(os.path.join(parent, "path_tracer_tpu_torch",
+                                          "csrc", "portal_resolve.cu")))
 
     def launch():
-        code = fn(ks.sph.data_ptr(), ks.sph.shape[0], pk._ptr(ks.bnd),
-                  ks.bnd.shape[0], ks.tri.data_ptr(), ks.tri.shape[0],
-                  ks.hit.data_ptr(), pk._ptr(ks.tiles), ks.tiles.shape[0],
-                  ks.tile_base, pool.data_ptr(), out.data_ptr(), n,
-                  kw["park_k"], kw["parts"], kw["seed"], kw["max_depth"],
-                  kw["rr_start_depth"], None, counts.data_ptr(),
-                  torch.cuda.current_stream().cuda_stream)
-        kbuild.check_launch(built, code, "parent trace_resolve_pool")
-        return out, counts
-    return launch, built
+        return pk.trace_resolve_pool(ks, pool, library=lib, **kw)
+    return launch, lib
 
 
 # The design's parts, switched on in turn (csrc/portal_resolve.cu's -D
@@ -123,8 +103,12 @@ def variant_build(defines: str, fmad: bool):
     """csrc/portal_resolve.cu built with ``defines`` ("K3_THREADS=512,...")
     and bound."""
     flags = tuple(f"-D{d}" for d in defines.split(",") if d)
-    built = kbuild.build(pk.RESOLVE_SOURCE,
-                         flags + (() if fmad else ("--fmad=false",)))
+    return bound(kbuild.build(pk.RESOLVE_SOURCE,
+                              flags + (() if fmad else ("--fmad=false",))))
+
+
+def bound(built):
+    """A build of csrc/portal_resolve.cu with its C interface declared."""
     err = built.lib.pt_cuda_error_string
     err.restype = ctypes.c_char_p
     err.argtypes = [ctypes.c_int]

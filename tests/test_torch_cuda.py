@@ -14,7 +14,8 @@ redesign), K4 trace_regen_prim (mesh; mesh and the two-mesh scene at
 quota 64; past one wave of resident threads; a scene whose table exceeds
 its shared-memory budget; its launch configuration; its group level, on
 panda_arm against the flat scan's build and the plain version, and its
-three counters on one run of tiles and past it, on both row modes), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
+four counters on one run of tiles and past it, on both row modes; its
+flat sphere scan on rtiow_final's 488 sphere rows in shared memory), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
 K2 also at park depths 0-3, on pools wider than one wave of resident
 threads and narrower, of a width no multiple of the block, with every slot
 stalled at entry, with slots that reach the step budget and on a scene of
@@ -292,7 +293,9 @@ def test_cuda_k1_leaves_the_other_kernels_sass(cuda_device):
     before K7's and K8's redesign on this toolkit. K4's group level leaves
     every other kernel that includes csrc/isect_full.cuh as it was too: K3
     (portal_resolve.cu), K5-K7 and K9 (trace_stepped.cu) hash as the
-    commit before the level built them (scripts/ablate_k1.py FIXTURE)."""
+    commit before the level built them (scripts/ablate_k1.py FIXTURE),
+    rewritten from this tree's builds when the sphere test took op = c - o
+    first (K3, K6, K7 and K9 changed; K2 and K5 did not)."""
     spec = importlib.util.spec_from_file_location(
         "ablate_k1", os.path.join(ROOT, "scripts", "ablate_k1.py"))
     ablate = importlib.util.module_from_spec(spec)
@@ -1035,16 +1038,16 @@ def test_cuda_portal_render_reads_k3_rows_from_its_table(cuda_device, config, ta
     assert gap <= limit, (gap, limit)
 
 
-def _k4_three_counters(ks, cam, pix, **kw):
+def _k4_counters(ks, cam, pix, **kw):
     """K4 built with --fmad=false and the plain version on the same pixels:
-    their outputs and K4's three counters, each side's."""
+    their outputs and K4's four counters (``trace_kernel.WORK_KEYS``),
+    each side's."""
     plain_work = {}
     p_out = trace_kernel.trace_regen_prim_plain(ks, cam, pix, work=plain_work, **kw)
-    work = torch.zeros(3, dtype=torch.int64, device=pix.device)
+    work = torch.zeros(4, dtype=torch.int64, device=pix.device)
     exact = trace_kernel.trace_regen_prim(ks, cam, pix, fmad=False, work=work, **kw)
     torch.cuda.synchronize()
-    want = [plain_work["query"], plain_work["tiles"], plain_work["groups"]]
-    return exact, p_out, work.tolist(), want
+    return exact, p_out, work.tolist(), [plain_work.get(k, 0) for k in trace_kernel.WORK_KEYS]
 
 
 @pytest.mark.cuda
@@ -1052,11 +1055,12 @@ def test_cuda_k4_counts_and_matches_plain_on_panda_arm(cuda_device):
     """On the panda_arm configuration's kernel scene (133,768 rows in 2,090
     tiles, 66 runs of 32, read from device memory) at 32x24, quota 2: K4
     built with --fmad=false equals the plain version bit for bit, and its
-    three counters (the warp queries, the tiles they tested and the runs of
-    tiles they opened) equal the plain version's ``work`` counts, adding up
-    over launches, with each query opening at least one run and fewer than
-    all 66; the default build counts the quota exactly and keeps 99.5% of
-    pixels within 1e-3."""
+    four counters (the warp queries, the tiles they tested, the runs of
+    tiles they opened and the sphere rows its scans tested) equal the
+    plain version's ``work`` counts, adding up over launches, with each
+    query opening at least one run and fewer than all 66; the default
+    build counts the quota exactly and keeps 99.5% of pixels within
+    1e-3."""
     scene, _ = _bench_scene("panda_arm")
     res = Resolution(24, 32)
     prep = prepare_render(scene, res, cuda_device)
@@ -1065,7 +1069,7 @@ def test_cuda_k4_counts_and_matches_plain_on_panda_arm(cuda_device):
     assert not trace_kernel.k4_shared_table(ks) and ks.tile_groups.shape == (66, 6)
     pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(cuda_device)
     kw = dict(seed=9, sample_base=0, quota=2)
-    exact, p_out, got, counts = _k4_three_counters(ks, prep.cam, pix, **kw)
+    exact, p_out, got, counts = _k4_counters(ks, prep.cam, pix, **kw)
     for k, p in zip(exact, p_out):
         assert torch.equal(k, p)
     assert got == counts and 0 < counts[0] <= counts[1]
@@ -1073,7 +1077,7 @@ def test_cuda_k4_counts_and_matches_plain_on_panda_arm(cuda_device):
     work = torch.tensor(got, dtype=torch.int64, device=cuda_device)
     trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False, work=work, **kw)
     assert work.tolist() == [2 * c for c in counts]
-    fast = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    fast = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     k_rad, _, k_done = trace_kernel.trace_regen_prim(ks, prep.cam, pix, work=fast, **kw)
     assert bool((k_done == 2).all())
     assert float(((k_rad - p_out[0]).abs().sum(dim=1) < 1e-3).float().mean()) >= 0.995
@@ -1114,6 +1118,29 @@ def test_cuda_prim_render_of_panda_arm_reads_rows_from_device_memory(cuda_device
         0.0, 1.0).cpu().numpy()
     gap = float(np.abs(done.image.pixels[pix].astype(np.float64) - want).mean())
     assert gap <= limit, (gap, limit)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_counts_and_matches_plain_on_rtiow_final(cuda_device):
+    """On the rtiow_final configuration's kernel scene (484 spheres in 488
+    rows, the ground's quad, no tile, the table in shared memory) at 72x48,
+    quota 4: K4 built with --fmad=false equals the plain version bit for
+    bit, no segment is a warp query, and the sphere rows its scans tested
+    (``work[3]``) equal the plain version's ``work["sph"]``: every row a
+    segment, 488 a segment under the flat scan."""
+    scene, _ = _bench_scene("rtiow_final")
+    res = Resolution(48, 72)
+    prep = prepare_render(scene, res, cuda_device)
+    ks = prep.kscene
+    assert prep.route == "prim" and trace_kernel.k4_table(ks, cuda_device) == "shared"
+    assert ks.tiles.shape[0] == 0 and ks.sph.shape[0] == 488 and ks.bnd.shape[0] == 0
+    pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(cuda_device)
+    exact, p_out, got, want = _k4_counters(ks, prep.cam, pix, seed=11,
+                                           sample_base=0, quota=4)
+    for k, p in zip(exact, p_out):
+        assert torch.equal(k, p)
+    segments = int(p_out[1].sum())
+    assert got == want == [0, 0, 0, 488 * segments] and segments > 0
 
 
 def _k4_fixture():
@@ -1162,7 +1189,7 @@ def _mesh_tiles(ks, copies: int, extra: int = 0):
     ("mesh", 13, True), ("two-mesh", 26, True), ("mesh 33", 33, True),
     ("mesh 52", 52, False)])
 def test_cuda_k4_three_counters_on_each_scan(cuda_device, case, n_tiles, shared):
-    """K4 with --fmad=false equals the plain version, image and three
+    """K4 with --fmad=false equals the plain version, image and four
     counters, on both its kernels: one run of tiles on shared rows (mesh,
     the two-mesh scene: at most one run opened a query), and past one run,
     on shared rows (mesh's tiles to 33: two runs, the last of one tile)
@@ -1174,8 +1201,8 @@ def test_cuda_k4_three_counters_on_each_scan(cuda_device, case, n_tiles, shared)
     elif case == "mesh 52":
         ks = _mesh_tiles(ks, 4)
     assert ks.tiles.shape[0] == n_tiles and trace_kernel.k4_shared_table(ks) == shared
-    exact, p_out, got, want = _k4_three_counters(ks, cam, pix, seed=5,
-                                                 sample_base=0, quota=4)
+    exact, p_out, got, want = _k4_counters(ks, cam, pix, seed=5,
+                                           sample_base=0, quota=4)
     for k, p in zip(exact, p_out):
         assert torch.equal(k, p)
     assert got == want and want[0] > 0

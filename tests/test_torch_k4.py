@@ -205,18 +205,21 @@ def test_tile_group_matches_the_source():
 def test_k4_wrapper_takes_three_counters(monkeypatch):
     """On the CPU the wrapper adds the plain version's counts (queries,
     tiles, opened runs: at most one a query on the two-mesh scene's 26
-    tiles, a single run) to an int64 [3] tensor, over calls, and refuses
-    any other."""
+    tiles, a single run; and the sphere rows, every one of the 8 padding
+    rows a segment) to an int64 [4] tensor, over calls, and refuses any
+    other."""
     ks, cam, pix = _case("two-mesh", monkeypatch)
     kw = dict(seed=1, sample_base=0, quota=2)
     plain = {}
-    tk.trace_regen_prim_plain(ks, cam, pix, work=plain, **kw)
+    _, segs, _ = tk.trace_regen_prim_plain(ks, cam, pix, work=plain, **kw)
     assert ks.tiles.shape[0] == 26 and 0 < plain["groups"] <= plain["query"]
-    work = torch.zeros(3, dtype=torch.int64)
+    assert plain["sph"] == int(segs.sum()) * ks.sph.shape[0] == int(segs.sum()) * 8
+    assert tk.WORK_KEYS == ("query", "tiles", "groups", "sph")
+    work = torch.zeros(4, dtype=torch.int64)
     for calls in (1, 2):
         tk.trace_regen_prim(ks, cam, pix, work=work, **kw)
-        assert work.tolist() == [calls * plain[k] for k in ("query", "tiles", "groups")]
-    for bad in (torch.zeros(2, dtype=torch.int64), torch.zeros(4, dtype=torch.int64),
-                torch.zeros(3, dtype=torch.int32)):
+        assert work.tolist() == [calls * plain[k] for k in tk.WORK_KEYS]
+    for bad in (torch.zeros(3, dtype=torch.int64), torch.zeros(5, dtype=torch.int64),
+                torch.zeros(4, dtype=torch.int32)):
         with pytest.raises(ValueError):
             tk.trace_regen_prim(ks, cam, pix, work=bad, **kw)

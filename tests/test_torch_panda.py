@@ -189,11 +189,13 @@ def test_plain_prim_route_matches_reference_on_panda_arm(traced_render):
 
 def test_prim_counters_and_notes_equal_the_plain_work(traced_render):
     """K4's counters of a render (``prim_segments``, ``prim_queries``,
-    ``prim_tiles``, ``prim_groups``) equal the plain version's segments and
-    ``work`` counts ("query", "tiles", "groups") over the render's one
-    pass, and the traced render logs each as its note once: ``render.prim``
-    tagged with the table, ``render.prim.query``, ``render.prim.tiles`` and
-    ``render.prim.groups``."""
+    ``prim_tiles``, ``prim_groups``, ``prim_spheres``) equal the plain
+    version's segments and ``work`` counts ("query", "tiles", "groups",
+    "sph": the arm has no sphere, so its 8 padding rows a segment) over the
+    render's one pass, and the traced render logs each as its note once:
+    ``render.prim`` tagged with the table, ``render.prim.query``,
+    ``render.prim.tiles``, ``render.prim.groups`` and
+    ``render.prim.spheres``."""
     done, cfg, notes = traced_render
     extra = done.stats.extra
     c = CFG
@@ -206,8 +208,10 @@ def test_prim_counters_and_notes_equal_the_plain_work(traced_render):
         rr_start_depth=cfg.rr_start_depth, work=work)
     assert bool((fin == c["spp"]).all())
     assert extra["prim_segments"] == int(segs.sum()) == done.stats.num_rays
-    assert (extra["prim_queries"], extra["prim_tiles"], extra["prim_groups"]) == (
-        work["query"], work["tiles"], work["groups"])
+    assert (extra["prim_queries"], extra["prim_tiles"], extra["prim_groups"],
+            extra["prim_spheres"]) == (
+        work["query"], work["tiles"], work["groups"], work["sph"])
+    assert work["sph"] == 8 * extra["prim_segments"]
     assert 0 < work["query"] < extra["prim_segments"] and work["tiles"] >= work["query"]
     assert work["query"] <= work["groups"] < 66 * work["query"]
     assert extra["prim_table"] == "plain"
@@ -215,7 +219,8 @@ def test_prim_counters_and_notes_equal_the_plain_work(traced_render):
         ("render.prim", extra["prim_segments"], "plain"),
         ("render.prim.query", extra["prim_queries"], None),
         ("render.prim.tiles", extra["prim_tiles"], None),
-        ("render.prim.groups", extra["prim_groups"], None)])
+        ("render.prim.groups", extra["prim_groups"], None),
+        ("render.prim.spheres", extra["prim_spheres"], None)])
 
 
 @pytest.fixture(scope="module")

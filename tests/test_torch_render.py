@@ -333,7 +333,7 @@ def test_render_frees_its_tables_on_return(repo_root, tmp_path, monkeypatch,
 # the RenderStats.extra keys each route reports
 EXTRA = {"regen": {"route"}, "wavefront": {"route"},
          "prim": {"route", "prim_segments", "prim_queries", "prim_tiles",
-                  "prim_groups", "prim_table"},
+                  "prim_groups", "prim_spheres", "prim_table"},
          "portal": {"route", "cycles", "polls", "resolve_segments",
                     "resolve_table", "resolve_group_items"}}
 
@@ -344,8 +344,9 @@ def test_stats_and_notes_per_route(repo_root, monkeypatch, route):
     route, whose runner keeps K3's counters, logs them as the
     ``render.resolve`` and ``render.resolve.group`` notes of a traced
     render, and the prim route, whose runner keeps K4's, as the
-    ``render.prim``, ``render.prim.query``, ``render.prim.tiles`` and
-    ``render.prim.groups`` notes; the other routes log neither."""
+    ``render.prim``, ``render.prim.query``, ``render.prim.tiles``,
+    ``render.prim.groups`` and ``render.prim.spheres`` notes; the other
+    routes log neither."""
     scene, kw = _route(repo_root, route, monkeypatch)
     cfg = tpt.RenderConfig(samples_per_pixel=2, resolution=tpt.Resolution(4, 6),
                            max_depth=3, **kw)
@@ -373,7 +374,8 @@ def test_stats_and_notes_per_route(repo_root, monkeypatch, route):
             "render.prim": (extra["prim_segments"], "plain"),
             "render.prim.query": (extra["prim_queries"], None),
             "render.prim.tiles": (extra["prim_tiles"], None),
-            "render.prim.groups": (extra["prim_groups"], None)}
+            "render.prim.groups": (extra["prim_groups"], None),
+            "render.prim.spheres": (extra["prim_spheres"], None)}
         assert extra["prim_segments"] == done.stats.num_rays
         assert 0 < extra["prim_queries"] <= extra["prim_tiles"]
     else:

@@ -10,7 +10,11 @@
 //  - GlobalRows: the KernelScene tables (spheres [S, 12], bounding spheres
 //    [M, 4], triangle rows [T, 32], tile AABBs [C, 6]) in device memory,
 //    read through the read-only cache (__ldg). K3, K4, K6 and K7 use it for
-//    a scene whose compact table is too large for shared memory.
+//    a scene whose compact table is too large for shared memory. Where a
+//    group of lanes tests one tile's rows (K3's group split, K4's warp
+//    queries), it reads them from KernelScene.hit_tiles instead, the
+//    tiles' compact rows field by field (tile_group_rows below), so that a
+//    load of one field of consecutive rows is one line;
 //  - SharedRows: the compact hit-test rows (KernelScene.hit [T, 20]: the 19
 //    floats the distance test reads) and the small tables, staged by the
 //    kernel into shared memory (stage_scene). K3 and K6 use it: with K3's
@@ -351,6 +355,80 @@ __device__ __forceinline__ void isect_full(const FullScene& sc,
   h.new_prev = (h.found && !sph_wins) ? __ldg(trow + T_PID) : -1.0f;
 }
 
+// ---- a tile's rows on GlobalRows, for a group of W lanes (K3's group
+// split, portal_resolve.cu; K4's warp queries, W = 32) ----
+// A group's W lanes test W consecutive rows of one tile at a time. In
+// KernelScene.tri's rows (128 bytes each) one field of W rows lies in W
+// lines, so a load of one field by a warp touched 32 sectors and a tile
+// cost ~1,216 (K3's group split on mesh13k streamed them from L2 and was
+// bound by them: 6.9 ms at W 8 against the one-lane trace's 6.8, PERF.md);
+// KernelScene.hit_tiles holds the tiles' compact rows field by field
+// ([C, HIT_F, TRI_TILE]: field f of row j of tile c at (c * HIT_F + f) *
+// TRI_TILE + j), where one field of W rows is W consecutive floats.
+
+// tri_t on a row of hit_tiles: the same operations in the same order
+template <class Ops>
+__device__ __forceinline__ float tile_tri_t(const float* r, const float o[3],
+                                            const float d[3], const float m[3],
+                                            float prevf, uint32_t gate_ok) {
+  using S = SharedRows;  // the compact rows' field order
+  const auto ld = [&](int f) { return __ldg(r + f * TRI_TILE); };
+  const auto dot = [&](int f, const float v[3]) {
+    return ld(f) * v[0] + ld(f + 1) * v[1] + ld(f + 2) * v[2];
+  };
+  const float det = -dot(S::N, d);
+  const float udet = dot(S::E2, m) - dot(S::E2XA, d);
+  const float vdet = -dot(S::E1, m) - dot(S::AXE1, d);
+  const float tdet = dot(S::N, o) - ld(S::NA);
+  const bool dvalid = fabsf(det) >= EPS;
+  const float inv = Ops::rcp(dvalid ? det : 1.0f);
+  const float u = udet * inv;
+  const float v = vdet * inv;
+  const float t = tdet * inv;
+  const float uv_hi = ld(S::QUAD) > 0.5f ? v : u + v;
+  bool valid = dvalid && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+               uv_hi <= 1.0f && t > EPS && ld(S::PID) != prevf;
+  const float gate = ld(S::GATE);
+  if (gate != GATE_NONE)
+    valid = valid && gate >= 0.0f &&
+            ((gate_ok >> static_cast<int>(gate)) & 1u) != 0u;
+  return valid ? t : BIG;
+}
+
+// A tile's rows (`tile` its HIT_F x TRI_TILE block of hit_tiles, lo its
+// first row in the full table) over a group of W lanes: lane g of a group
+// tests rows g, g + W, .. (in order, strictly closer), reporting full-table
+// rows; the group takes the closest (t, row), first row on a tie; where
+// `take`, (d_t, r_t) take it where it is strictly closer. Every lane of
+// the warp runs it.
+template <int W, class Ops>
+__device__ __forceinline__ void tile_group_rows(
+    const float* tile, int lo, int g, const float o[3], const float d[3],
+    const float m[3], float prevf, uint32_t gate_ok, bool take, float& d_t,
+    int& r_t) {
+  float bt = BIG;
+  int br = 0x7fffffff;
+  for (int j = g; j < TRI_TILE; j += W) {
+    const float t = tile_tri_t<Ops>(tile + j, o, d, m, prevf, gate_ok);
+    if (t < bt) {
+      bt = t;
+      br = lo + j;
+    }
+  }
+  for (int off = W / 2; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, bt, off);
+    const int r2 = __shfl_xor_sync(0xffffffffu, br, off);
+    if (t2 < bt || (t2 == bt && r2 < br)) {
+      bt = t2;
+      br = r2;
+    }
+  }
+  if (take && bt < d_t) {
+    d_t = bt;
+    r_t = br;
+  }
+}
+
 // ---- K4's scans (trace_regen_prim.cu): isect_full's tests of a live ray,
 // in its order, up to the winner, with the row tests' root and reciprocal
 // taken by Ops. Each returns the hit distance (BIG for a miss) and sets
@@ -448,12 +526,35 @@ __device__ __forceinline__ void warp_rows(const float* rows, int lo, int hi,
   }
 }
 
+// Tile c's rows of one ray for a whole warp: lane l tests rows l and l + 32
+// of the tile, the warp takes the closest, first row on a tie, and (d_t,
+// r_t) take it where it is strictly closer. On GlobalRows (R::F == TRI_F)
+// they are read from hit_tiles (tile_group_rows), on SharedRows from the
+// staged compact rows (warp_rows): the same result, bit for bit.
+template <class R, class Ops>
+__device__ __forceinline__ void warp_tile(const FullScene& sc,
+                                          const float* hit_tiles, int c,
+                                          int lane, const float o[3],
+                                          const float d[3], const float m[3],
+                                          float prevf, uint32_t gate_ok,
+                                          float& d_t, int& r_t) {
+  const int lo = sc.tile_base + c * TRI_TILE;
+  if constexpr (R::F == TRI_F)
+    tile_group_rows<32, Ops>(
+        hit_tiles + static_cast<size_t>(c) * HIT_F * TRI_TILE, lo, lane, o, d,
+        m, prevf, gate_ok, true, d_t, r_t);
+  else
+    warp_rows<R, Ops>(R::rows(sc), lo, lo + TRI_TILE, lane, o, d, m, prevf,
+                      gate_ok, d_t, r_t);
+}
+
 // Tiles c0 .. c0 + 31 of one ray for a whole warp: the slab tests one a
 // lane, and the tiles the ray enters taken in order, each culled by the
 // bound so far, as isect_full culls them, their rows split over the lanes
-// (warp_rows). `tested` grows by the tiles whose rows the warp tested.
+// (warp_tile). `tested` grows by the tiles whose rows the warp tested.
 template <class R, class Ops>
-__device__ __forceinline__ void warp_tiles(const FullScene& sc, int c0,
+__device__ __forceinline__ void warp_tiles(const FullScene& sc,
+                                           const float* hit_tiles, int c0,
                                            int lane, const float o[3],
                                            const float d[3], const float m[3],
                                            const float inv[3], float prevf,
@@ -467,9 +568,8 @@ __device__ __forceinline__ void warp_tiles(const FullScene& sc, int c0,
        enter &= enter - 1) {
     const int k = __ffs(enter) - 1;
     if (__shfl_sync(0xffffffffu, t_en, k) < fminf(d_t, d_s)) {
-      const int lo = sc.tile_base + (c0 + k) * TRI_TILE;
-      warp_rows<R, Ops>(R::rows(sc), lo, lo + TRI_TILE, lane, o, d, m, prevf,
-                        gate_ok, d_t, r_t);
+      warp_tile<R, Ops>(sc, hit_tiles, c0 + k, lane, o, d, m, prevf, gate_ok,
+                        d_t, r_t);
       ++tested;
     }
   }
@@ -485,11 +585,13 @@ constexpr int TILE_GROUP = 32;
 // time, one a lane: the runs whose box the ray's line enters are taken in
 // order, and a run's tiles (warp_tiles) are tested only where its box's
 // entry is closer than the bound so far (`opened` grows by those runs).
+// On GlobalRows the tiles' rows come from hit_tiles (NULL on SharedRows).
 // The same result as isect_full, bit for bit. `tested` grows by the tiles
 // whose rows the warp tested (in every lane).
 template <class R, class Ops>
 __device__ __forceinline__ float scan_warp(const FullScene& sc,
                                            const float* groups,
+                                           const float* hit_tiles,
                                            const float o[3], const float d[3],
                                            float prevf, int lane, int& code,
                                            unsigned& tested,
@@ -516,8 +618,8 @@ __device__ __forceinline__ float scan_warp(const FullScene& sc,
          enter &= enter - 1) {
       const int k = __ffs(enter) - 1;
       if (__shfl_sync(0xffffffffu, t_en, k) < fminf(d_t, d_s)) {
-        warp_tiles<R, Ops>(sc, (g0 + k) * TILE_GROUP, lane, o, d, m, inv,
-                           prevf, gate_ok, d_s, d_t, r_t, tested);
+        warp_tiles<R, Ops>(sc, hit_tiles, (g0 + k) * TILE_GROUP, lane, o, d,
+                           m, inv, prevf, gate_ok, d_s, d_t, r_t, tested);
         ++opened;
       }
     }

@@ -274,72 +274,9 @@ __device__ __forceinline__ void resolve_item(const float* __restrict__ in,
   c.lives[slot] = alive ? 1 : 0;
 }
 
-// ---- the group split's scan on GlobalRows ----
-// A group's W lanes test W consecutive rows of one tile at a time. In
-// KernelScene.tri's rows (128 bytes each) one field of W rows lies in W
-// sectors, so the scan streamed ~1,216 sectors from L2 a tile and was
-// bound by them (6.9 ms at W 8 against the one-lane trace's 6.8, PERF.md);
-// KernelScene.hit_tiles holds the tiles' compact rows field by field
-// ([C, HIT_F, TRI_TILE]: field f of row j of tile c at (c * HIT_F + f) *
-// TRI_TILE + j), where one field of W rows is W consecutive floats.
-
-// tri_t on a row of hit_tiles: the same operations in the same order
-template <class Ops>
-__device__ __forceinline__ float tile_tri_t(const float* r, const float o[3],
-                                            const float d[3], const float m[3],
-                                            float prevf, uint32_t gate_ok) {
-  using S = SharedRows;  // the compact rows' field order
-  const auto ld = [&](int f) { return __ldg(r + f * TRI_TILE); };
-  const auto dot = [&](int f, const float v[3]) {
-    return ld(f) * v[0] + ld(f + 1) * v[1] + ld(f + 2) * v[2];
-  };
-  const float det = -dot(S::N, d);
-  const float udet = dot(S::E2, m) - dot(S::E2XA, d);
-  const float vdet = -dot(S::E1, m) - dot(S::AXE1, d);
-  const float tdet = dot(S::N, o) - ld(S::NA);
-  const bool dvalid = fabsf(det) >= EPS;
-  const float inv = Ops::rcp(dvalid ? det : 1.0f);
-  const float u = udet * inv;
-  const float v = vdet * inv;
-  const float t = tdet * inv;
-  const float uv_hi = ld(S::QUAD) > 0.5f ? v : u + v;
-  bool valid = dvalid && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-               uv_hi <= 1.0f && t > EPS && ld(S::PID) != prevf;
-  const float gate = ld(S::GATE);
-  if (gate != GATE_NONE)
-    valid = valid && gate >= 0.0f &&
-            ((gate_ok >> static_cast<int>(gate)) & 1u) != 0u;
-  return valid ? t : BIG;
-}
-
-// group_rows over tile c's rows (lo its first row in the full table)
-template <int W, class Ops>
-__device__ __forceinline__ void tile_group_rows(
-    const float* tile, int lo, int g, const float o[3], const float d[3],
-    const float m[3], float prevf, uint32_t gate_ok, bool take, float& d_t,
-    int& r_t) {
-  float bt = BIG;
-  int br = 0x7fffffff;
-  for (int j = g; j < TRI_TILE; j += W) {
-    const float t = tile_tri_t<Ops>(tile + j, o, d, m, prevf, gate_ok);
-    if (t < bt) {
-      bt = t;
-      br = lo + j;
-    }
-  }
-  for (int off = W / 2; off > 0; off >>= 1) {
-    const float t2 = __shfl_xor_sync(0xffffffffu, bt, off);
-    const int r2 = __shfl_xor_sync(0xffffffffu, br, off);
-    if (t2 < bt || (t2 == bt && r2 < br)) {
-      bt = t2;
-      br = r2;
-    }
-  }
-  if (take && bt < d_t) {
-    d_t = bt;
-    r_t = br;
-  }
-}
+// ---- the group split's scan on GlobalRows: a group's W lanes test W
+// consecutive rows of one tile at a time, read tile-major from
+// KernelScene.hit_tiles (isect_full.cuh tile_group_rows) ----
 
 // scan_group<W, GlobalRows, Ops> with each tile's rows read from
 // hit_tiles: the same result, bit for bit

@@ -19,7 +19,10 @@
 // before this design, PERF.md) made every warp run the union of its lanes'
 // tiles; sorting a block's rays by the tiles they enter cut the rows 5.9x
 // and the time 1.5%, because the few long rays then share a warp that
-// walks their tiles in series while the block waits for it.
+// walks their tiles in series while the block waits for it. On a scene
+// whose rows are read from device memory (panda_arm: 2,090 tiles), about
+// half of K4 is the tested tiles' rows, streamed from L2 at ~5.5 TB/s,
+// ~4.9 KB a tile (PERF.md).
 //
 // The design (scripts/ablate_k4.py; the choices it was picked from are
 // timed in PERF.md):
@@ -27,7 +30,14 @@
 //    the compact hit table and the small tables staged into the block's
 //    shared memory (stage_scene), or, for a scene whose tables exceed the
 //    wrapper's budget, the rows read through the read-only path
-//    (GlobalRows), chosen before the launch;
+//    (GlobalRows), chosen before the launch. On GlobalRows a warp query
+//    reads each tested tile's rows from KernelScene.hit_tiles, the tiles'
+//    compact rows field by field (passed in Args beside the run boxes),
+//    so that the 32 lanes' load of one field of 32 consecutive rows is one
+//    128-byte line; read from the 32-float rows of KernelScene.tri, one a
+//    lane, it was 32 lines (1,216 sectors a tile, 96% of K4's time on
+//    panda_arm, and K4 7.4x as long there, PERF.md). The base set's rows,
+//    the lane queries' and the winner's surface stay on tri;
 //  - each thread owns an item, its path in registers; once the item has
 //    finished its quota the thread writes it out and takes the next from a
 //    counter (scratch the wrapper zeroes), so every step is full;
@@ -102,6 +112,7 @@ struct Args {
   int* done;
   int* next;  // the refill counter, zero at launch
   const float* groups;  // [ceil(n_tiles / TILE_GROUP), 6] run boxes
+  const float* hit_tiles;  // [n_tiles, HIT_F, TRI_TILE] (GlobalRows) or NULL
   unsigned long long* work;  // [queries, tiles, groups, spheres] or NULL
 };
 
@@ -283,8 +294,8 @@ trace_regen_prim_kernel(const FullScene g, const Args a) {
         const float4 op = q[2 * j], dr = q[2 * j + 1];
         const float o[3] = {op.x, op.y, op.z}, d[3] = {dr.x, dr.y, dr.z};
         int code;
-        const float t = scan_warp<R, FastOps>(sc, a.groups, o, d, op.w, lane,
-                                              code, tiles, opened);
+        const float t = scan_warp<R, FastOps>(sc, a.groups, a.hit_tiles, o, d,
+                                              op.w, lane, code, tiles, opened);
         ++queries;
         if (lane == 0) {
           q[2 * j].w = __int_as_float(code);
@@ -379,6 +390,8 @@ extern "C" int pt_trace_regen_prim_config(int n_sph, int n_bnd, int n_tri,
 // hit is KernelScene.hit ([n_tri, 20], 16-byte aligned), whose rows the scan
 // reads from shared memory, or NULL for the read-only path. groups is
 // KernelScene.tile_groups ([ceil(n_tiles / 32), 6]; NULL with no tile).
+// hit_tiles is KernelScene.hit_tiles ([n_tiles, 20, 64]), whose rows the
+// read-only path's warp queries test; NULL with no tile or with hit.
 // uniforms is NULL for the counter generator. next: one int on the device,
 // zero at launch. work: NULL, or four uint64 on the device that the
 // launch adds its warp queries, their tested tiles, the runs of tiles
@@ -387,18 +400,19 @@ extern "C" int pt_trace_regen_prim_config(int n_sph, int n_bnd, int n_tri,
 extern "C" int pt_trace_regen_prim(
     const float* sph, int n_sph, const float* bnd, int n_bnd,
     const float* tri, int n_tri, const float* hit, const float* tiles,
-    int n_tiles, int tile_base, const float* groups, const float* cam_host,
-    int width, int height, const int* pixel_idx, int n, uint32_t seed,
-    int sample_base, int quota, int max_depth, int rr_start_depth,
-    const float* uniforms, float* rad, int* segs, int* done, int* next,
-    unsigned long long* work, void* stream) {
+    int n_tiles, int tile_base, const float* groups, const float* hit_tiles,
+    const float* cam_host, int width, int height, const int* pixel_idx, int n,
+    uint32_t seed, int sample_base, int quota, int max_depth,
+    int rr_start_depth, const float* uniforms, float* rad, int* segs,
+    int* done, int* next, unsigned long long* work, void* stream) {
   if (n <= 0) return 0;
   const FullScene sc{sph, n_sph, bnd, n_bnd, tri, n_tri, tiles, n_tiles,
                      tile_base, hit};
   const bool shared = hit != nullptr;
   if (!full_scene_ok(sc) || width <= 0 || quota < 0 || next == nullptr ||
       (shared && (reinterpret_cast<uintptr_t>(hit) & 15u)) ||
-      (n_tiles > 0 && groups == nullptr))
+      (n_tiles > 0 &&
+       (groups == nullptr || (!shared && hit_tiles == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quota == 0) {  // no segment: every item's outputs are zero
@@ -412,7 +426,7 @@ extern "C" int pt_trace_regen_prim(
   if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{make_cam(cam_host, width, height), pixel_idx, n, seed,
                sample_base, quota, max_depth, rr_start_depth, uniforms, rad,
-               segs, done, next, groups, work};
+               segs, done, next, groups, hit_tiles, work};
   const int blocks = (n + K4_THREADS - 1) / K4_THREADS;
   const int grid = blocks < cfg[1] * cfg[3] ? blocks : cfg[1] * cfg[3];
   kernel_for(shared)<<<grid, K4_THREADS, cfg[0], st>>>(sc, a);

@@ -627,8 +627,9 @@ class KernelScene:
     def hit_tiles(self) -> torch.Tensor:
         """The tiles' compact rows field by field, [C, HIT_F, TRI_TILE]:
         field f of row ``tile_base + c*TRI_TILE + j`` at [c, f, j], so that
-        K3's lanes reading one field of consecutive rows read consecutive
-        floats (csrc/portal_resolve.cu's group split)."""
+        lanes reading one field of consecutive rows read consecutive floats:
+        K3's group split and K4's warp queries where the rows are read from
+        device memory (csrc/isect_full.cuh ``tile_group_rows``)."""
         c = self.tiles.shape[0]
         rows = self.hit[self.tile_base:self.tile_base + c * TRI_TILE]
         return rows.reshape(c, TRI_TILE, HIT_F).transpose(1, 2).contiguous()
@@ -1010,6 +1011,7 @@ def prim_library(fmad: bool = True):
         ctypes.c_void_p,  # hit [T, HIT_F] or NULL
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tiles, C, tile_base
         ctypes.c_void_p,  # tile_groups [ceil(C / TILE_GROUP), 6]
+        ctypes.c_void_p,  # hit_tiles [C, HIT_F, TRI_TILE] or NULL
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # camera (host), W, H
         ctypes.c_void_p, ctypes.c_int,  # pixel_idx, n
         ctypes.c_uint32, ctypes.c_int, ctypes.c_int,  # seed, base, quota
@@ -1102,9 +1104,14 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"trace_regen_prim runs on cpu or cuda, not {dev}")
     _check_regen_args(pixel_idx, quota, max_depth, uniforms, QUOTA_CAP_PRIM)
+    # the read-only path's warp queries read their tiles' rows tile-major;
+    # a scene staged in shared memory never builds them
+    hit_tiles = (ks.hit_tiles if ks.tiles.shape[0] and not k4_shared_table(ks)
+                 else None)
     _check_on("trace_regen_prim (K4)", dev,
               [ks.sph, ks.bnd, ks.tri, ks.tiles, ks.hit, ks.tile_groups]
-              + ([uniforms] if uniforms is not None else []), (pixel_idx,))
+              + [t for t in (hit_tiles, uniforms) if t is not None],
+              (pixel_idx,))
     n = pixel_idx.shape[0]
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     segs = torch.empty(n, dtype=torch.int32, device=dev)
@@ -1118,7 +1125,8 @@ def trace_regen_prim(ks: KernelScene, cam, pixel_idx: torch.Tensor, *,
         nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the refill counter
         code = built.lib.pt_trace_regen_prim(
             *_prim_scene_args(ks, K4_SHARED_BUDGET), _ptr(ks.tile_groups),
-            params.data_ptr(), cam.width, cam.height, pixel_idx.data_ptr(), n,
+            _ptr(hit_tiles), params.data_ptr(), cam.width,
+            cam.height, pixel_idx.data_ptr(), n,
             int(seed) & rng.MASK32, int(sample_base), int(quota),
             int(max_depth), int(rr_start_depth), _ptr(uniforms),
             rad.data_ptr(), segs.data_ptr(), done.data_ptr(), nxt.data_ptr(),

@@ -15,6 +15,7 @@ quota 64; past one wave of resident threads; a scene whose table exceeds
 its shared-memory budget; its launch configuration; its group level, on
 panda_arm against the flat scan's build and the plain version, and its
 four counters on one run of tiles and past it, on both row modes; its
+warp queries' tile rows read from hit_tiles on the read-only path; its
 flat sphere scan on rtiow_final's 488 sphere rows in shared memory), K2 trace_cheap_regen and K3 trace_resolve_pool (mesh;
 K2 also at park depths 0-3, on pools wider than one wave of resident
 threads and narrower, of a width no multiple of the block, with every slot
@@ -1082,6 +1083,34 @@ def test_cuda_k4_counts_and_matches_plain_on_panda_arm(cuda_device):
     assert bool((k_done == 2).all())
     assert float(((k_rad - p_out[0]).abs().sum(dim=1) < 1e-3).float().mean()) >= 0.995
     assert min(fast.tolist()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_k4_warp_queries_read_tile_rows_from_hit_tiles(cuda_device):
+    """On the read-only path a warp query reads each tested tile's rows
+    from ``KernelScene.hit_tiles``, not from ``tri``: on the panda_arm
+    configuration's kernel scene at 32x24, quota 2, with the distance-test
+    columns (0-15) of every tiled row of ``tri`` set to NaN once
+    ``hit_tiles`` is made, K4 built with --fmad=false still equals the
+    plain version on the intact scene bit for bit, its four counters too."""
+    scene, _ = _bench_scene("panda_arm")
+    res = Resolution(24, 32)
+    prep = prepare_render(scene, res, cuda_device)
+    ks = prep.kscene
+    assert trace_kernel.k4_table(ks, cuda_device) == "global" and ks.tile_base > 0
+    pix = torch.from_numpy(morton_pixel_order(res.width, res.height)[0]).to(cuda_device)
+    kw = dict(seed=9, sample_base=0, quota=2)
+    plain_work = {}
+    p_out = trace_kernel.trace_regen_prim_plain(ks, prep.cam, pix, work=plain_work, **kw)
+    ks.hit_tiles  # made from the intact rows
+    ks.tri[ks.tile_base:, :trace_kernel.T_NA + 1] = float("nan")
+    work = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    exact = trace_kernel.trace_regen_prim(ks, prep.cam, pix, fmad=False, work=work, **kw)
+    torch.cuda.synchronize()
+    for k, p in zip(exact, p_out):
+        assert torch.equal(k, p)
+    want = [plain_work.get(k, 0) for k in trace_kernel.WORK_KEYS]
+    assert work.tolist() == want and want[1] > 0
 
 
 @pytest.mark.cuda

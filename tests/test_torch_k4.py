@@ -17,6 +17,10 @@ tests/test_torch_cuda.py holds it to its plain version there. Here:
 5. The group level: ``KernelScene.tile_groups`` on synthetic tables of 0
    to 40 tiles, the run size against the source's, and the wrapper's
    three counters.
+6. The rows a warp query reads on the read-only path:
+   ``KernelScene.hit_tiles`` entry [c, f, j] is field f of full-table row
+   ``tile_base + c*64 + j``, the row the kernel reports, past a base set
+   and over several runs of 32 tiles.
 """
 
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
@@ -191,6 +195,29 @@ def test_tile_groups_are_the_unions_of_runs_of_32_tiles(n_tiles):
         assert (groups[g] == np.concatenate([run[:, :3].min(axis=0),
                                              run[:, 3:].max(axis=0)])).all()
     assert torch.equal(ks.to("cpu").tile_groups, ks.tile_groups)
+
+
+def test_hit_tiles_hold_full_table_rows_past_a_base_set():
+    """On a scene of 8 base rows and 70 tiles (runs of 32, 32 and 6), as
+    panda_arm has 8 base rows and 66 runs: ``hit_tiles[c, f, j]`` is
+    ``hit[tile_base + c*64 + j, f]`` for every c, f and j, which is
+    ``tri``'s HIT_COLS[f] column of that row, and the pad is zero."""
+    rng = np.random.default_rng(23)
+    base, n_tiles = 8, 70
+    tri = torch.from_numpy(
+        rng.random((base + n_tiles * tk.TRI_TILE, tk.TRI_F), dtype=np.float32))
+    ks = tk.KernelScene(torch.zeros((1, tk.SPH_F)), torch.zeros((0, 4)), tri,
+                        _tiles_scene(n_tiles).tiles, base)
+    ht = ks.hit_tiles
+    assert ht.shape == (n_tiles, tk.HIT_F, tk.TRI_TILE) and ht.is_contiguous()
+    c, f, j = np.meshgrid(np.arange(n_tiles), np.arange(tk.HIT_F),
+                          np.arange(tk.TRI_TILE), indexing="ij")
+    row = torch.from_numpy(base + c * tk.TRI_TILE + j)
+    assert torch.equal(ht, ks.hit[row, torch.from_numpy(f)])
+    cols = len(tk.HIT_COLS)
+    assert torch.equal(ht[:, :cols], tri[row[:, :cols], torch.tensor(
+        tk.HIT_COLS)[:, None].expand(cols, tk.TRI_TILE)])
+    assert not ht[:, cols:].any()
 
 
 def test_tile_group_matches_the_source():

@@ -10,7 +10,8 @@ The library is built on first use with ``g++ -O2 -shared -fPIC`` into the
 git-ignored ``path_tracer_tpu_torch/_build/pt_native-<hash>.so``, keyed by a
 hash of the source and the flags, as ``ops.kernels.build`` keys the CUDA
 builds. Without a C++ compiler, or when the build fails, ``load_native``
-returns None and the fallbacks run.
+returns None and the fallbacks run. A load appends a record of its hash,
+build and ``dlopen`` seconds to ``utils.profiling.loads()``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
+
+from path_tracer_tpu_torch.utils import profiling
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "csrc", "pt_native.cpp")
@@ -65,13 +69,21 @@ def load_native():
         if _TRIED:
             return _LIB
         _TRIED = True
+        t0 = time.perf_counter()
         path = library_path()
-        if not os.path.exists(path) and not _build(path):
-            return None
+        hash_s, build_s = time.perf_counter() - t0, 0.0
+        if not os.path.exists(path):
+            t0 = time.perf_counter()
+            if not _build(path):
+                return None
+            build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         try:
             lib = ctypes.CDLL(path)
         except OSError:
             return None
+        profiling.record_load("pt_native", hash_s, build_s,
+                              time.perf_counter() - t0)
         lib.pt_parse_off.restype = ctypes.c_longlong
         lib.pt_parse_off.argtypes = [
             ctypes.c_char_p,            # path

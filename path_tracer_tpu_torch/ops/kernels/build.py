@@ -5,7 +5,9 @@ Each ``.cu`` file has a plain C interface and is compiled on first use into
 source, the headers (``*.cuh``) beside it and the flags, so a fresh checkout
 builds it and an edited source or header rebuilds. Every library exports
 ``pt_cuda_error_string``; ``load_kernel`` binds it. The target is Hopper (``sm_90a``); no fast-math flags, so FMA
-contraction stays at nvcc's default and division and sqrt are IEEE.
+contraction stays at nvcc's default and division and sqrt are IEEE. Each
+load appends a record of its hash, build and ``dlopen`` seconds to
+``utils.profiling.loads()``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
+
+from path_tracer_tpu_torch.utils import profiling
 
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -60,7 +64,9 @@ def _lock(path: str) -> threading.Lock:
 def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
     """Compile ``source`` (with ``extra_flags`` after NVCC_FLAGS) unless its
     hash-keyed library exists; load it. Threads that ask for the same
-    library wait for one compile."""
+    library wait for one compile. Records the load
+    (``profiling.record_load``)."""
+    t0 = time.perf_counter()
     flags = NVCC_FLAGS + tuple(extra_flags)
     digest = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(glob.glob(os.path.join(os.path.dirname(source), "*.cuh")))
@@ -69,6 +75,7 @@ def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
             digest.update(fh.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+    hash_s = time.perf_counter() - t0
     seconds = 0.0
     with _lock(out):
         if not os.path.exists(out):
@@ -77,7 +84,10 @@ def build(source: str, extra_flags: tuple[str, ...] = ()) -> Built:
     if os.path.exists(f"{out}.log"):
         with open(f"{out}.log") as fh:
             log = fh.read()
-    return Built(ctypes.CDLL(out), out, seconds, log)
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(out)
+    profiling.record_load(stem, hash_s, seconds, time.perf_counter() - t0)
+    return Built(lib, out, seconds, log)
 
 
 def _compile(source: str, flags: tuple[str, ...], out: str) -> float:

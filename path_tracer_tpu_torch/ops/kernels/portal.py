@@ -141,6 +141,10 @@ class PortalConsts:
     lo: tuple
     hi: tuple
 
+    @property
+    def nbytes(self) -> int:
+        return self.scene.nbytes
+
     def to(self, device) -> "PortalConsts":
         return PortalConsts(self.scene.to(device), self.lo, self.hi)
 

@@ -62,6 +62,7 @@ from path_tracer_tpu_torch.ops.kernels.build import check_launch, load_kernel
 from path_tracer_tpu_torch.render.raygen import (
     camera_rays, preview_cam_params, tent_filter,
 )
+from path_tracer_tpu_torch.utils import profiling
 
 F32 = torch.float32
 
@@ -640,6 +641,13 @@ class KernelScene:
         tests above the tiles): ``tile_group_boxes(tiles)``."""
         return tile_group_boxes(self.tiles)
 
+    @property
+    def nbytes(self) -> int:
+        """The bytes of its tables, which ``to`` copies (not ``hit_tiles``
+        or ``tile_groups``, made on the device)."""
+        return sum(t.nbytes for t in (self.sph, self.bnd, self.tri, self.tiles,
+                                      self.hit))
+
     def to(self, device) -> "KernelScene":
         return KernelScene(self.sph.to(device), self.bnd.to(device),
                            self.tri.to(device), self.tiles.to(device),
@@ -715,9 +723,16 @@ def kernel_scene_from_jax(bufs: dict) -> KernelScene:
                        int(tile_base), **box, hit=torch.from_numpy(hit))
 
 
+@profiling.spanned("render.prepare.kscene")
 def build_kernel_scene(packed: ScenePacked) -> KernelScene:
-    """ScenePacked → KernelScene on the CPU."""
-    return kernel_scene_from_jax(kernel_scene_buffers(packed))
+    """ScenePacked → KernelScene on the CPU: the column tables
+    (``kernel_scene_buffers``, span ``render.prepare.kscene.rows``), then
+    the rows (``kernel_scene_from_jax``, span
+    ``render.prepare.kscene.table``)."""
+    with profiling.span("render.prepare.kscene.rows"):
+        bufs = kernel_scene_buffers(packed)
+    with profiling.span("render.prepare.kscene.table"):
+        return kernel_scene_from_jax(bufs)
 
 
 def _sphere_t(cen, rad2, o, d):

@@ -26,7 +26,6 @@ import numpy as np
 from path_tracer_tpu_torch.ops.tonemap import quantize_np
 from path_tracer_tpu_torch.utils.config import Resolution
 from path_tracer_tpu_torch.utils.hashing import digest_later
-from path_tracer_tpu_torch.utils.profiling import SpanRecord
 
 
 @dataclass
@@ -34,8 +33,6 @@ class Image:
     pixels: np.ndarray  # [W*H, 3] float32 in [0,1], read-only: it is hashed
     resolution: Resolution
     digest: Future  # of hash_image(pixels), on the digest worker
-    # render()'s render.digest note, tagged "waited" by a read that waited
-    note: SpanRecord | None = None
 
     @staticmethod
     def new(pixels: np.ndarray, resolution: Resolution) -> "Image":
@@ -49,8 +46,6 @@ class Image:
     def hash(self) -> int:
         """``hash_image(pixels)``: waits for the digest if it is still
         running, and re-raises what it raised."""
-        if self.note is not None and not self.digest.done():
-            self.note.tag = "waited"
         return self.digest.result()
 
     def to_grid(self) -> np.ndarray:

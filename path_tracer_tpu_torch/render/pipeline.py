@@ -54,13 +54,13 @@ The device is an explicit argument: ``"cuda"`` launches the CUDA kernels
 versions. Nothing falls back from one to the other.
 
 While a profiler runs, a render is a unit of ``utils.profiling``'s spans:
-``render`` around the call, and inside it ``render.prepare``,
-``render.upload``, one ``render.pass`` a pass, ``render.wait`` (a sync that
-only a traced render makes, so the device's tail shows apart from the
-host's), ``render.fetch`` (the image put in pixel order on the device,
-and its copy to the host), ``render.finish`` (the ``Image``, its digest
-handed to the worker: a ``render.digest`` note), ``render.ppm`` and
-``render.checkpoint``.
+``render`` around the call, and inside it ``render.prepare`` (with a span
+a stage: ``prepare_render``), ``render.upload``, one ``render.pass`` a
+pass, ``render.wait`` (a sync that only a traced render makes, so the
+device's tail shows apart from the host's), ``render.fetch`` (the image
+put in pixel order on the device, and its copy to the host),
+``render.finish`` (the ``Image``, its digest handed to the worker),
+``render.ppm`` and ``render.checkpoint``.
 """
 
 from __future__ import annotations
@@ -188,29 +188,42 @@ def prepare_render(scene: SceneDescriptor, resolution: Resolution, device,
     build its tables on ``device``. ``backend`` (``resolve_backend``)
     ``exact`` or ``fast`` gives the ``wavefront`` route. ``regen=False``
     (the interactive preview) gives the camera-free ``stepped`` or
-    ``stepped_prim`` route."""
-    packed = pack_scene(scene)
+    ``stepped_prim`` route.
+
+    A kernel route builds its tables on the host in stages, each a span
+    inside ``render.prepare``: ``.pack`` (``pack_scene``), ``.consts`` (K1's
+    scene, None past 128 primitives, and the camera), ``.kscene``
+    (``trace_kernel.build_kernel_scene``), ``.portal`` (the portal's split),
+    then copies them to ``device`` in one ``.copy`` span whose size is the
+    bytes copied."""
+    with profiling.span("render.prepare.pack"):
+        packed = pack_scene(scene)
     mode = resolve_backend(backend)
     if mode != "kernel":
         return Prepared("wavefront", None, bufs=scene_tensors(packed, device),
                         mode=mode)
-    consts = trace_v2.build_scene_consts(packed)
-    if not regen:
-        if consts is not None:
-            return Prepared("stepped", None, scene=consts.to(device))
-        return Prepared("stepped_prim", None,
-                        kscene=trace_kernel.build_kernel_scene(packed).to(device))
-    cam = trace_v2.build_camera_consts(
-        scene.camera, resolution.width, resolution.height)
+    with profiling.span("render.prepare.consts"):
+        consts = trace_v2.build_scene_consts(packed)
+        cam = trace_v2.build_camera_consts(
+            scene.camera, resolution.width, resolution.height) if regen else None
+    kscene = portal = None
+    if consts is None:
+        kscene = trace_kernel.build_kernel_scene(packed)
+        if regen and not os.environ.get("PT_TPU_NO_PORTAL"):
+            with profiling.span("render.prepare.portal"):
+                split = portal_ops.build_portal_consts(packed)
+            portal = None if split is None else split[0]
+    tables = (consts, kscene, portal)
+    size = (sum(t.nbytes for t in tables if t is not None)
+            if profiling.tracing() else None)
+    with profiling.span("render.prepare.copy", size):
+        consts, kscene, portal = (None if t is None else t.to(device)
+                                  for t in tables)
     if consts is not None:
-        return Prepared("regen", cam, scene=consts.to(device))
-    kscene = trace_kernel.build_kernel_scene(packed).to(device)
-    portal = None if os.environ.get("PT_TPU_NO_PORTAL") else (
-        portal_ops.build_portal_consts(packed))
+        return Prepared("regen" if regen else "stepped", cam, scene=consts)
     if portal is not None:
-        return Prepared("portal", cam, portal=portal[0].to(device),
-                        kscene=kscene)
-    return Prepared("prim", cam, kscene=kscene)
+        return Prepared("portal", cam, portal=portal, kscene=kscene)
+    return Prepared("prim" if regen else "stepped_prim", cam, kscene=kscene)
 
 
 def prepare_scene(scene: SceneDescriptor, resolution: Resolution, device
@@ -640,7 +653,6 @@ def render(
     with profiling.span("render.finish"):
         # the digest runs on the worker while the caller goes on
         image = Image.new(final_np, res)
-        image.note = profiling.note("render.digest", final_np.nbytes)
     if verbose:
         print("Rendering complete" if not cancelled else "Rendering cancelled")
 

@@ -1,5 +1,5 @@
 """Instrumentation: the render statistics, spans on the device trace's
-clock, and the CLI's profiler trace.
+clock, the kernel libraries' load records, and the CLI's profiler trace.
 
 Counterpart of ``path_tracer_tpu.utils.profiling``: the render statistics
 (Mray/s is the headline metric: traced ray segments per wall second) and
@@ -16,13 +16,24 @@ the span the host was in, and appends a record to an in-memory log
 preview frame. A span whose name ends in ``.wait`` blocks on the device.
 ``note(name, size, tag)`` logs a record of no length in the same way, for a
 count known only once the work is done (``render.resolve``: a portal
-render's resolve segments, tagged with where K3 read its rows;
-``render.digest``: the bytes of a render's image handed to the digest
-worker, tagged ``waited`` once a read of its hash had to wait).
+render's resolve segments, tagged with where K3 read its rows).
+
+A record's times are ``time.perf_counter_ns``; the profiler stamps its
+events with the Unix clock (kineto's ``start_ns()``, ``time.time_ns``).
+``trace_ns`` maps the one onto the other through an anchor pair of both
+clocks, taken when the log is cleared and when a span opens with none open
+on its thread (so at a profiler session's first span).
+
+Load records are kept whether or not a profiler runs, since a process
+loads its kernel libraries during set-up, before any profiler starts:
+``ops.kernels.build.build`` and ``native.load_native`` each append one
+record a library they load to ``loads()``, with the seconds spent hashing
+its sources, building it (0 when it was already built) and loading it.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import functools
 import itertools
@@ -75,10 +86,50 @@ class SpanRecord:
     tag: str | None = None
 
 
+@dataclass(frozen=True)
+class LoadRecord:
+    """A kernel library's load: its source's stem, and the seconds spent
+    reading and hashing its sources and headers (``hash_s``), compiling it
+    (``build_s``, 0 when it was already built) and ``ctypes.CDLL``
+    (``load_s``)."""
+
+    stem: str
+    hash_s: float
+    build_s: float
+    load_s: float
+
+    @property
+    def seconds(self) -> float:
+        return self.hash_s + self.build_s + self.load_s
+
+
 _spans: list[SpanRecord] = []
+_loads: list[LoadRecord] = []
 _lock = threading.Lock()
 _local = threading.local()
 _unit_ids = itertools.count()
+
+
+def _clock_pair() -> tuple[int, int]:
+    """(``perf_counter_ns``, the profiler's clock) read at one instant: the
+    Unix clock between two reads of the other, at their midpoint."""
+    a = time.perf_counter_ns()
+    unix = time.time_ns()
+    return (a + time.perf_counter_ns()) // 2, unix
+
+
+_anchors: list[tuple[int, int]] = [_clock_pair()]
+
+
+def trace_ns(ns: int) -> int:
+    """A span record's time (``perf_counter_ns``) on the profiler's clock,
+    the Unix time in ns of kineto's events (a ``FunctionEvent``'s
+    ``time_range`` is in us from ``kineto_results.trace_start_ns()``, a
+    Chrome trace's ``ts`` in us from its ``baseTimeNanoseconds``), through
+    the latest anchor taken at or before it."""
+    i = bisect.bisect_right(_anchors, (ns, float("inf"))) - 1
+    perf, unix = _anchors[max(i, 0)]
+    return ns - perf + unix
 
 
 def _stack() -> list[int]:
@@ -103,6 +154,8 @@ class _Span:
             unit = (unit, next(_unit_ids))
         rec = SpanRecord(self.name, 0, 0, st[-1] if st else -1, unit, self.size)
         with _lock:
+            if not st:
+                _anchors.append(_clock_pair())
             self.index = len(_spans)
             _spans.append(rec)
         st.append(self.index)
@@ -157,21 +210,19 @@ def sync_span(name: str, device) -> None:
             torch.cuda.current_stream(device).synchronize()
 
 
-def note(name: str, size: int, tag: str | None = None) -> SpanRecord | None:
+def note(name: str, size: int, tag: str | None = None) -> None:
     """While a profiler runs, a record ``name`` of no length in the span
     log, in the unit of the span open on this thread, with ``size`` and
-    ``tag``: a count that is known only after the work it counts. Returns
-    the record, whose tag a later event may set. Otherwise nothing at
-    all."""
+    ``tag``: a count that is known only after the work it counts.
+    Otherwise nothing at all."""
     if not _autograd_profiler._is_profiler_enabled:
-        return None
+        return
     st = _stack()
     now = time.perf_counter_ns()
     rec = SpanRecord(name, now, now, st[-1] if st else -1,
                      _spans[st[-1]].unit if st else None, size, tag)
     with _lock:
         _spans.append(rec)
-    return rec
 
 
 def spans() -> list[SpanRecord]:
@@ -180,9 +231,21 @@ def spans() -> list[SpanRecord]:
 
 
 def clear() -> None:
-    """Empty the span log (with no span open)."""
+    """Empty the span log (with no span open) and anchor the clocks anew."""
     with _lock:
         _spans.clear()
+        _anchors[:] = [_clock_pair()]
+
+
+def record_load(stem: str, hash_s: float, build_s: float, load_s: float) -> None:
+    """Append a kernel library's load to ``loads()``, profiler or not."""
+    with _lock:
+        _loads.append(LoadRecord(stem, hash_s, build_s, load_s))
+
+
+def loads() -> list[LoadRecord]:
+    """The process's kernel library loads, in order."""
+    return _loads
 
 
 TRACE_FILE = "trace.json"

@@ -1,27 +1,21 @@
 #!/usr/bin/env python3
-"""Where ``pipeline.prepare_render``'s host time goes: each stage of a
-render's preparation timed on its own with ``perf_counter``.
+"""Where ``pipeline.prepare_render``'s host time goes, stage by stage, as
+the program's own spans name the stages.
 
-Stages, for each scene (mesh at 450x300, cornell at 1024x768, the
-benchmark's render cells):
-
-  pack_scene          models.scene.pack_scene
-  scene_consts        trace_v2.build_scene_consts on the full scene
-  quad_pairs          trace_kernel.detect_quad_pairs on the full scene
-  buffers_rest        trace_kernel.kernel_scene_buffers less quad_pairs
-  kernel_scene        trace_kernel.kernel_scene_from_jax (post_init included)
-  post_init           KernelScene.__post_init__'s hit table alone
-  portal_consts       portal.build_portal_consts
-  camera_consts       trace_v2.build_camera_consts
-  upload              the route's tables' .to(device), synchronized
-  prepare_render      the whole call, as render() makes it
-
-Each stage runs ``--warm`` times, then ``--repeats`` times timed; prints
-the median, min and max in ms and writes them as JSON to ``--out``.
-``--threads N`` sets torch's CPU threads (default: torch's own).
-``--root DIR`` imports the package and loads the scenes from another
+For each configuration of the benchmark's render cells (``BENCHMARK.json``
+cells whose traffic is of kind ``render``, at the traffic's resolution),
+calls ``prepare_render`` ``--warm`` times, then ``--repeats`` times under
+a CPU ``torch.profiler``, and prints for each ``render.prepare`` span and
+each stage span inside it (``render.prepare.pack``, ``.consts``,
+``.kscene`` with ``.kscene.rows`` and ``.kscene.table``, ``.portal``,
+``.copy``) the median, min and max over the calls in ms (a stage logged
+twice in a call counts its sum), ``rest`` the prepare less its stages, and
+``.copy``'s bytes. The times are profiled host times, as a ``--trace 1``
+benchmark run reads them. ``--out PATH`` writes them as JSON. ``--root
+DIR`` imports the package and loads the configurations from another
 checkout (``git archive <commit> | tar -x -C DIR``), so two commits can be
-compared in one call:
+compared in one call; a checkout without the stage spans shows the whole
+``render.prepare`` alone:
 
   python3 scripts/prep_split.py --device cuda --out chiprun_out/split.json
   python3 scripts/prep_split.py --root _parent --device cuda
@@ -34,22 +28,63 @@ import json
 import os
 import statistics
 import sys
-import time
 
-SCENES = (("mesh", 450, 300), ("cornell", 1024, 768))
+PREPARE = "render.prepare"
 
 
-def _time(fn, warm, repeats, sync):
-    for _ in range(warm):
-        fn()
-        sync()
-    out = []
-    for _ in range(repeats):
-        s = time.perf_counter()
-        fn()
-        sync()
-        out.append(1e3 * (time.perf_counter() - s))
+def render_configs(root: str) -> list[tuple[str, str, int, int]]:
+    """(name, scene file, width, height) of each configuration of the
+    benchmark's render cells, in the cells' order."""
+    with open(os.path.join(root, "BENCHMARK.json")) as fh:
+        bench = json.load(fh)
+    files = {c["name"]: os.path.join(root, c["file"]) for c in bench["configs"]}
+    out, seen = [], set()
+    for cell in bench["workloads"]:
+        with open(os.path.join(root, "bench_torch", "traffic",
+                               cell["traffic"] + ".json")) as fh:
+            traffic = json.load(fh)
+        if traffic["kind"] != "render" or cell["config"] in seen:
+            continue
+        seen.add(cell["config"])
+        cfg_file = files[cell["config"]]
+        with open(cfg_file) as fh:
+            scene = os.path.join(os.path.dirname(cfg_file), json.load(fh)["scene"])
+        out.append((cell["config"], scene, traffic["width"], traffic["height"]))
     return out
+
+
+def load_scene(pt, path: str):
+    """The scene file as the program's SceneDescriptor, its mesh files
+    taken from beside it (as the benchmark loads it)."""
+    with open(path) as fh:
+        desc = json.load(fh)
+    for obj in desc["objects"]:
+        if "MeshFile" in obj["type_"]:
+            f = obj["type_"]["MeshFile"]
+            f["path"] = os.path.join(os.path.dirname(path), f["path"])
+    return pt.SceneDescriptor.from_json_dict(desc)
+
+
+def split(log) -> list[dict]:
+    """Each ``render.prepare`` span of the log → {name: ms} of it and of
+    the spans inside it (summed by name), ``rest`` and ``copy_bytes``."""
+    calls, owner, staged = [], {}, []
+    for i, s in enumerate(log):
+        if s.name == PREPARE:
+            owner[i] = len(calls)
+            calls.append({PREPARE: 1e-6 * (s.end_ns - s.start_ns)})
+            staged.append(0.0)
+        elif s.parent in owner:
+            owner[i] = call = owner[s.parent]
+            ms = 1e-6 * (s.end_ns - s.start_ns)
+            calls[call][s.name] = calls[call].get(s.name, 0.0) + ms
+            if log[s.parent].name == PREPARE:
+                staged[call] += ms
+            if s.name == PREPARE + ".copy" and s.size is not None:
+                calls[call]["copy_bytes"] = calls[call].get("copy_bytes", 0) + s.size
+    for c, ms in zip(calls, staged):
+        c["rest"] = c[PREPARE] - ms
+    return calls
 
 
 def main(argv=None) -> int:
@@ -59,80 +94,51 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=20)
-    ap.add_argument("--threads", type=int, default=0,
-                    help="torch's CPU threads (0: torch's default)")
+    ap.add_argument("--configs", nargs="*", help="these configurations only")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     out_path = os.path.abspath(args.out) if args.out else ""
     sys.path.insert(0, root)
-    os.chdir(root)  # MeshFile paths are relative to the checkout
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     import path_tracer_tpu_torch as pt
-    from path_tracer_tpu_torch.models.scene import pack_scene
-    from path_tracer_tpu_torch.ops.kernels import portal, trace_kernel, trace_v2
     from path_tracer_tpu_torch.render import pipeline
+    from path_tracer_tpu_torch.utils import profiling
     from path_tracer_tpu_torch.utils.config import Resolution
 
-    if args.threads:
-        torch.set_num_threads(args.threads)
     dev = torch.device(args.device)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
     report = {"root": root, "device": str(dev),
-              "torch_threads": torch.get_num_threads(), "scenes": {}}
+              "torch_threads": torch.get_num_threads(), "configs": {}}
     if dev.type == "cuda":
         report["card"] = torch.cuda.get_device_name(dev)
-    for sid, w, h in SCENES:
-        scene = pt.load_scene(sid, "scenes", "meshes")
+    for name, path, w, h in render_configs(root):
+        if args.configs and name not in args.configs:
+            continue
+        scene = load_scene(pt, path)
         res = Resolution(height=h, width=w)
-        packed = pack_scene(scene)
-        bufs = trace_kernel.kernel_scene_buffers(packed)
-        ks = trace_kernel.kernel_scene_from_jax(bufs)
-        pc = portal.build_portal_consts(packed)
-        consts = trace_v2.build_scene_consts(packed)
-        cls = trace_kernel.KernelScene
-        parts = (ks.sph, ks.bnd, ks.tri, ks.tiles, ks.tile_base)
-
-        def upload():
-            if consts is not None:
-                consts.to(dev)
-            else:
-                ks.to(dev)
-                if pc is not None:
-                    pc[0].to(dev)
-
-        stages = {
-            "pack_scene": lambda: pack_scene(scene),
-            "scene_consts": lambda: trace_v2.build_scene_consts(packed),
-            "quad_pairs": lambda: trace_kernel.detect_quad_pairs(packed),
-            "buffers": lambda: trace_kernel.kernel_scene_buffers(packed),
-            "kernel_scene": lambda: trace_kernel.kernel_scene_from_jax(bufs),
-            "post_init": lambda: cls(*parts),
-            "portal_consts": lambda: portal.build_portal_consts(packed),
-            "camera_consts": lambda: trace_v2.build_camera_consts(
-                scene.camera, w, h),
-            "upload": upload,
-            "prepare_render": lambda: pipeline.prepare_render(scene, res, dev),
-        }
-        times = {k: _time(fn, args.warm, args.repeats, sync)
-                 for k, fn in stages.items()}
-        med = {k: statistics.median(v) for k, v in times.items()}
-        rows = {k: {"median": med[k], "min": min(v), "max": max(v)}
-                for k, v in times.items()}
-        rows["buffers_rest"] = {"median": med["buffers"] - med["quad_pairs"]}
-        report["scenes"][sid] = rows
-        print(f"{sid} {w}x{h} ({torch.get_num_threads()} torch threads, "
-              f"{root}):", flush=True)
+        for _ in range(args.warm):
+            pipeline.prepare_render(scene, res, dev)
+        profiling.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(args.repeats):
+                pipeline.prepare_render(scene, res, dev)
+        calls = split(profiling.spans())
+        profiling.clear()
+        keys = list(dict.fromkeys(k for c in calls for k in c))
+        rows = {}
+        for k in keys:
+            vals = [c.get(k, 0.0) for c in calls]
+            rows[k] = {"median": statistics.median(vals), "min": min(vals),
+                       "max": max(vals)}
+        report["configs"][name] = rows
+        print(f"{name} {w}x{h} ({len(calls)} calls, {root}):", flush=True)
         for k, r in rows.items():
-            extra = (f"  min {r['min']:8.3f}  max {r['max']:8.3f}"
-                     if "min" in r else "")
-            print(f"  {k:15s} {r['median']:8.3f} ms{extra}", flush=True)
+            unit = "B " if k == "copy_bytes" else "ms"
+            print(f"  {k:30s} {r['median']:12.3f} {unit}  min {r['min']:12.3f}"
+                  f"  max {r['max']:12.3f}", flush=True)
     if out_path:
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
         with open(out_path, "w") as fh:

@@ -17,14 +17,13 @@ import time
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 import path_tracer_tpu_torch as tpt
 from path_tracer_tpu_torch import native
 from path_tracer_tpu_torch.render import integrator
 from path_tracer_tpu_torch.render.image import Image
 from path_tracer_tpu_torch.render.pipeline import morton_pixel_order
-from path_tracer_tpu_torch.utils import hashing, profiling
+from path_tracer_tpu_torch.utils import hashing
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
 from tests.test_torch_render import ROUTES, _route
 
@@ -142,7 +141,6 @@ def test_reading_the_hash_waits_for_its_digest(monkeypatch):
     want = hashing.hash_image(px)
     gate = _slow_digest(monkeypatch)
     img = Image.new(px, tpt.Resolution(4, 6))
-    img.note = profiling.SpanRecord("render.digest", 0, 0, -1, None, px.nbytes)
     assert not img.digest.done()
     timer = threading.Timer(0.2, gate.set)
     timer.start()
@@ -151,12 +149,10 @@ def test_reading_the_hash_waits_for_its_digest(monkeypatch):
     waited = time.perf_counter() - t0
     timer.join(5)
     assert got == want == img.hash and waited >= 0.1
-    assert img.note.tag == "waited"
-    # a read after the digest is done waits for nothing and tags nothing
+    # a read after the digest is done waits for nothing
     again = Image.new(px, tpt.Resolution(4, 6))
-    again.note = profiling.SpanRecord("render.digest", 0, 0, -1, None, px.nbytes)
     again.digest.result(timeout=30)
-    assert again.hash == want and again.note.tag is None
+    assert again.hash == want
 
 
 def test_every_render_digests_its_image_unread(repo_root, monkeypatch):
@@ -189,26 +185,6 @@ def test_every_render_digests_its_image_unread(repo_root, monkeypatch):
     assert not pending
     assert sizes == [h * w for h, w in shapes] and most[0] == 1
     assert all(d.image.digest.result() == real(d.image.pixels) for d in dones)
-
-
-def test_a_traced_read_that_waits_tags_the_renders_note(repo_root, monkeypatch):
-    scene, _ = _route(repo_root, "regen", monkeypatch)
-    gate = _slow_digest(monkeypatch)
-    cfg = tpt.RenderConfig(samples_per_pixel=1, resolution=tpt.Resolution(4, 6),
-                           max_depth=2)
-    profiling.clear()
-    try:
-        with profile(activities=[ProfilerActivity.CPU]):
-            done = tpt.render(scene, cfg, device="cpu", out_dir=None,
-                              verbose=False)
-        notes = [s for s in profiling.spans() if s.name == "render.digest"]
-        assert [(s.size, s.tag) for s in notes] == [(24 * 12, None)]
-        threading.Timer(0.1, gate.set).start()
-        assert done.image.hash == hashing.hash_image(done.image.pixels)
-        assert notes[0].tag == "waited"
-    finally:
-        gate.set()
-        profiling.clear()
 
 
 def test_a_digest_that_raised_re_raises_on_read(repo_root, monkeypatch):

@@ -41,6 +41,7 @@ from path_tracer_tpu_torch.render.pipeline import morton_pixel_order, prepare_re
 from path_tracer_tpu_torch.render.raygen import camera_arrays, camera_rays
 from path_tracer_tpu_torch.utils import profiling
 from tests.test_torch_host import per_test_limit  # noqa: F401  (autouse)
+from tests.test_torch_tracing import PREP_STAGES, assert_prepare_stages
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(ROOT, "bench_torch", "configs")
@@ -145,7 +146,7 @@ def test_panda_to_off_rebuilds_the_committed_files(tmp_path):
 @pytest.fixture(scope="module")
 def traced_render():
     """The port's plain prim render of the arm at 6x4, 2 spp, seed 7, under
-    a CPU profiler, and the ``render.prim`` notes it logged."""
+    a CPU profiler, the ``render.prim`` notes it logged, and its span log."""
     c = CFG
     cfg = tpt.RenderConfig(samples_per_pixel=c["spp"], seed=c["seed"],
                            resolution=tpt.Resolution(c["h"], c["w"]))
@@ -154,12 +155,13 @@ def traced_render():
         with profile(activities=[ProfilerActivity.CPU]):
             done = tpt.render(_scene(), cfg, device="cpu", out_dir=None,
                               verbose=False)
-        notes = [(s.name, s.size, s.tag) for s in profiling.spans()
+        log = list(profiling.spans())
+        notes = [(s.name, s.size, s.tag) for s in log
                  if s.name.startswith("render.prim")]
     finally:
         profiling.clear()
     assert done.stats.extra["route"] == "prim"
-    return done, cfg, notes
+    return done, cfg, notes, log
 
 
 def test_plain_prim_route_matches_reference_on_panda_arm(traced_render):
@@ -170,7 +172,7 @@ def test_plain_prim_route_matches_reference_on_panda_arm(traced_render):
     differently (an ulp or two of a pixel here), while a path lost or traced
     wrong, as by a part gated or a tile skipped, moves its pixel by the
     Monte Carlo noise between two seeds, ~0.3 at 2 spp."""
-    done, cfg, _ = traced_render
+    done, cfg, _, _ = traced_render
     spec = importlib.util.spec_from_file_location(
         "bench_reference", os.path.join(ROOT, "bench_torch", "reference.py"))
     ref = importlib.util.module_from_spec(spec)
@@ -196,7 +198,7 @@ def test_prim_counters_and_notes_equal_the_plain_work(traced_render):
     ``render.prim`` tagged with the table, ``render.prim.query``,
     ``render.prim.tiles``, ``render.prim.groups`` and
     ``render.prim.spheres``."""
-    done, cfg, notes = traced_render
+    done, cfg, notes, _ = traced_render
     extra = done.stats.extra
     c = CFG
     prep = prepare_render(_scene(), cfg.resolution, "cpu")
@@ -226,6 +228,22 @@ def test_prim_counters_and_notes_equal_the_plain_work(traced_render):
 @pytest.fixture(scope="module")
 def arm_kscene():
     return prepare_render(_scene(), tpt.Resolution(4, 6), "cpu").kscene
+
+
+def test_prim_render_logs_its_prepare_stages(traced_render, arm_kscene):
+    """The traced render's ``render.prepare`` holds its stages in order in
+    the render's unit: the portal's split is built and refused, as the
+    arm's remainder past its heaviest part has more than 128 primitives;
+    the copy is the kernel scene's tables, ``tri``'s 32 floats and
+    ``hit``'s 20 a row for 133,768 rows, and a few KB of spheres and
+    tiles."""
+    log = traced_render[3]
+    assert_prepare_stages(log, PREP_STAGES["portal"])
+    (copy,) = [s for s in log if s.name == "render.prepare.copy"]
+    rows = arm_kscene.tri.shape[0]
+    assert rows == arm_kscene.hit.shape[0] == 133768
+    assert copy.size == arm_kscene.nbytes
+    assert 0 < copy.size - 4 * rows * (t_tk.TRI_F + t_tk.HIT_F) < 100_000
 
 
 def test_panda_arm_tile_groups_are_the_unions_of_its_runs(arm_kscene):
